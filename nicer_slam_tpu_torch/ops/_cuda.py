@@ -1,0 +1,161 @@
+"""Build, load and launch the hand-written Hopper kernels (``csrc/*.cu``).
+
+The kernels are compiled with ``nvcc`` for ``sm_90a`` into ONE shared library
+with a plain C interface and loaded through ``ctypes`` — no PyTorch headers,
+so a build takes seconds. The build happens on first use, into
+``<repo>/build/kernels/``, from the sources in the checkout only; the library
+name carries a hash of the sources and flags, so an edited source rebuilds.
+
+Every C entry point takes its pointers and the CUDA stream as ``void*`` and
+returns ``cudaGetLastError()`` after its launch; :func:`launch` raises on a
+non-zero code and counts the launch per kernel in a plain integer, so a run
+can show that the main path went through each kernel.
+
+Nothing here runs at import time: the CPU tests import every module of the
+package on a machine without ``nvcc`` or a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import Dict, Optional
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+# kernel name -> launches since the last reset (forward and backward kernels
+# are separate entries)
+KERNELS = ("hash_encode_with_grad.fwd", "hash_encode_with_grad.bwd",
+           "hash_encode.fwd", "hash_encode.bwd",
+           "composite.fwd", "composite.bwd",
+           "importance_sample")
+_launches: Dict[str, int] = {k: 0 for k in KERNELS}
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry point -> argtypes (all return int = cudaError_t)
+_SIGNATURES = {
+    # x, table, lvl_meta, lvl_scale, feats, dfeat, N, L, C, T, size, stream
+    "nsl_hash_encode_fwd": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I64, _F, _P],
+    # x, table, meta, scale, g_feat, g_dfeat, g_table, g_x_partial,
+    # N, L, C, T, size, stream
+    "nsl_hash_encode_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I,
+                            _I64, _F, _P],
+    # z, density, rgb, normals, weights, rgb_out, depth_out, normal_out,
+    # R, S, stream
+    "nsl_composite_fwd": [_P] * 8 + [_I64, _I, _P],
+    # z, density, rgb, normals, g_weights, g_rgb_out, g_depth, g_normal_out,
+    # g_density, g_rgb, g_normals, R, S, stream
+    "nsl_composite_bwd": [_P] * 11 + [_I64, _I, _P],
+    # rays_o, rays_d, cache, t_rand, perm, eik_idx, z_out, z_eik,
+    # R, res, Ne, Ns, Nextra, bound, near, far_max, t_step, u_step, stream
+    "nsl_importance_sample": [_P] * 8 + [_I64, _I, _I, _I, _I, _F, _F, _F,
+                                         _F, _F, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def nvcc_path() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc"),
+                 shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the Hopper kernels "
+                       "are built from csrc/ on first use")
+
+
+def _sources():
+    return sorted(os.path.join(SRC_DIR, f) for f in os.listdir(SRC_DIR)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libnicer_slam_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile csrc/*.cu into the shared library unless it is already built;
+    returns its path."""
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+           *[s for s in _sources() if s.endswith(".cu")]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, path)
+    return path
+
+
+def library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def launch(kernel: str, entry: str, work: int, *args) -> None:
+    """Call the C entry point ``entry`` on the current stream, raise on a
+    CUDA error, and count one launch of ``kernel`` (an entry point launches
+    nothing when its ``work`` count, the rows it covers, is 0)."""
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = getattr(library(), entry)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry}: CUDA error {rc}")
+    if work > 0:
+        _launches[kernel] += 1
+
+
+def ptr(t: Optional[torch.Tensor]):
+    """Device pointer of a tensor (None -> NULL)."""
+    return None if t is None else t.data_ptr()
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
+          device: Optional[torch.device] = None) -> None:
+    """Validate a kernel operand: CUDA, dtype, shape, contiguity."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for k in _launches:
+        _launches[k] = 0

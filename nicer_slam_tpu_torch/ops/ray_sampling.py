@@ -1,0 +1,175 @@
+"""Ray sampling: stratified uniform + inverse-CDF importance sampling
+(counterpart of nicer_slam_tpu/ops/ray_sampling.py): kernel K5.
+
+The 640-sample prepass reads a periodically refreshed ``[res³]`` density
+volume (the "cached" prepass, models/scene_model.build_density_cache)
+trilinearly; ``importance_sample`` fuses that read with the whole sampler,
+and ``importance_sample_plain`` is its plain version (the CPU path and the
+reference for the comparisons on the card).
+
+Every random draw is an input: ``t_rand [R, Ne]`` (stratified jitter),
+``perm [N_extra]`` (the shared extra bins) and ``eik_idx [R]`` (the
+eikonal anchor). Rays are detached: z never carries a pose gradient.
+
+On the card K5 is latency bound: per ray, 640 trilinear reads of an
+L2-resident 8 MB volume and two sequential 640-long scans. One 128-thread
+block per ray runs the reads, the binary searches and the rank sort in
+parallel and keeps everything but z_vals and z_eik in shared memory
+(csrc/sampler.cu).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..utils.camera import near_far_from_cube
+from . import _cuda
+
+
+class SamplerConfig(NamedTuple):
+    scene_bounding_sphere: float = 1.0
+    near: float = 0.0
+    N_samples: int = 64
+    N_samples_eval: int = 640
+    N_samples_extra: int = 32
+    prepass_mode: str = "cached"
+    prepass_cache_res: int = 128
+
+    @property
+    def uniform_far(self) -> float:
+        # UniformSampler(take_sphere_intersection=True) far: 2·bound·1.75
+        return 2.0 * self.scene_bounding_sphere * 1.75
+
+    @property
+    def total_samples(self) -> int:
+        return self.N_samples + self.N_samples_extra + 2
+
+
+def _step(n: int) -> float:
+    return float(np.float32(1.0 / (n - 1)))
+
+
+def linspace01(n: int, device=None) -> torch.Tensor:
+    """float32 linspace(0, 1, n) with the reference's rounding:
+    ``i · f32(1/(n-1))``, last element exactly 1."""
+    t = torch.arange(n, dtype=torch.float32, device=device) * _step(n)
+    t[-1] = 1.0
+    return t
+
+
+def uniform_z_vals(cfg: SamplerConfig, rays_o: torch.Tensor,
+                   rays_d: torch.Tensor, t_rand: Optional[torch.Tensor]):
+    """Stratified samples from the cube intersection -> (z [R,Ne],
+    near [R,1], far [R,1]); ``t_rand`` None = no jitter (eval)."""
+    rays_o, rays_d = rays_o.detach(), rays_d.detach()
+    _, far = near_far_from_cube(rays_o, rays_d, bound=cfg.scene_bounding_sphere,
+                                near_min=cfg.near, far_max=cfg.uniform_far)
+    near = torch.full_like(far, cfg.near)
+    t = linspace01(cfg.N_samples_eval, rays_o.device)
+    z_vals = near * (1.0 - t) + far * t
+    if t_rand is not None:
+        mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        upper = torch.cat([mids, z_vals[..., -1:]], -1)
+        lower = torch.cat([z_vals[..., :1], mids], -1)
+        z_vals = lower + (upper - lower) * t_rand
+    return z_vals, near, far
+
+
+def sample_cdf(bins: torch.Tensor, weights: torch.Tensor, n: int) -> torch.Tensor:
+    """Deterministic inverse-CDF sampling at u = linspace(0, 1, n)."""
+    pdf = weights[..., :-1] + 1e-5
+    pdf = pdf / pdf.sum(-1, keepdim=True)
+    cdf = torch.cumsum(pdf, -1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)
+    u = linspace01(n, bins.device).expand(cdf.shape[0], n).contiguous()
+    inds = torch.searchsorted(cdf.contiguous(), u, right=True)
+    below = (inds - 1).clamp_min(0)
+    above = inds.clamp_max(cdf.shape[-1] - 1)
+    cdf_g0 = torch.gather(cdf, -1, below)
+    cdf_g1 = torch.gather(cdf, -1, above)
+    bins_g0 = torch.gather(bins, -1, below)
+    bins_g1 = torch.gather(bins, -1, above)
+    denom = cdf_g1 - cdf_g0
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    t = (u - cdf_g0) / denom
+    return bins_g0 + t * (bins_g1 - bins_g0)
+
+
+def density_cache_lookup(cache: torch.Tensor, res: int, pts: torch.Tensor) -> torch.Tensor:
+    """Trilinear read of the plain [res³] density volume (flat index
+    (x·res + y)·res + z): [N,3] -> [N]; 0 outside |p| <= 1."""
+    g = (pts + 1.0) * (0.5 * (res - 1))
+    g0 = torch.floor(g).to(torch.int64).clamp(0, res - 2)
+    f = (g - g0.to(g.dtype)).clamp(0.0, 1.0)
+    base = (g0[:, 0] * res + g0[:, 1]) * res + g0[:, 2]
+    dens = torch.zeros_like(pts[:, 0])
+    for c in range(8):
+        bx, by, bz = c & 1, (c >> 1) & 1, (c >> 2) & 1
+        w = ((f[:, 0] if bx else 1.0 - f[:, 0]) * (f[:, 1] if by else 1.0 - f[:, 1])
+             * (f[:, 2] if bz else 1.0 - f[:, 2]))
+        dens = dens + cache[base + bx * res * res + by * res + bz] * w
+    inb = (pts.abs() <= 1.0).all(dim=-1)
+    return torch.where(inb, dens, torch.zeros_like(dens))
+
+
+def importance_sample_plain(cfg: SamplerConfig, rays_o: torch.Tensor,
+                            rays_d: torch.Tensor, cache: torch.Tensor,
+                            t_rand: Optional[torch.Tensor], perm: torch.Tensor,
+                            eik_idx: torch.Tensor):
+    """Plain version of K5 (ray_sampler.py:90-166 with the cached prepass):
+    (z_vals [R, Ns+Nextra+2] sorted, z_eik [R,1])."""
+    with torch.no_grad():
+        z_vals, near, far = uniform_z_vals(cfg, rays_o, rays_d, t_rand)
+        R, Ne = z_vals.shape
+        pts = rays_o.detach()[:, None, :] + z_vals[..., None] * rays_d.detach()[:, None, :]
+        density = density_cache_lookup(cache, cfg.prepass_cache_res,
+                                       pts.reshape(-1, 3)).reshape(R, Ne)
+        dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
+                           torch.full_like(z_vals[:, :1], 1e10)], -1)
+        free_energy = dists * density
+        shifted = torch.cat([torch.zeros_like(free_energy[:, :1]),
+                             free_energy[:, :-1]], -1)
+        weights = (1.0 - torch.exp(-free_energy)) * torch.exp(-torch.cumsum(shifted, -1))
+        z_samples = sample_cdf(z_vals, weights, cfg.N_samples)
+        z_all = torch.cat([z_samples, near, far, z_vals[:, perm]], -1)
+        z_all, _ = torch.sort(z_all, -1)
+        z_eik = torch.gather(z_all, -1, eik_idx.reshape(R, 1))
+    return z_all, z_eik
+
+
+def importance_sample(cfg: SamplerConfig, rays_o: torch.Tensor,
+                      rays_d: torch.Tensor, cache: torch.Tensor,
+                      t_rand: Optional[torch.Tensor], perm: torch.Tensor,
+                      eik_idx: torch.Tensor):
+    """K5: the cached-prepass importance sampler -> (z_vals [R, S] sorted,
+    z_eik [R, 1]). Plain version on CPU, kernel on CUDA."""
+    if rays_o.device.type == "cpu":
+        return importance_sample_plain(cfg, rays_o, rays_d, cache, t_rand,
+                                       perm, eik_idx)
+    if rays_o.device.type != "cuda":
+        raise ValueError(f"importance_sample: unsupported device {rays_o.device}")
+    R = rays_o.shape[0]
+    Ne, Ns, Nx = cfg.N_samples_eval, cfg.N_samples, cfg.N_samples_extra
+    res = cfg.prepass_cache_res
+    dev = rays_o.device
+    rays_o, rays_d = rays_o.detach().contiguous(), rays_d.detach().contiguous()
+    _cuda.check(rays_o, "rays_o", torch.float32, (R, 3))
+    _cuda.check(rays_d, "rays_d", torch.float32, (R, 3), device=dev)
+    _cuda.check(cache, "cache", torch.float32, (res ** 3,), device=dev)
+    if t_rand is not None:
+        _cuda.check(t_rand, "t_rand", torch.float32, (R, Ne), device=dev)
+    _cuda.check(perm, "perm", torch.int64, (Nx,), device=dev)
+    _cuda.check(eik_idx, "eik_idx", torch.int64, (R,), device=dev)
+    St = cfg.total_samples
+    z_out = torch.empty((R, St), dtype=torch.float32, device=dev)
+    z_eik = torch.empty((R, 1), dtype=torch.float32, device=dev)
+    _cuda.launch("importance_sample", "nsl_importance_sample", R,
+                 rays_o.data_ptr(), rays_d.data_ptr(), cache.data_ptr(),
+                 _cuda.ptr(t_rand), perm.data_ptr(), eik_idx.data_ptr(),
+                 z_out.data_ptr(), z_eik.data_ptr(), R, res, Ne, Ns, Nx,
+                 float(cfg.scene_bounding_sphere), float(cfg.near),
+                 float(cfg.uniform_far), _step(Ne), _step(Ns))
+    return z_out, z_eik

@@ -1,0 +1,267 @@
+"""Parity of the torch port's small ops with the JAX package's, on the CPU:
+camera math, positional encoding, density, the composite (K4's plain
+version) forward and backward, the importance sampler (K5's plain version)
+with injected draws and the same density cache, and the loss stack's
+masked mean. Plus: the port never imports jax.
+
+Tolerance: atol 1e-5 (float32; the packages sum in different orders),
+z_vals to 1e-5. Exact equality where the arithmetic is identical.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nicer_slam_tpu.models import losses as jlosses
+from nicer_slam_tpu.models import scene_model as jsm
+from nicer_slam_tpu.ops import density as jdens
+from nicer_slam_tpu.ops import embedder as jemb
+from nicer_slam_tpu.ops import ray_sampling as jrs
+from nicer_slam_tpu.ops import volume_rendering as jvr
+from nicer_slam_tpu.utils import camera as jcam
+from nicer_slam_tpu_torch.models import losses as tlosses
+from nicer_slam_tpu_torch.ops import density as tdens
+from nicer_slam_tpu_torch.ops import embedder as temb
+from nicer_slam_tpu_torch.ops import ray_sampling as trs
+from nicer_slam_tpu_torch.ops import volume_rendering as tvr
+from nicer_slam_tpu_torch.utils import camera as tcam
+
+from _torch_draws import render_draws
+
+ATOL = 1e-5
+T = torch.from_numpy
+
+
+def _poses(rng, n):
+    q = rng.standard_normal((n, 7)).astype(np.float32)
+    q[:, 4:] *= 0.3
+    return q
+
+
+def test_camera_matches_jax():
+    rng = np.random.default_rng(0)
+    q = _poses(rng, 5)
+    np.testing.assert_allclose(tcam.camera_from_tensor(T(q)).numpy(),
+                               np.asarray(jcam.camera_from_tensor(jnp.asarray(q))),
+                               atol=1e-6)
+    c2w = np.asarray(jcam.camera_from_tensor(jnp.asarray(q)))
+    K = np.tile(np.array([[50, 0.5, 31, 0], [0, 48, 23, 0], [0, 0, 1, 0], [0, 0, 0, 1]],
+                         np.float32), (5, 1, 1))
+    uv = rng.uniform(0, 60, (5, 2)).astype(np.float32)
+    for a, b in zip(tcam.rays_from_uv(T(uv), T(c2w), T(K)),
+                    jcam.rays_from_uv(jnp.asarray(uv), jnp.asarray(c2w), jnp.asarray(K))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
+    o = rng.uniform(-1.5, 1.5, (64, 3)).astype(np.float32)
+    d = rng.standard_normal((64, 3)).astype(np.float32)
+    for a, b in zip(tcam.near_far_from_cube(T(o), T(d), 1.0, 0.0, 3.5),
+                    jcam.near_far_from_cube(jnp.asarray(o), jnp.asarray(d), 1.0, 0.0, 3.5)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+    # numpy helpers: pose <-> 7-vector, trust clamp, projection decomposition
+    for p in c2w[:3]:
+        pn = p / np.linalg.norm(q[0, :4])
+        np.testing.assert_allclose(tcam.tensor_from_camera_np(p), jcam.tensor_from_camera_np(p))
+        t7 = jcam.tensor_from_camera_np(p)
+        np.testing.assert_allclose(tcam.camera_from_tensor_np(t7),
+                                   jcam.camera_from_tensor_np(t7), atol=1e-6)
+        np.testing.assert_allclose(
+            tcam.clamp_pose_to_anchor_np(p, c2w[4], 0.05, 2.0),
+            jcam.clamp_pose_to_anchor_np(p, c2w[4], 0.05, 2.0))
+        assert np.isfinite(pn).all()
+    P = (K[0] @ np.linalg.inv(np.asarray(tcam.camera_from_tensor_np(
+        jcam.tensor_from_camera_np(c2w[0])))))[:3]
+    for a, b in zip(tcam.load_K_Rt_from_P(P), jcam.load_K_Rt_from_P(P)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_positional_encoding_and_contract():
+    rng = np.random.default_rng(1)
+    x = rng.uniform(-1, 1, (33, 3)).astype(np.float32)
+    cot = rng.standard_normal((33, 3 * 13)).astype(np.float32)
+    np.testing.assert_allclose(temb.positional_encoding(T(x), 6).numpy(),
+                               np.asarray(jemb.positional_encoding(jnp.asarray(x), 6)),
+                               atol=1e-6)
+    np.testing.assert_allclose(
+        temb.positional_encoding_grad_contract(T(x), 6, T(cot)).numpy(),
+        np.asarray(jemb.positional_encoding_grad_contract(jnp.asarray(x), 6,
+                                                          jnp.asarray(cot))),
+        atol=ATOL)
+
+
+def test_density_matches_jax():
+    rng = np.random.default_rng(2)
+    sdf = rng.standard_normal(200).astype(np.float32) * 0.05
+    sdf[:3] = 0.0                                      # sign(0) = 0 in both
+    beta = rng.uniform(0.002, 0.02, 200).astype(np.float32)
+    np.testing.assert_allclose(tdens.laplace_density(T(sdf), T(beta)).numpy(),
+                               np.asarray(jdens.laplace_density(jnp.asarray(sdf),
+                                                                jnp.asarray(beta))),
+                               rtol=1e-6)
+    x = rng.uniform(-1.02, 1.02, (500, 3)).astype(np.float32)
+    vox = np.zeros((16, 16, 16), np.float32)
+    v_t = tdens.update_voxels(T(vox), T(x), 16)
+    v_j = jdens.update_voxels(jnp.asarray(vox), jnp.asarray(x), 16)
+    np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j))
+    assert np.all(vox == 0)                            # functional update
+    np.testing.assert_allclose(
+        tdens.grid_predefined_beta(v_t, T(x), 16).numpy(),
+        np.asarray(jdens.grid_predefined_beta(v_j, jnp.asarray(x), 16)), rtol=1e-6)
+
+
+def _composite_jax(z, density, rgb, normals):
+    w = jvr.render_weights(z, density)
+    wsum = w.sum(1, keepdims=True)
+    return (w, (w[..., None] * rgb).sum(1), (w * z).sum(1, keepdims=True) / (wsum + 1e-8),
+            (w[..., None] * normals).sum(1))
+
+
+def test_composite_matches_jax_forward_and_backward():
+    """K4's plain version against render_weights + the scene model's
+    composites, values and the vjp of all four outputs."""
+    rng = np.random.default_rng(4)
+    R, S = 16, 26
+    z = np.sort(rng.uniform(0.1, 3.0, (R, S)), 1).astype(np.float32)
+    dens = rng.uniform(0, 30, (R, S)).astype(np.float32)
+    dens[0] = 0.0                                      # an empty ray
+    rgb = rng.uniform(0, 1, (R, S, 3)).astype(np.float32)
+    nrm = rng.standard_normal((R, S, 3)).astype(np.float32)
+    cots = [rng.standard_normal(s).astype(np.float32)
+            for s in ((R, S), (R, 3), (R, 1), (R, 3))]
+
+    outs_j, vjp = jax.vjp(lambda d, c, n: _composite_jax(jnp.asarray(z), d, c, n),
+                          jnp.asarray(dens), jnp.asarray(rgb), jnp.asarray(nrm))
+    grads_j = vjp(tuple(jnp.asarray(c) for c in cots))
+    ins = [T(a).requires_grad_(True) for a in (dens, rgb, nrm)]
+    outs_t = tvr.composite(T(z), *ins)
+    grads_t = torch.autograd.grad(outs_t, ins, [T(c) for c in cots])
+    for a, b in zip(outs_t, outs_j):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), atol=ATOL)
+    for a, b in zip(grads_t, grads_j):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL, rtol=1e-5)
+
+
+def _blocked_cache(vol: np.ndarray) -> np.ndarray:
+    """The JAX package's [res³, 8] cell-blocked layout of a plain volume."""
+    blocks = []
+    for c in range(8):
+        v = vol
+        for bit, ax in ((1, 0), (2, 1), (4, 2)):
+            if c & bit:
+                v = np.roll(v, -1, axis=ax)
+        blocks.append(v.reshape(-1))
+    return np.stack(blocks, -1)
+
+
+def _match_all_but_one(a: np.ndarray, b: np.ndarray, tol: float) -> np.ndarray:
+    """Per row: True where every element of a matches one of b within tol,
+    except at most one (a greedy multiset match of sorted rows)."""
+    ok = np.zeros(a.shape[0], bool)
+    for r in range(a.shape[0]):
+        left = list(b[r])
+        misses = 0
+        for v in a[r]:
+            k = int(np.argmin(np.abs(np.asarray(left) - v)))
+            if abs(left[k] - v) <= tol:
+                left.pop(k)
+            else:
+                misses += 1
+        ok[r] = misses <= 1
+    return ok
+
+
+def test_sample_cdf_matches_jax():
+    """Inverse CDF on the same weights: every sample at u < 1 matches to
+    1e-5. The u = 1 sample depends on the last bit of the cdf's total
+    (cdf[-1] = 1 +- ulp, summed in a different order by each package): it
+    must lie in the last stratified bin in both."""
+    rng = np.random.default_rng(6)
+    R, Ne, n = 64, 64, 16
+    bins = np.sort(rng.uniform(0, 3, (R, Ne)), 1).astype(np.float32)
+    w = (rng.uniform(0, 1, (R, Ne)) ** 8).astype(np.float32)
+    w[:, -8:] = 0.0                                   # empty far end, as behind a surface
+    s_j = np.asarray(jrs._sample_cdf(jnp.asarray(bins), jnp.asarray(w), n))
+    s_t = trs.sample_cdf(T(bins), T(w), n).numpy()
+    np.testing.assert_allclose(s_t[:, :-1], s_j[:, :-1], atol=1e-5, rtol=0)
+    for s in (s_t, s_j):
+        assert np.all((s[:, -1] >= bins[:, -2] - 1e-6) & (s[:, -1] <= bins[:, -1] + 1e-6))
+
+
+@pytest.mark.parametrize("training", [True, False])
+def test_importance_sampler_matches_jax(training):
+    """K5's plain version: same cache, same replayed draws -> same z_vals
+    (to 1e-5), apart from the u = 1 inverse-CDF sample of a ray (see
+    test_sample_cdf_matches_jax); every ray matches on all other samples."""
+    res = 16
+    cfg_j = jrs.SamplerConfig(N_samples=16, N_samples_eval=64, N_samples_extra=8,
+                              prepass_mode="cached", prepass_cache_res=res)
+    cfg_t = trs.SamplerConfig(N_samples=16, N_samples_eval=64, N_samples_extra=8,
+                              prepass_mode="cached", prepass_cache_res=res)
+    rng = np.random.default_rng(5)
+    g = np.linspace(-1, 1, res, dtype=np.float32)
+    gx, gy, gz = np.meshgrid(g, g, g, indexing="ij")
+    sdf = np.sqrt(gx ** 2 + gy ** 2 + gz ** 2) - 0.5
+    vol = (60.0 / (1 + np.exp(sdf / 0.05))).astype(np.float32)
+    R = 32
+    o = np.tile(np.array([[0.0, 0.0, -0.95]], np.float32), (R, 1))
+    d = np.concatenate([rng.uniform(-0.4, 0.4, (R, 2)), np.ones((R, 1))], 1)
+    d = (d / (d * d).sum(-1, keepdims=True)).astype(np.float32)
+
+    key = jax.random.PRNGKey(7)
+    k_sample = jax.random.split(key, 3)[0]
+    blocked = jnp.asarray(_blocked_cache(vol))
+    z_j, e_j = jrs.importance_z_vals(
+        cfg_j, jnp.asarray(o), jnp.asarray(d), lambda p: jnp.zeros(p.shape[0]),
+        lambda s, p: jsm._density_cache_lookup(blocked, res, p), k_sample,
+        training=training)
+    dr = render_draws(key, cfg_t, R, 1.0, is_mapping=False)
+    perm = dr.perm if training else T(np.linspace(0, 63, 8).astype(np.int64))
+    z_t, e_t = trs.importance_sample(cfg_t, T(o), T(d), T(vol.reshape(-1)),
+                                     dr.t_rand if training else None, perm, dr.eik_idx)
+    z_j, e_j, z_t, e_t = (np.asarray(z_j), np.asarray(e_j), z_t.numpy(), e_t.numpy())
+    assert _match_all_but_one(z_t, z_j, 1e-5).all()
+    exact = np.abs(z_t - z_j).max(1) <= 1e-5
+    assert exact.mean() > 0.5
+    np.testing.assert_allclose(e_t[exact], e_j[exact], atol=1e-5, rtol=0)
+    # the trilinear read itself
+    p = rng.uniform(-1.02, 1.02, (300, 3)).astype(np.float32)
+    np.testing.assert_allclose(
+        trs.density_cache_lookup(T(vol.reshape(-1)), res, T(p)).numpy(),
+        np.asarray(jsm._density_cache_lookup(blocked, res, jnp.asarray(p))), atol=ATOL)
+
+
+def test_masked_mean_binarizes_fractional_weights():
+    """Pinned as the reference package has it: the numerator takes every
+    entry whose weight is non-zero at full value, the denominator sums the
+    fractional weights (so fractional weights scale the mean UP)."""
+    x = np.array([1.0, 2.0, 3.0, np.inf], np.float32)
+    m = np.array([0.5, 0.5, 1.0, 0.0], np.float32)
+    got = float(tlosses._masked_mean(T(x), T(m)))
+    assert got == pytest.approx(6.0 / 2.0)
+    assert got == pytest.approx(float(jlosses._masked_mean(jnp.asarray(x), jnp.asarray(m))))
+    # empty mask: 0, not NaN
+    assert float(tlosses._masked_mean(T(x), T(np.zeros(4, np.float32)))) == 0.0
+
+
+def test_port_never_imports_jax():
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    mods = ["nicer_slam_tpu_torch"] + [
+        f"nicer_slam_tpu_torch.{m}" for m in (
+            "datasets.synthetic", "ops._cuda", "ops.hash_encoder", "ops.ray_sampling", "ops.volume_rendering",
+            "ops.density", "ops.embedder", "ops.safe_math", "utils.camera",
+            "utils.profiling", "models.linear", "models.fields", "models.scene_model",
+            "models.losses", "slam.state", "slam.tracking", "slam.mapping",
+            "slam.frame_store", "slam.checkpoint", "slam.runner",
+            "datasets.scene_dataset", "training.exp_runner")]
+    code = ("import sys, importlib\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.'))\n"
+            "assert not bad, bad\nprint('ok')\n")
+    env = dict(os.environ, PYTHONPATH=repo)
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
