@@ -26,6 +26,17 @@
 // buffer (summed by the caller) so only the table needs atomics. The
 // table scatter is skipped entirely when the table needs no gradient
 // (tracking). Coalesced [T, C] rows and sorted scatters are later work.
+//
+// K3 replaces hash_encode_packed (:858-905) with its pack_table_bf16_pairs
+// (:849-855): the no-grad encode of the SDF grids (density-cache build,
+// the exact prepass of an eval render) from tables rounded to bfloat16,
+// nearest-even, as astype(bfloat16) rounds them. The TPU packs channel
+// pairs into uint32 words to halve its gather count; here the table is
+// [T, C] bf16, so a corner's C channels are one 16-byte (C = 8), 8-byte
+// (C = 4) or 4-byte (C = 2) load, half the sectors of the fp32 [C, T]
+// layout's C separate loads. Values widen to float32 exactly (a bf16 is
+// the top half of a float32) and the sums run in float32, as the
+// reference's. Forward only: the caller holds no gradient.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -233,6 +244,86 @@ __global__ void hash_bwd_kernel(const float* __restrict__ x,
   }
 }
 
+// the C bf16 channels of one [T, C] row, widened to float32
+template <int C>
+__device__ __forceinline__ void load_bf16_row(const uint16_t* __restrict__ t,
+                                              uint32_t row, float v[C]);
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+template <>
+__device__ __forceinline__ void load_bf16_row<2>(const uint16_t* __restrict__ t,
+                                                 uint32_t row, float v[2]) {
+  uint32_t w = __ldg(reinterpret_cast<const uint32_t*>(t) + row);
+  v[0] = bf16_lo(w);
+  v[1] = bf16_hi(w);
+}
+
+template <>
+__device__ __forceinline__ void load_bf16_row<4>(const uint16_t* __restrict__ t,
+                                                 uint32_t row, float v[4]) {
+  uint2 w = __ldg(reinterpret_cast<const uint2*>(t) + row);
+  v[0] = bf16_lo(w.x);
+  v[1] = bf16_hi(w.x);
+  v[2] = bf16_lo(w.y);
+  v[3] = bf16_hi(w.y);
+}
+
+template <>
+__device__ __forceinline__ void load_bf16_row<8>(const uint16_t* __restrict__ t,
+                                                 uint32_t row, float v[8]) {
+  uint4 w = __ldg(reinterpret_cast<const uint4*>(t) + row);
+  uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = bf16_lo(ws[i]);
+    v[2 * i + 1] = bf16_hi(ws[i]);
+  }
+}
+
+// K3: features from a [T, C] bf16 table; one thread per (point, level)
+template <int C>
+__global__ void hash_bf16_fwd_kernel(const float* __restrict__ x,
+                                     const uint16_t* __restrict__ table,
+                                     const int* __restrict__ meta,
+                                     const float* __restrict__ scl,
+                                     float* __restrict__ feats, int64_t N,
+                                     int L, float size) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= N * L) return;
+  int64_t n = i / L;
+  int l = (int)(i - n * L);
+  float xp[3] = {x[n * 3], x[n * 3 + 1], x[n * 3 + 2]};
+  LevelGeom g;
+  bool oob = level_geom(xp, size, scl[2 * l], scl[2 * l + 1], g);
+  float acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
+  if (!oob) {
+    uint32_t offset = (uint32_t)meta[4 * l], lsize = (uint32_t)meta[4 * l + 1];
+    uint32_t res = (uint32_t)meta[4 * l + 2];
+    bool dense = meta[4 * l + 3] != 0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      uint32_t row = corner_row(g, k, res, lsize, offset, dense);
+      float w, dw[3];
+      corner_weights(g, k, w, dw);
+      float v[C];
+      load_bf16_row<C>(table, row, v);
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[c] += w * v[c];
+    }
+  }
+  float* fo = feats + (n * L + l) * C;
+#pragma unroll
+  for (int c = 0; c < C; ++c) fo[c] = acc[c];
+}
+
 constexpr int kThreads = 256;
 
 inline unsigned blocks_for(int64_t work) {
@@ -304,6 +395,29 @@ int nsl_hash_encode_bwd(const void* x, const void* table, const void* meta,
     case 2: args(launch_bwd<2>); break;
     case 4: args(launch_bwd<4>); break;
     case 8: args(launch_bwd<8>); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// K3: table is [T, C] bfloat16 (C in {2, 4, 8}), 2 C bytes per row, the
+// base aligned to 16 bytes (the wrapper checks)
+int nsl_hash_encode_bf16_fwd(const void* x, const void* table,
+                             const void* meta, const void* scl, void* feats,
+                             int64_t N, int L, int C, float size,
+                             void* stream) {
+  if (N == 0) return 0;
+  auto s = (cudaStream_t)stream;
+  unsigned blocks = blocks_for(N * L);
+  const float* xf = (const float*)x;
+  const uint16_t* t = (const uint16_t*)table;
+  const int* m = (const int*)meta;
+  const float* sc = (const float*)scl;
+  float* f = (float*)feats;
+  switch (C) {
+    case 2: hash_bf16_fwd_kernel<2><<<blocks, kThreads, 0, s>>>(xf, t, m, sc, f, N, L, size); break;
+    case 4: hash_bf16_fwd_kernel<4><<<blocks, kThreads, 0, s>>>(xf, t, m, sc, f, N, L, size); break;
+    case 8: hash_bf16_fwd_kernel<8><<<blocks, kThreads, 0, s>>>(xf, t, m, sc, f, N, L, size); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

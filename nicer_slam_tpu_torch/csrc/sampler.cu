@@ -16,6 +16,13 @@
 //   7. z_eik = sorted[eik_idx].
 // All random draws are inputs. No gradient.
 //
+// Given-density mode replaces the same pipeline with the "exact" prepass
+// (ray_sampling.py:131-134 with scene_model.py:246-260), which an eval
+// render takes: the caller computes the unjittered z [R, Ne] and the
+// densities of the SDF network (K3) with the voxel beta (K7) at those z,
+// and the kernel runs steps 3-7 on them. z comes in as an input, so the
+// inverse CDF uses bit for bit the z the network was evaluated at.
+//
 // What bounds it on the card: per ray, 640 trilinear reads of an 8 MB
 // volume (L2 resident) and two sequential 640-long scans; the output is
 // 98 floats. It is latency bound, not bandwidth bound. The design gives
@@ -62,60 +69,18 @@ __device__ __forceinline__ float cache_read(const float* __restrict__ cache,
   return acc;
 }
 
-__global__ void importance_sample_kernel(
-    const float* __restrict__ rays_o, const float* __restrict__ rays_d,
-    const float* __restrict__ cache, const float* __restrict__ t_rand,
-    const int64_t* __restrict__ perm, const int64_t* __restrict__ eik_idx,
-    float* __restrict__ z_out, float* __restrict__ z_eik, int res, int Ne,
-    int Ns, int Nextra, float bound, float near, float far_max, float t_step,
-    float u_step) {
-  extern __shared__ float smem[];
-  float* zs = smem;             // [Ne] stratified z
-  float* buf = smem + Ne;       // [Ne] free energy, then cdf
-  float* merged = buf + Ne;     // [Ns + 2 + Nextra]
+// Steps 3-7 for one ray, all threads of the block: zs [Ne] holds the
+// stratified z and buf [Ne] the free energy dist * density; writes the
+// sorted z_out row [St] and z_eik.
+__device__ void sample_from_free_energy(float* zs, float* buf, float* merged,
+                                        int Ne, int Ns, int Nextra,
+                                        float near, float far,
+                                        const int64_t* __restrict__ perm,
+                                        float u_step, int64_t eik,
+                                        float* __restrict__ z_out_row,
+                                        float* __restrict__ z_eik_out) {
   const int St = Ns + 2 + Nextra;
-  const int64_t r = blockIdx.x;
   const int tid = threadIdx.x;
-
-  float o[3] = {rays_o[r * 3], rays_o[r * 3 + 1], rays_o[r * 3 + 2]};
-  float d[3] = {rays_d[r * 3], rays_d[r * 3 + 1], rays_d[r * 3 + 2]};
-  // far from the cube intersection; near is the configured constant
-  float nc = -INFINITY, fc = INFINITY;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    float t0 = (-bound - o[k]) / (d[k] + 1e-15f);
-    float t1 = (bound - o[k]) / (d[k] + 1e-15f);
-    nc = fmaxf(nc, fminf(t0, t1));
-    fc = fminf(fc, fmaxf(t0, t1));
-  }
-  float far = (fc < nc) ? 1e9f : fc;
-  far = fminf(far, far_max);
-
-  // 1. stratified z
-  for (int i = tid; i < Ne; i += kThreads) {
-    float ti = (i == Ne - 1) ? 1.0f : (float)i * t_step;
-    float zi = near * (1.0f - ti) + far * ti;
-    if (t_rand != nullptr) {
-      float tn = (i + 1 == Ne - 1) ? 1.0f : (float)(i + 1) * t_step;
-      float tp = (i - 1 == Ne - 1) ? 1.0f : (float)(i - 1) * t_step;
-      float zn = near * (1.0f - tn) + far * tn;
-      float zp = near * (1.0f - tp) + far * tp;
-      float upper = (i < Ne - 1) ? 0.5f * (zi + zn) : zi;
-      float lower = (i > 0) ? 0.5f * (zp + zi) : zi;
-      zi = lower + (upper - lower) * t_rand[r * Ne + i];
-    }
-    zs[i] = zi;
-  }
-  __syncthreads();
-  // 2. cache read -> free energy
-  for (int i = tid; i < Ne; i += kThreads) {
-    float z = zs[i];
-    float sg = cache_read(cache, res, o[0] + z * d[0], o[1] + z * d[1],
-                          o[2] + z * d[2]);
-    float dist = (i < Ne - 1) ? (zs[i + 1] - z) : 1e10f;
-    buf[i] = dist * sg;
-  }
-  __syncthreads();
   // 3-4. weights, pdf, cdf: sequential, in the plain version's order
   if (tid == 0) {
     float run = 0.0f;
@@ -173,8 +138,92 @@ __global__ void importance_sample_kernel(
     sorted[rank] = v;
   }
   __syncthreads();
-  for (int j = tid; j < St; j += kThreads) z_out[r * St + j] = sorted[j];
-  if (tid == 0) z_eik[r] = sorted[eik_idx[r]];
+  for (int j = tid; j < St; j += kThreads) z_out_row[j] = sorted[j];
+  if (tid == 0) *z_eik_out = sorted[eik];
+}
+
+__global__ void importance_sample_kernel(
+    const float* __restrict__ rays_o, const float* __restrict__ rays_d,
+    const float* __restrict__ cache, const float* __restrict__ t_rand,
+    const int64_t* __restrict__ perm, const int64_t* __restrict__ eik_idx,
+    float* __restrict__ z_out, float* __restrict__ z_eik, int res, int Ne,
+    int Ns, int Nextra, float bound, float near, float far_max, float t_step,
+    float u_step) {
+  extern __shared__ float smem[];
+  float* zs = smem;             // [Ne] stratified z
+  float* buf = smem + Ne;       // [Ne] free energy, then cdf
+  float* merged = buf + Ne;     // [Ns + 2 + Nextra]
+  const int St = Ns + 2 + Nextra;
+  const int64_t r = blockIdx.x;
+  const int tid = threadIdx.x;
+
+  float o[3] = {rays_o[r * 3], rays_o[r * 3 + 1], rays_o[r * 3 + 2]};
+  float d[3] = {rays_d[r * 3], rays_d[r * 3 + 1], rays_d[r * 3 + 2]};
+  // far from the cube intersection; near is the configured constant
+  float nc = -INFINITY, fc = INFINITY;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float t0 = (-bound - o[k]) / (d[k] + 1e-15f);
+    float t1 = (bound - o[k]) / (d[k] + 1e-15f);
+    nc = fmaxf(nc, fminf(t0, t1));
+    fc = fminf(fc, fmaxf(t0, t1));
+  }
+  float far = (fc < nc) ? 1e9f : fc;
+  far = fminf(far, far_max);
+
+  // 1. stratified z
+  for (int i = tid; i < Ne; i += kThreads) {
+    float ti = (i == Ne - 1) ? 1.0f : (float)i * t_step;
+    float zi = near * (1.0f - ti) + far * ti;
+    if (t_rand != nullptr) {
+      float tn = (i + 1 == Ne - 1) ? 1.0f : (float)(i + 1) * t_step;
+      float tp = (i - 1 == Ne - 1) ? 1.0f : (float)(i - 1) * t_step;
+      float zn = near * (1.0f - tn) + far * tn;
+      float zp = near * (1.0f - tp) + far * tp;
+      float upper = (i < Ne - 1) ? 0.5f * (zi + zn) : zi;
+      float lower = (i > 0) ? 0.5f * (zp + zi) : zi;
+      zi = lower + (upper - lower) * t_rand[r * Ne + i];
+    }
+    zs[i] = zi;
+  }
+  __syncthreads();
+  // 2. cache read -> free energy
+  for (int i = tid; i < Ne; i += kThreads) {
+    float z = zs[i];
+    float sg = cache_read(cache, res, o[0] + z * d[0], o[1] + z * d[1],
+                          o[2] + z * d[2]);
+    float dist = (i < Ne - 1) ? (zs[i + 1] - z) : 1e10f;
+    buf[i] = dist * sg;
+  }
+  __syncthreads();
+  sample_from_free_energy(zs, buf, merged, Ne, Ns, Nextra, near, far, perm,
+                          u_step, eik_idx[r], z_out + r * St, z_eik + r);
+}
+
+// Given-density mode (the exact prepass of an eval render): z [R, Ne] and
+// the densities the SDF network gave at those z come in; near and far are
+// z's ends (linspace puts them there exactly).
+__global__ void importance_sample_given_kernel(
+    const float* __restrict__ z, const float* __restrict__ density,
+    const int64_t* __restrict__ perm, const int64_t* __restrict__ eik_idx,
+    float* __restrict__ z_out, float* __restrict__ z_eik, int Ne, int Ns,
+    int Nextra, float u_step) {
+  extern __shared__ float smem[];
+  float* zs = smem;
+  float* buf = smem + Ne;
+  float* merged = buf + Ne;
+  const int St = Ns + 2 + Nextra;
+  const int64_t r = blockIdx.x;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < Ne; i += kThreads) zs[i] = z[r * Ne + i];
+  __syncthreads();
+  for (int i = tid; i < Ne; i += kThreads) {
+    float dist = (i < Ne - 1) ? (zs[i + 1] - zs[i]) : 1e10f;
+    buf[i] = dist * density[r * Ne + i];
+  }
+  __syncthreads();
+  sample_from_free_energy(zs, buf, merged, Ne, Ns, Nextra, zs[0], zs[Ne - 1],
+                          perm, u_step, eik_idx[r], z_out + r * St, z_eik + r);
 }
 
 }  // namespace
@@ -198,6 +247,24 @@ int nsl_importance_sample(const void* rays_o, const void* rays_d,
       (const float*)t_rand, (const int64_t*)perm, (const int64_t*)eik_idx,
       (float*)z_out, (float*)z_eik, res, Ne, Ns, Nextra, bound, near, far_max,
       t_step, u_step);
+  return (int)cudaGetLastError();
+}
+
+int nsl_importance_sample_given(const void* z, const void* density,
+                                const void* perm, const void* eik_idx,
+                                void* z_out, void* z_eik, int64_t R, int Ne,
+                                int Ns, int Nextra, float u_step,
+                                void* stream) {
+  if (R == 0) return 0;
+  int St = Ns + 2 + Nextra;
+  if (St > Ne || Ne < 2 || Ns < 2) return (int)cudaErrorInvalidValue;
+  size_t smem = sizeof(float) * (size_t)(2 * Ne + St);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  importance_sample_given_kernel<<<(unsigned)R, kThreads, smem,
+                                   (cudaStream_t)stream>>>(
+      (const float*)z, (const float*)density, (const int64_t*)perm,
+      (const int64_t*)eik_idx, (float*)z_out, (float*)z_eik, Ne, Ns, Nextra,
+      u_step);
   return (int)cudaGetLastError();
 }
 

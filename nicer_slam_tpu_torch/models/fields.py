@@ -14,7 +14,7 @@ the MLP twice; K1's own backward is first order.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -235,6 +235,37 @@ def combine_get_outputs(net: CombineNet, x: torch.Tensor, stage: str = "fine"):
 
 def combine_gradient(net: CombineNet, x: torch.Tensor, stage: str = "fine"):
     return combine_get_outputs(net, x, stage)[2]
+
+
+# ---------------------------------------------------------------------------
+# bf16 inference path (K3) for the density-cache build and the exact
+# prepass of an eval render; no gradient
+# ---------------------------------------------------------------------------
+
+def pack_combine_tables(net: CombineNet) -> Dict[str, torch.Tensor]:
+    """Both SDF grids' tables as K3 reads them: [T, C] bfloat16."""
+    return {"coarse": he.pack_table_bf16(net.coarse.encoding),
+            "fine": he.pack_table_bf16(net.fine.encoding)}
+
+
+def _implicit_sdf_packed(net: ImplicitNet, packed: torch.Tensor,
+                         x: torch.Tensor) -> torch.Tensor:
+    if net.cfg.use_grid_feature:
+        feats = he.hash_encode_bf16(net.spec, packed,
+                                    (x / net.cfg.divide_factor).contiguous())
+    else:
+        feats = x.new_zeros((x.shape[0], net.cfg.grid_feature_dim))
+    return _mlp_forward(net, _mlp_input(net, x, feats))[:, 0]
+
+
+@torch.no_grad()
+def combine_sdf_packed(net: CombineNet, packed: Dict[str, torch.Tensor],
+                       x: torch.Tensor, stage: str = "fine") -> torch.Tensor:
+    """SDF [N] with both grids read from ``pack_combine_tables`` (K3)."""
+    s = _implicit_sdf_packed(net.coarse, packed["coarse"], x)
+    if stage == "coarse":
+        return s
+    return s + _implicit_sdf_packed(net.fine, packed["fine"], x)
 
 
 # ---------------------------------------------------------------------------

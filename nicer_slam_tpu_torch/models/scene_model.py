@@ -3,10 +3,14 @@ nicer_slam_tpu/models/scene_model.py).
 
 Rays live in one flat ``[R]`` batch with a per-ray keyframe-slot id. The
 path: rays -> importance sampler (K5, reading the cached ``[res³]`` prepass
-density) -> coarse+fine SDF with analytic normals (K1) -> color network
-(K2 on the color grid) -> Laplace density -> per-ray composite (K4) ->
-flow over the keyframe edge graph, photometric warp at patch size 1,
-eikonal points, the camera-space normal map and the SDF at the cameras.
+density; an eval render without a cache takes the exact prepass, the SDF
+network through K3 at every prepass sample) -> coarse+fine SDF with
+analytic normals (K1) -> Laplace density with the voxel-counter β (K7) ->
+per-ray composite (K4; in training with ``color_topk`` the weights pass
+picks the top-k samples and the color network, K2 on the color grid, runs
+only there) -> flow over the keyframe edge graph, photometric warp at
+patch size 1, eikonal points, the camera-space normal map and the SDF at
+the cameras.
 
 Every random draw is an argument (``RenderDraws``); ``make_render_draws``
 makes them from a torch Generator, and the tests hand in the JAX package's
@@ -24,9 +28,10 @@ import torch.nn as nn
 from nicer_slam_tpu.config import Config
 
 from ..ops import density as density_ops
-from ..ops.ray_sampling import SamplerConfig, importance_sample
+from ..ops.ray_sampling import (SamplerConfig, importance_sample,
+                                 importance_sample_given, uniform_z_vals)
 from ..ops.safe_math import safe_norm
-from ..ops.volume_rendering import composite
+from ..ops.volume_rendering import composite, topk_rgb, weights_topk
 from ..utils.camera import rays_from_uv
 from . import fields
 
@@ -43,6 +48,10 @@ class SceneConfig(NamedTuple):
     use_warp_loss: bool = True
     H: int = 680
     W: int = 1200
+    # in training, the color network runs only at the color_topk samples of
+    # largest weight per ray, their weights renormalised to the ray's whole
+    # weight (the JAX package's SceneConfig.color_topk); 0 = every sample
+    color_topk: int = 0
 
 
 def scene_config_from_conf(model_conf: Config, img_res, n_images: int) -> SceneConfig:
@@ -59,13 +68,12 @@ def scene_config_from_conf(model_conf: Config, img_res, n_images: int) -> SceneC
     )
     if sampler.prepass_mode != "cached":
         raise NotImplementedError(
-            f"prepass_mode {sampler.prepass_mode!r}: only the cached prepass "
-            f"is ported (set model.ray_sampler.prepass_mode = cached)")
+            f"prepass_mode {sampler.prepass_mode!r}: training with the exact "
+            f"prepass is not ported (set model.ray_sampler.prepass_mode = "
+            f"cached; eval renders take the exact prepass either way)")
     patchsizes = tuple(int(p) for p in model_conf.get_list("mapping_patchsizes", [1]))
     if patchsizes != (1,):
         raise NotImplementedError(f"warp patch sizes {patchsizes}: only (1,) is ported")
-    if model_conf.get_int("color_topk", 0) > 0:
-        raise NotImplementedError("color_topk > 0 is not ported yet")
     return SceneConfig(
         combine=fields.combine_config_from_conf(
             model_conf.get_config("implicit_network"), fvs),
@@ -79,6 +87,7 @@ def scene_config_from_conf(model_conf: Config, img_res, n_images: int) -> SceneC
         use_warp_loss=model_conf.get_bool("use_warp_loss", False),
         H=int(img_res[0]),
         W=int(img_res[1]),
+        color_topk=model_conf.get_int("color_topk", 0),
     )
 
 
@@ -117,18 +126,41 @@ def _density(cfg: SceneConfig, model: SceneModel, voxels, sdf_flat, pts_flat,
 def build_density_cache(cfg: SceneConfig, model: SceneModel,
                         voxels: torch.Tensor, n_chunks: int = 16) -> torch.Tensor:
     """Prepass density volume [res³] on the uniform linspace(-1, 1, res)
-    grid, flat index (x·res + y)·res + z: fp32 SDF through K2 on the coarse
-    and fine tables plus the voxel-counter β. The sampler (K5) reads it
-    trilinearly; the runner refreshes it."""
+    grid, flat index (x·res + y)·res + z: the SDF from the bf16-packed
+    coarse and fine tables (K3), as the JAX package builds it, plus the
+    voxel-counter β (K7). The sampler (K5) reads it trilinearly; the runner
+    refreshes it. The JAX package's [res³, 8] cell-blocked layout holds the
+    same values: its reads clip the cell to res - 2, so they never wrap."""
     res = cfg.sampler.prepass_cache_res
     dev = voxels.device
     xs = torch.linspace(-1.0, 1.0, res, dtype=torch.float32, device=dev)
     grid = torch.stack(torch.meshgrid(xs, xs, xs, indexing="ij"), -1).reshape(-1, 3)
+    packed = fields.pack_combine_tables(model.implicit)
     out = []
     for pts in grid.chunk(n_chunks):
-        sdf = fields.combine_sdf(model.implicit, pts.contiguous(), "fine")[:, 0]
+        pts = pts.contiguous()
+        sdf = fields.combine_sdf_packed(model.implicit, packed, pts, "fine")
         out.append(_density(cfg, model, voxels, sdf, pts))
     return torch.cat(out)
+
+
+@torch.no_grad()
+def _exact_prepass(cfg: SceneConfig, model: SceneModel, voxels: torch.Tensor,
+                   cam_loc: torch.Tensor, ray_dirs: torch.Tensor,
+                   perm: torch.Tensor, eik_idx: torch.Tensor, beta_scale=None):
+    """The exact prepass of an eval render (scene_model.py:246-287 with
+    ray_sampling.py:112-163, training=False): the SDF network from the
+    bf16-packed tables (K3) and the voxel β (K7) at the 640 unjittered z of
+    every ray, then K5 on those densities."""
+    sc = cfg.sampler
+    R = cam_loc.shape[0]
+    z, _, _ = uniform_z_vals(sc, cam_loc, ray_dirs, None)
+    pts = (cam_loc[:, None, :] + z[..., None] * ray_dirs[:, None, :]).reshape(-1, 3)
+    packed = fields.pack_combine_tables(model.implicit)
+    sdf = fields.combine_sdf_packed(model.implicit, packed, pts, "fine")
+    density = _density(cfg, model, voxels, sdf, pts, beta_scale)
+    return importance_sample_given(sc, z, density.reshape(R, sc.N_samples_eval),
+                                   perm, eik_idx)
 
 
 class RayBatch(NamedTuple):
@@ -182,9 +214,11 @@ def render_rays(cfg: SceneConfig, model: SceneModel, voxels: torch.Tensor,
                 beta_scale: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Forward pass over a flat ray batch. With ``is_mapping`` the output
     also holds the updated voxel counter (``voxels``) and the eikonal
-    gradients (``grad_theta``, ``grad_theta_nei``)."""
-    if density_cache is None:
-        raise ValueError("render_rays needs the prepass density cache")
+    gradients (``grad_theta``, ``grad_theta_nei``). Without a
+    ``density_cache`` the prepass is exact (eval renders only)."""
+    if density_cache is None and training:
+        raise NotImplementedError(
+            "training with the exact prepass is not ported: pass the density cache")
     R = batch.uv.shape[0]
     K = batch.intrinsics[batch.kf_slot]
     c2w = batch.poses[batch.kf_slot]
@@ -196,9 +230,14 @@ def render_rays(cfg: SceneConfig, model: SceneModel, voxels: torch.Tensor,
         ne = cfg.sampler.N_samples_eval
         perm = torch.as_tensor(np.linspace(0, ne - 1, cfg.sampler.N_samples_extra)
                                .astype(np.int64), device=ray_dirs.device)
-    z_vals, z_eik = importance_sample(
-        cfg.sampler, cam_loc, ray_dirs, density_cache,
-        draws.t_rand if training else None, perm, draws.eik_idx)
+    if density_cache is None:
+        z_vals, z_eik = _exact_prepass(cfg, model, voxels, cam_loc.detach(),
+                                       ray_dirs.detach(), perm, draws.eik_idx,
+                                       beta_scale)
+    else:
+        z_vals, z_eik = importance_sample(
+            cfg.sampler, cam_loc, ray_dirs, density_cache,
+            draws.t_rand if training else None, perm, draws.eik_idx)
     S = z_vals.shape[1]
 
     points = cam_loc[:, None, :] + z_vals[..., None] * ray_dirs[:, None, :]
@@ -209,14 +248,28 @@ def render_rays(cfg: SceneConfig, model: SceneModel, voxels: torch.Tensor,
 
     sdf, feature_vectors, gradients = fields.combine_get_outputs(
         model.implicit, points_flat, stage)
-    rgb_flat = fields.rendering_forward(model.render, points_flat, gradients,
-                                        dirs_flat, feature_vectors, color_stage)
-    density_flat = _density(cfg, model, new_voxels, sdf[:, 0], points_flat,
-                            beta_scale)
-    normals = gradients / (safe_norm(gradients, dim=-1, keepdim=True) + 1e-6)
-    weights, rgb_values, depth_values, normal_comp = composite(
-        z_vals, density_flat.reshape(R, S), rgb_flat.reshape(R, S, 3),
-        normals.reshape(R, S, 3))
+    density = _density(cfg, model, new_voxels, sdf[:, 0], points_flat,
+                       beta_scale).reshape(R, S)
+    normals = (gradients / (safe_norm(gradients, dim=-1, keepdim=True) + 1e-6)
+               ).reshape(R, S, 3)
+    Kc = cfg.color_topk
+    if training and 0 < Kc < S:
+        # color only at the Kc samples of largest weight (scene_model.py:
+        # 323-353); gradients reach the kept weights and the weight sum
+        weights, depth_values, normal_comp, topk_i = weights_topk(
+            z_vals, density, normals, Kc)
+        topk_w = torch.gather(weights, 1, topk_i)
+        flat_i = (torch.arange(R, device=topk_i.device)[:, None] * S + topk_i).reshape(-1)
+        rgb_k = fields.rendering_forward(
+            model.render, points_flat[flat_i], gradients[flat_i], dirs_flat[flat_i],
+            feature_vectors[flat_i], color_stage)
+        rgb_values = topk_rgb(topk_w, weights.sum(1, keepdim=True),
+                              rgb_k.reshape(R, Kc, 3))
+    else:
+        rgb_flat = fields.rendering_forward(model.render, points_flat, gradients,
+                                            dirs_flat, feature_vectors, color_stage)
+        weights, rgb_values, depth_values, normal_comp = composite(
+            z_vals, density, rgb_flat.reshape(R, S, 3), normals)
     surf_points = cam_loc + depth_values * ray_dirs                      # [R,3]
 
     out: Dict[str, torch.Tensor] = {}

@@ -3,8 +3,9 @@
 The kernels are compiled with ``nvcc`` for ``sm_90a`` into ONE shared library
 with a plain C interface and loaded through ``ctypes`` — no PyTorch headers,
 so a build takes seconds. The build happens on first use, into
-``<repo>/build/kernels/``, from the sources in the checkout only; the library
-name carries a hash of the sources and flags, so an edited source rebuilds.
+``<repo>/build/kernels/``, from the sources in the checkout only: one ``nvcc``
+per source, all started together, then one link. The library name carries a
+hash of the sources and flags, so an edited source rebuilds.
 
 Every C entry point takes its pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launch; :func:`launch` raises on a
@@ -29,15 +30,18 @@ import torch
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-c"]
+LINK_FLAGS = ARCH_FLAGS + ["-shared"]
 
 # kernel name -> launches since the last reset (forward and backward kernels
 # are separate entries)
 KERNELS = ("hash_encode_with_grad.fwd", "hash_encode_with_grad.bwd",
-           "hash_encode.fwd", "hash_encode.bwd",
+           "hash_encode.fwd", "hash_encode.bwd", "hash_encode_bf16",
            "composite.fwd", "composite.bwd",
-           "importance_sample")
+           "weights_topk.fwd", "weights_topk.bwd", "topk_rgb.fwd", "topk_rgb.bwd",
+           "importance_sample", "importance_sample_given",
+           "voxels.scatter", "voxels.beta")
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _P = ctypes.c_void_p
@@ -58,10 +62,26 @@ _SIGNATURES = {
     # z, density, rgb, normals, g_weights, g_rgb_out, g_depth, g_normal_out,
     # g_density, g_rgb, g_normals, R, S, stream
     "nsl_composite_bwd": [_P] * 11 + [_I64, _I, _P],
+    # x, table [T, C] bf16, meta, scale, feats, N, L, C, size, stream
+    "nsl_hash_encode_bf16_fwd": [_P] * 5 + [_I64, _I, _I, _F, _P],
+    # z, density, normals, weights, depth_out, normal_out, topk_idx,
+    # R, S, Kc, stream
+    "nsl_weights_topk_fwd": [_P] * 7 + [_I64, _I, _I, _P],
+    # topk_w, wsum, rgb, out, R, Kc, stream
+    "nsl_topk_rgb_fwd": [_P] * 4 + [_I64, _I, _P],
+    # topk_w, wsum, rgb, g_out, g_topk_w, g_wsum, g_rgb, R, Kc, stream
+    "nsl_topk_rgb_bwd": [_P] * 7 + [_I64, _I, _P],
     # rays_o, rays_d, cache, t_rand, perm, eik_idx, z_out, z_eik,
     # R, res, Ne, Ns, Nextra, bound, near, far_max, t_step, u_step, stream
     "nsl_importance_sample": [_P] * 8 + [_I64, _I, _I, _I, _I, _F, _F, _F,
                                          _F, _F, _P],
+    # z, density, perm, eik_idx, z_out, z_eik, R, Ne, Ns, Nextra, u_step,
+    # stream
+    "nsl_importance_sample_given": [_P] * 6 + [_I64, _I, _I, _I, _F, _P],
+    # x, counter, N, res, stream
+    "nsl_voxel_scatter": [_P, _P, _I64, _I, _P],
+    # x, counter, beta, N, res, -b·1e-4, d, a, c, stream
+    "nsl_voxel_beta": [_P, _P, _P, _I64, _I, _F, _F, _F, _F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -83,28 +103,43 @@ def _sources():
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libnicer_slam_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _check_run(cmd, proc, out, err) -> None:
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{out}\n{err}")
+
+
 def build() -> str:
-    """Compile csrc/*.cu into the shared library unless it is already built;
-    returns its path."""
+    """Compile csrc/*.cu into the shared library unless it is already built
+    (one nvcc per source, in parallel, then a link); returns its path."""
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    stem = f"{path}.{os.getpid()}"
+    nvcc = nvcc_path()
+    jobs = []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = f"{stem}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *COMPILE_FLAGS, "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+    results = [(cmd, proc, *proc.communicate()) for cmd, _, proc in jobs]
+    for res in results:
+        _check_run(*res)
+    cmd = [nvcc, *LINK_FLAGS, "-o", f"{stem}.tmp", *(obj for _, obj, _ in jobs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)
+    _check_run(cmd, proc, proc.stdout, proc.stderr)
+    os.replace(f"{stem}.tmp", path)
+    for _, obj, _ in jobs:
+        os.remove(obj)
     return path
 
 

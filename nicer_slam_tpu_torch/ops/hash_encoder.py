@@ -8,13 +8,18 @@ nicer_slam_tpu/ops/hash_encoder.py): kernels K1 and K2.
     first-order backward of this op (table scatter + grad_x through the
     second derivative of smoothstep).
   * ``hash_encode`` (K2): features only; the color grid (16 levels × 2
-    channels, 2^24-entry hashed levels) and the SDF cache build.
+    channels, 2^24-entry hashed levels) and the SDF grids' plain forward.
+  * ``hash_encode_bf16`` (K3): features only, no gradient, from a table
+    rounded to bfloat16 (``pack_table_bf16``, ``[T, C]``); the SDF grids
+    in the density-cache build and the exact prepass of an eval render,
+    the JAX package's packed-bf16 inference encode.
 
-Both share a plain PyTorch version (``hash_encode_plain``), which the
+All share a plain PyTorch version (``hash_encode_plain``), which the
 wrapper runs for a CPU tensor, and a CUDA kernel (``csrc/hash_encoder.cu``),
 which it launches for a CUDA tensor. The TPU package's row gathers, cell-block tables, sorted
-scatters, bf16 pair packing and ICI modes are TPU workarounds and have no
-counterpart here: on the card the backward is an atomic scatter.
+scatters, uint32 channel-pair packing and ICI modes are TPU workarounds and have no
+counterpart here: on the card the backward is an atomic scatter, and K3's
+table is ``[T, C]`` bf16 so a corner is one vector load.
 
 On the card both kernels are memory-latency bound: random 4-byte gathers
 (forward) and float atomics (backward) into tables of up to 1 GB. The
@@ -241,6 +246,47 @@ def hash_encode(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor,
                 size: float = 1.0) -> torch.Tensor:
     """K2: [N, 3] -> [N, L·C]. Plain version on CPU, kernel on CUDA."""
     return _dispatch(spec, table, x, size, jacobian=False)
+
+
+def pack_table_bf16(table: torch.Tensor) -> torch.Tensor:
+    """K3's table: ``[C, T]`` float32 -> ``[T, C]`` bfloat16, rounded to
+    nearest-even (as the JAX package's ``astype(bfloat16)``)."""
+    return table.detach().to(torch.bfloat16).t().contiguous()
+
+
+def hash_encode_bf16_plain(spec: HashGridSpec, packed: torch.Tensor,
+                           x: torch.Tensor, size: float = 1.0) -> torch.Tensor:
+    """Plain version of K3: the K2 plain version on the widened table."""
+    return hash_encode_plain(spec, packed.t().to(torch.float32), x, size)
+
+
+def hash_encode_bf16(spec: HashGridSpec, packed: torch.Tensor, x: torch.Tensor,
+                     size: float = 1.0) -> torch.Tensor:
+    """K3: [N, 3] -> [N, L·C] from a ``pack_table_bf16`` table. No
+    gradient: refuses inputs that require one. Plain version on CPU,
+    kernel on CUDA."""
+    if x.requires_grad or packed.requires_grad:
+        raise ValueError("hash_encode_bf16 has no backward: call it on inputs "
+                         "that require no gradient")
+    if x.device.type == "cpu":
+        return hash_encode_bf16_plain(spec, packed, x, size)
+    if x.device.type != "cuda":
+        raise ValueError(f"hash_encode_bf16: unsupported device {x.device}")
+    if spec.input_dim != 3 or spec.level_dim not in (2, 4, 8):
+        raise ValueError(f"kernel supports input_dim 3 and C in (2, 4, 8), "
+                         f"got {spec.input_dim}, {spec.level_dim}")
+    N, L, C = x.shape[0], spec.num_levels, spec.level_dim
+    _cuda.check(x, "x", torch.float32, (N, 3))
+    _cuda.check(packed, "packed", torch.bfloat16, (spec.total_entries, C),
+                device=x.device)
+    if packed.data_ptr() % 16:
+        raise ValueError("packed: the kernel's row loads need a 16-byte aligned table")
+    meta, scl = _level_tables(spec, float(size), str(x.device))
+    feats = torch.empty((N, L * C), dtype=torch.float32, device=x.device)
+    _cuda.launch("hash_encode_bf16", "nsl_hash_encode_bf16_fwd", N, x.data_ptr(),
+                 packed.data_ptr(), meta.data_ptr(), scl.data_ptr(), feats.data_ptr(),
+                 N, L, C, float(size))
+    return feats
 
 
 def hash_encode_with_grad(spec: HashGridSpec, table: torch.Tensor,

@@ -7,6 +7,12 @@ trilinearly; ``importance_sample`` fuses that read with the whole sampler,
 and ``importance_sample_plain`` is its plain version (the CPU path and the
 reference for the comparisons on the card).
 
+An eval render (``render_rays`` without a cache) takes the "exact"
+prepass instead: the SDF network (K3) and the voxel β (K7) give the
+densities at the unjittered z, and ``importance_sample_given`` runs the
+same weights, inverse CDF, merge and sort on them, with z as an input so
+that the CDF uses bit for bit the z the network was evaluated at.
+
 Every random draw is an input: ``t_rand [R, Ne]`` (stratified jitter),
 ``perm [N_extra]`` (the shared extra bins) and ``eik_idx [R]`` (the
 eikonal anchor). Rays are detached: z never carries a pose gradient.
@@ -115,6 +121,24 @@ def density_cache_lookup(cache: torch.Tensor, res: int, pts: torch.Tensor) -> to
     return torch.where(inb, dens, torch.zeros_like(dens))
 
 
+def _sample_from_density(cfg: SamplerConfig, z_vals, near, far, density,
+                         perm, eik_idx):
+    """Weights, inverse CDF, merge with near, far and z[perm], sort, the
+    eikonal anchor (ray_sampler.py:100-166 after the density)."""
+    R = z_vals.shape[0]
+    dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
+                       torch.full_like(z_vals[:, :1], 1e10)], -1)
+    free_energy = dists * density
+    shifted = torch.cat([torch.zeros_like(free_energy[:, :1]),
+                         free_energy[:, :-1]], -1)
+    weights = (1.0 - torch.exp(-free_energy)) * torch.exp(-torch.cumsum(shifted, -1))
+    z_samples = sample_cdf(z_vals, weights, cfg.N_samples)
+    z_all = torch.cat([z_samples, near, far, z_vals[:, perm]], -1)
+    z_all, _ = torch.sort(z_all, -1)
+    z_eik = torch.gather(z_all, -1, eik_idx.reshape(R, 1))
+    return z_all, z_eik
+
+
 def importance_sample_plain(cfg: SamplerConfig, rays_o: torch.Tensor,
                             rays_d: torch.Tensor, cache: torch.Tensor,
                             t_rand: Optional[torch.Tensor], perm: torch.Tensor,
@@ -127,17 +151,19 @@ def importance_sample_plain(cfg: SamplerConfig, rays_o: torch.Tensor,
         pts = rays_o.detach()[:, None, :] + z_vals[..., None] * rays_d.detach()[:, None, :]
         density = density_cache_lookup(cache, cfg.prepass_cache_res,
                                        pts.reshape(-1, 3)).reshape(R, Ne)
-        dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
-                           torch.full_like(z_vals[:, :1], 1e10)], -1)
-        free_energy = dists * density
-        shifted = torch.cat([torch.zeros_like(free_energy[:, :1]),
-                             free_energy[:, :-1]], -1)
-        weights = (1.0 - torch.exp(-free_energy)) * torch.exp(-torch.cumsum(shifted, -1))
-        z_samples = sample_cdf(z_vals, weights, cfg.N_samples)
-        z_all = torch.cat([z_samples, near, far, z_vals[:, perm]], -1)
-        z_all, _ = torch.sort(z_all, -1)
-        z_eik = torch.gather(z_all, -1, eik_idx.reshape(R, 1))
-    return z_all, z_eik
+        return _sample_from_density(cfg, z_vals, near, far, density, perm, eik_idx)
+
+
+def importance_sample_given_plain(cfg: SamplerConfig, z_vals: torch.Tensor,
+                                  density: torch.Tensor, perm: torch.Tensor,
+                                  eik_idx: torch.Tensor):
+    """Plain version of K5's given-density mode: unjittered z [R, Ne] from
+    ``uniform_z_vals`` and the densities at them -> (z_vals [R, S] sorted,
+    z_eik [R,1]). near and far are z's first and last columns, where
+    linspace puts them exactly."""
+    with torch.no_grad():
+        return _sample_from_density(cfg, z_vals, z_vals[:, :1], z_vals[:, -1:],
+                                    density, perm, eik_idx)
 
 
 def importance_sample(cfg: SamplerConfig, rays_o: torch.Tensor,
@@ -172,4 +198,31 @@ def importance_sample(cfg: SamplerConfig, rays_o: torch.Tensor,
                  z_out.data_ptr(), z_eik.data_ptr(), R, res, Ne, Ns, Nx,
                  float(cfg.scene_bounding_sphere), float(cfg.near),
                  float(cfg.uniform_far), _step(Ne), _step(Ns))
+    return z_out, z_eik
+
+
+def importance_sample_given(cfg: SamplerConfig, z_vals: torch.Tensor,
+                            density: torch.Tensor, perm: torch.Tensor,
+                            eik_idx: torch.Tensor):
+    """K5 in given-density mode (the exact prepass): z [R, Ne] and the
+    prepass densities [R, Ne] -> (z_vals [R, S] sorted, z_eik [R, 1]).
+    Plain version on CPU, kernel on CUDA."""
+    if z_vals.device.type == "cpu":
+        return importance_sample_given_plain(cfg, z_vals, density, perm, eik_idx)
+    if z_vals.device.type != "cuda":
+        raise ValueError(f"importance_sample_given: unsupported device {z_vals.device}")
+    R = z_vals.shape[0]
+    Ne, Ns, Nx = cfg.N_samples_eval, cfg.N_samples, cfg.N_samples_extra
+    dev = z_vals.device
+    z_vals, density = z_vals.detach().contiguous(), density.detach().contiguous()
+    _cuda.check(z_vals, "z_vals", torch.float32, (R, Ne))
+    _cuda.check(density, "density", torch.float32, (R, Ne), device=dev)
+    _cuda.check(perm, "perm", torch.int64, (Nx,), device=dev)
+    _cuda.check(eik_idx, "eik_idx", torch.int64, (R,), device=dev)
+    z_out = torch.empty((R, cfg.total_samples), dtype=torch.float32, device=dev)
+    z_eik = torch.empty((R, 1), dtype=torch.float32, device=dev)
+    _cuda.launch("importance_sample_given", "nsl_importance_sample_given", R,
+                 z_vals.data_ptr(), density.data_ptr(), perm.data_ptr(),
+                 eik_idx.data_ptr(), z_out.data_ptr(), z_eik.data_ptr(), R, Ne, Ns,
+                 Nx, _step(Ns))
     return z_out, z_eik

@@ -12,10 +12,20 @@ losses read: ``Σ w·rgb``, the normalised depth ``Σ w·z / (Σ w + 1e-8)`` and
 ``Σ w·normal`` (before the camera rotation). z carries no gradient (the
 sampler detaches its rays).
 
+With colour top-k (training, ``0 < color_topk < S``;
+scene_model.py:323-353) the composite splits in two: ``weights_topk``
+returns the weights, depth and normal composites and the indices of the
+``Kc`` largest weights of each ray (largest first, ties to the lower
+index, the order of ``lax.top_k``), the colour network runs only at the
+kept samples, and ``topk_rgb`` composites their colours with the kept
+weights renormalised to the ray's whole weight. Gradients on the kept
+weights and on the weight sum reach the weights pass's backward through
+``g_weights``.
+
 On the card K4 is memory bound (it streams 8 floats per sample once) and
 small next to the field networks; one warp per ray does the transmittance
-scan and the per-ray sums with warp shuffles, without atomics
-(csrc/composite.cu).
+scan, the per-ray sums and the top-k picks with warp shuffles, without
+atomics (csrc/composite.cu).
 """
 
 from __future__ import annotations
@@ -48,6 +58,25 @@ def composite_plain(z_vals, density, rgb, normals):
     return weights, rgb_values, depth, normal_map
 
 
+def weights_topk_plain(z_vals, density, normals, Kc: int):
+    """Plain version of the weights pass: (weights [R,S], depth [R,1],
+    normal [R,3], topk_idx [R,Kc] int64). A stable descending sort keeps
+    ties in index order, as lax.top_k does."""
+    weights = render_weights(z_vals, density)
+    wsum = weights.sum(dim=1, keepdim=True)
+    depth = (weights * z_vals).sum(dim=1, keepdim=True) / (wsum + 1e-8)
+    normal_map = (weights[..., None] * normals).sum(dim=1)
+    order = torch.sort(weights.detach(), dim=1, descending=True, stable=True)[1]
+    return weights, depth, normal_map, order[:, :Kc].contiguous()
+
+
+def topk_rgb_plain(topk_w, wsum, rgb):
+    """Plain version of the top-k colour composite: topk_w [R,Kc], the
+    ray's whole weight wsum [R,1], rgb [R,Kc,3] -> [R,3]."""
+    renorm = wsum / (topk_w.sum(1, keepdim=True) + 1e-8)
+    return ((topk_w * renorm)[..., None] * rgb).sum(dim=1)
+
+
 class _CompositeCUDA(torch.autograd.Function):
     """One warp per ray (csrc/composite.cu)."""
 
@@ -71,27 +100,137 @@ class _CompositeCUDA(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g_weights, g_rgb, g_depth, g_normal):
         z_vals, density, rgb, normals = ctx.saved_tensors
+        g_density, g_rgb_s, g_normals_s = _composite_bwd(
+            "composite.bwd", z_vals, density, rgb, normals, g_weights,
+            g_rgb, g_depth, g_normal)
+        return None, g_density, g_rgb_s, g_normals_s
+
+
+def _composite_bwd(kernel, z_vals, density, rgb, normals, g_weights,
+                   g_rgb, g_depth, g_normal):
+    """composite_bwd_kernel; without ``rgb`` (the weights pass) it takes no
+    colour cotangent and returns no colour gradient."""
+    R, S = z_vals.shape
+    dev = z_vals.device
+
+    def grad_or_zeros(g, shape):
+        return (torch.zeros(shape, dtype=torch.float32, device=dev)
+                if g is None else g.contiguous())
+
+    g_depth = grad_or_zeros(g_depth, (R, 1))
+    g_normal = grad_or_zeros(g_normal, (R, 3))
+    if rgb is not None:
+        g_rgb = grad_or_zeros(g_rgb, (R, 3))
+    if g_weights is not None:
+        g_weights = g_weights.contiguous()
+    g_density = torch.empty((R, S), dtype=torch.float32, device=dev)
+    g_rgb_s = (torch.empty((R, S, 3), dtype=torch.float32, device=dev)
+               if rgb is not None else None)
+    g_normals_s = torch.empty((R, S, 3), dtype=torch.float32, device=dev)
+    _cuda.launch(kernel, "nsl_composite_bwd", R, z_vals.data_ptr(),
+                 density.data_ptr(), _cuda.ptr(rgb), normals.data_ptr(),
+                 _cuda.ptr(g_weights), _cuda.ptr(g_rgb),
+                 g_depth.data_ptr(), g_normal.data_ptr(), g_density.data_ptr(),
+                 _cuda.ptr(g_rgb_s), g_normals_s.data_ptr(), R, S)
+    return g_density, g_rgb_s, g_normals_s
+
+
+class _WeightsTopkCUDA(torch.autograd.Function):
+    """The weights pass with the top-k picks, one warp per ray."""
+
+    @staticmethod
+    def forward(ctx, z_vals, density, normals, Kc):
         R, S = z_vals.shape
         dev = z_vals.device
+        weights = torch.empty((R, S), dtype=torch.float32, device=dev)
+        depth = torch.empty((R, 1), dtype=torch.float32, device=dev)
+        normal_map = torch.empty((R, 3), dtype=torch.float32, device=dev)
+        topk_idx = torch.empty((R, Kc), dtype=torch.int64, device=dev)
+        _cuda.launch("weights_topk.fwd", "nsl_weights_topk_fwd", R, z_vals.data_ptr(),
+                     density.data_ptr(), normals.data_ptr(), weights.data_ptr(),
+                     depth.data_ptr(), normal_map.data_ptr(), topk_idx.data_ptr(),
+                     R, S, Kc)
+        ctx.save_for_backward(z_vals, density, normals)
+        ctx.mark_non_differentiable(topk_idx)
+        ctx.set_materialize_grads(False)
+        return weights, depth, normal_map, topk_idx
 
-        def grad_or_zeros(g, shape):
-            return (torch.zeros(shape, dtype=torch.float32, device=dev)
-                    if g is None else g.contiguous())
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_weights, g_depth, g_normal, _g_idx):
+        z_vals, density, normals = ctx.saved_tensors
+        g_density, _, g_normals = _composite_bwd(
+            "weights_topk.bwd", z_vals, density, None, normals, g_weights,
+            None, g_depth, g_normal)
+        return None, g_density, g_normals, None
 
-        g_rgb = grad_or_zeros(g_rgb, (R, 3))
-        g_depth = grad_or_zeros(g_depth, (R, 1))
-        g_normal = grad_or_zeros(g_normal, (R, 3))
-        if g_weights is not None:
-            g_weights = g_weights.contiguous()
-        g_density = torch.empty((R, S), dtype=torch.float32, device=dev)
-        g_rgb_s = torch.empty((R, S, 3), dtype=torch.float32, device=dev)
-        g_normals_s = torch.empty((R, S, 3), dtype=torch.float32, device=dev)
-        _cuda.launch("composite.bwd", "nsl_composite_bwd", R, z_vals.data_ptr(),
-                     density.data_ptr(), rgb.data_ptr(), normals.data_ptr(),
-                     _cuda.ptr(g_weights), g_rgb.data_ptr(), g_depth.data_ptr(),
-                     g_normal.data_ptr(), g_density.data_ptr(), g_rgb_s.data_ptr(),
-                     g_normals_s.data_ptr(), R, S)
-        return None, g_density, g_rgb_s, g_normals_s
+
+class _TopkRGBCUDA(torch.autograd.Function):
+    """The top-k colour composite, one thread per ray."""
+
+    @staticmethod
+    def forward(ctx, topk_w, wsum, rgb):
+        R, Kc = topk_w.shape
+        out = torch.empty((R, 3), dtype=torch.float32, device=topk_w.device)
+        _cuda.launch("topk_rgb.fwd", "nsl_topk_rgb_fwd", R, topk_w.data_ptr(),
+                     wsum.data_ptr(), rgb.data_ptr(), out.data_ptr(), R, Kc)
+        ctx.save_for_backward(topk_w, wsum, rgb)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_out):
+        topk_w, wsum, rgb = ctx.saved_tensors
+        R, Kc = topk_w.shape
+        dev = topk_w.device
+        g_out = g_out.contiguous()
+        g_w = torch.empty((R, Kc), dtype=torch.float32, device=dev)
+        g_wsum = torch.empty((R, 1), dtype=torch.float32, device=dev)
+        g_rgb = torch.empty((R, Kc, 3), dtype=torch.float32, device=dev)
+        _cuda.launch("topk_rgb.bwd", "nsl_topk_rgb_bwd", R, topk_w.data_ptr(),
+                     wsum.data_ptr(), rgb.data_ptr(), g_out.data_ptr(), g_w.data_ptr(),
+                     g_wsum.data_ptr(), g_rgb.data_ptr(), R, Kc)
+        return g_w, g_wsum, g_rgb
+
+
+def _on_card(name: str, t: torch.Tensor) -> bool:
+    """False for a CPU tensor (plain version), True for CUDA; raises else."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return True
+
+
+def weights_topk(z_vals: torch.Tensor, density: torch.Tensor,
+                 normals: torch.Tensor, Kc: int):
+    """K4's weights pass for colour top-k: z_vals [R,S] (no gradient),
+    density [R,S], normals [R,S,3] -> (weights [R,S], depth [R,1],
+    normal_map [R,3], topk_idx [R,Kc] int64). Plain version on CPU, kernel
+    on CUDA."""
+    if not _on_card("weights_topk", z_vals):
+        return weights_topk_plain(z_vals, density, normals, Kc)
+    R, S = z_vals.shape
+    if S > 32 * 32 or not 0 < Kc <= S:
+        raise ValueError(f"weights_topk kernel supports S <= 1024 and "
+                         f"0 < Kc <= S, got S {S}, Kc {Kc}")
+    _cuda.check(z_vals, "z_vals", torch.float32, (R, S))
+    _cuda.check(density, "density", torch.float32, (R, S), device=z_vals.device)
+    _cuda.check(normals, "normals", torch.float32, (R, S, 3), device=z_vals.device)
+    return _WeightsTopkCUDA.apply(z_vals.detach(), density, normals, int(Kc))
+
+
+def topk_rgb(topk_w: torch.Tensor, wsum: torch.Tensor, rgb: torch.Tensor):
+    """K4's top-k colour composite: topk_w [R,Kc], wsum [R,1],
+    rgb [R,Kc,3] -> [R,3]; gradients to all three. Plain version on CPU,
+    kernel on CUDA."""
+    if not _on_card("topk_rgb", topk_w):
+        return topk_rgb_plain(topk_w, wsum, rgb)
+    R, Kc = topk_w.shape
+    _cuda.check(topk_w, "topk_w", torch.float32, (R, Kc))
+    _cuda.check(wsum, "wsum", torch.float32, (R, 1), device=topk_w.device)
+    _cuda.check(rgb, "rgb", torch.float32, (R, Kc, 3), device=topk_w.device)
+    return _TopkRGBCUDA.apply(topk_w, wsum, rgb)
 
 
 def composite(z_vals: torch.Tensor, density: torch.Tensor, rgb: torch.Tensor,
@@ -99,10 +238,8 @@ def composite(z_vals: torch.Tensor, density: torch.Tensor, rgb: torch.Tensor,
     """K4: z_vals [R,S] (no gradient), density [R,S], rgb [R,S,3],
     normals [R,S,3] -> (weights [R,S], rgb_values [R,3], depth [R,1],
     normal_map [R,3]). Plain version on CPU, kernel on CUDA."""
-    if z_vals.device.type == "cpu":
+    if not _on_card("composite", z_vals):
         return composite_plain(z_vals, density, rgb, normals)
-    if z_vals.device.type != "cuda":
-        raise ValueError(f"composite: unsupported device {z_vals.device}")
     R, S = z_vals.shape
     if S > 32 * 16:
         raise ValueError(f"composite kernel supports S <= 512, got {S}")

@@ -6,9 +6,11 @@ checkpoints/{Model,Optimizer,Pose}Parameters/, runconf.conf}; per frame:
 tracking, then every ``mapping_every_frame`` frames a mapping call (with BA
 in its last iterations), checkpoints every ``checkpoint_freq`` frames. The
 prepass density cache is rebuilt before every tracked frame and every
-``prepass_cache_refresh`` mapping iterations.
-
-Full-image rendering and the visualisation hook are not ported yet.
+``prepass_cache_refresh`` mapping iterations. A visualisation hook
+(``utils.plots.vis_hook``) runs at the start of every ``plot_freq``-th
+frame's mapping call (after frame 1, every ``SLAM.mapping.inner_freq``
+iterations) and once after the last frame; it renders a full frame
+(``render_full_image``) and writes panels and a mesh under ``vis/``.
 """
 
 from __future__ import annotations
@@ -90,6 +92,9 @@ class SLAMRunner:
         self.const_speed = c.get_bool("SLAM.tracking.const_speed_assumption", False)
         self.verbose = c.get_bool("SLAM.verbose", False)
         self.checkpoint_freq = c.get_int("train.checkpoint_freq", 100)
+        self.plot_freq = c.get_int("train.plot_freq", 50)
+        self.mapping_inner_freq = c.get_int("SLAM.mapping.inner_freq", 1000)
+        self.split_n_pixels = c.get_int("train.split_n_pixels", 10000)
 
         # ---- experiment dir layout (volsdf_train.py:66-92)
         self.expname = c.get_string("train.expname") + expname
@@ -400,17 +405,24 @@ class SLAMRunner:
             edge_idii=edge[0], edge_idjj=edge[1], flow_imgs=edge[2], flow_occ=edge[3],
             slot_conf=torch.from_numpy(slot_conf).to(dev))
 
-    def map(self, frame_idx: int):
+    def map(self, frame_idx: int, vis_hook=None):
         """One full mapping call (num_mapping_iters iterations); its last
         iteration's loss terms are kept in ``last_map_terms``."""
-        self.last_map_terms = self._map_impl(frame_idx)
+        self.last_map_terms = self._map_impl(frame_idx, vis_hook)
         return self.last_map_terms
 
-    def _map_impl(self, frame_idx: int):
+    def _map_impl(self, frame_idx: int, vis_hook=None):
         Smax = self.map_cfg.max_slots
         ba_snapshot: Dict[int, np.ndarray] = {}
         terms = None
         for mapping_iter in range(self.num_mapping_iters):
+            # mid-mapping visual observability (volsdf_train.py:531-536);
+            # with the default inner_freq 1000 it fires once, at iteration 0
+            if (vis_hook is not None and frame_idx > 1
+                    and mapping_iter % self.mapping_inner_freq == 0
+                    and frame_idx % self.plot_freq == 0):
+                with self.timer.phase("vis"):
+                    vis_hook(self, frame_idx, inner_iter=mapping_iter)
             win = self.kf_selector.window(frame_idx, mapping_iter)
             kfs = win.keyframe_list[:Smax]
             ba = (self.enable_BA and frame_idx > 0
@@ -488,10 +500,12 @@ class SLAMRunner:
                 self.est_pose_all[j] = deltas[k0] @ np.asarray(self.est_pose_all[j])
 
     # ------------------------------------------------------------------
-    def run(self, frame_hook=None):
-        """Main SLAM loop. ``frame_hook(runner, frame_idx)`` fires after each
-        frame's track(+map); ``run_s`` holds the loop's wall time and
-        ``timer`` its phases."""
+    def run(self, vis_hook=None, frame_hook=None):
+        """Main SLAM loop. ``vis_hook(runner, frame_idx, inner_iter=0)``
+        fires inside plot_freq-aligned mapping calls and after the last
+        frame; ``frame_hook(runner, frame_idx)`` fires after each frame's
+        track(+map). ``run_s`` holds the loop's wall time and ``timer`` its
+        phases."""
         self.log("running...")
         self.timer = PhaseTimer(self.device)
         t0 = time.time()
@@ -503,7 +517,7 @@ class SLAMRunner:
                 self._stage_frame(frame_idx)
             self.track(frame_idx)
             if frame_idx % self.mapping_every_frame == 0:
-                self.map(frame_idx)
+                self.map(frame_idx, vis_hook=vis_hook)
             if frame_hook is not None:
                 frame_hook(self, frame_idx)
             if not self.quiet and frame_idx % 10 == 0:
@@ -511,5 +525,21 @@ class SLAMRunner:
                 self.log(f"frame {frame_idx}/{self.n_images} ({dt:.1f}s, "
                          f"{dt / max(frame_idx - self.start_frame_idx + 1, 1):.2f}s/frame)")
         self.save_checkpoints(frame_idx)
+        if vis_hook is not None:
+            with self.timer.phase("vis"):
+                vis_hook(self, frame_idx)
         self.run_s = time.time() - t0
         self.log("phase timings: " + self.timer.report())
+
+    # ------------------------------------------------------------------
+    def render_full_image(self, frame_idx: int, pose: Optional[np.ndarray] = None,
+                          chunk: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """Render a full frame at its estimated pose (GT before it has one)
+        in chunks of ``split_n_pixels`` rays, with the exact prepass."""
+        from .render import render_image
+
+        c2w = pose if pose is not None else self.est_pose_all.get(
+            frame_idx, self.dataset.gt_pose_all[frame_idx])
+        return render_image(self.scene_cfg, self.model, self.voxels, np.asarray(c2w),
+                            np.asarray(self.dataset.intrinsics_all[frame_idx]),
+                            frame_idx=frame_idx, chunk=chunk or self.split_n_pixels)

@@ -7,8 +7,11 @@ Usage:
       [--device cuda]
 
 Runs the SLAM loop (tracking, mapping with BA, checkpoints) on the given
-device, a CUDA card by default. There is no visualisation hook yet: no meshes or
-rendered frames are written under vis/.
+device, a CUDA card by default, with the visualisation hook of
+utils/plots.py: after the last frame (and inside every plot_freq-th
+frame's mapping call) it renders the frame in full and writes
+vis/{rendering,normal,depth,merge}_*.png and the colored mesh
+vis/surface_<frame>.ply.
 """
 
 from __future__ import annotations
@@ -17,11 +20,9 @@ import argparse
 
 
 def main(argv=None, frame_hook=None):
-    """Parse the CLI, run the SLAM loop, return the runner.
-    ``frame_hook(runner, frame_idx)`` fires after each frame."""
-    parser = argparse.ArgumentParser(
-        description="nicer_slam_tpu_torch SLAM loop (no visualisation hook yet: "
-                    "vis/ stays empty)")
+    """Parse the CLI, run the SLAM loop with the vis hook, return the
+    runner. ``frame_hook(runner, frame_idx)`` fires after each frame."""
+    parser = argparse.ArgumentParser(description="nicer_slam_tpu_torch SLAM loop")
     parser.add_argument("--conf", type=str,
                         default="./confs/replica/runconf_replica_2.conf")
     parser.add_argument("--expname", type=str, default="")
@@ -46,6 +47,7 @@ def main(argv=None, frame_hook=None):
     import torch
 
     from ..slam.runner import SLAMRunner
+    from ..utils.plots import vis_hook
 
     # float32 matmuls in full float32, as the reference package's XLA ones
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -56,7 +58,7 @@ def main(argv=None, frame_hook=None):
         new_expfolder=opt.new_expfolder, checkpoint=opt.checkpoint,
         scan_id=opt.scan_id, root_dir=opt.root_dir, seed=opt.seed,
         device=opt.device)
-    runner.run(frame_hook=frame_hook)
+    runner.run(vis_hook=vis_hook, frame_hook=frame_hook)
     return runner
 
 

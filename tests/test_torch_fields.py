@@ -7,9 +7,9 @@ gradient), and the prepass density cache.
 
 Tolerances: values and gradients rtol 1e-4 with an atol of 1e-4 of the
 largest magnitude of the compared array — float32 through MLPs, double
-backward and hash gathers summed in different orders. The cache against
-the JAX package's own bf16-packed cache: 2e-2 of the largest density (bf16
-keeps 8 bits of mantissa in the grid tables).
+backward and hash gathers summed in different orders. The density cache,
+built from bf16-packed tables in both packages, against the JAX package's
+own cache: 2e-5 of the largest density (float32 rounding: see the test).
 """
 
 import jax
@@ -135,13 +135,21 @@ def test_density_cache_matches_fp32_and_bf16_references(setup):
     cache_t = tsm.build_density_cache(tcfg, model, T(vox)).numpy()
     res = tcfg.sampler.prepass_cache_res
     assert cache_t.shape == (res ** 3,)
-    # fp32 reference: the JAX combine_sdf on the same linspace grid + density
+    # the JAX package's own cache (bf16-packed tables), column 0 = the corner
+    # itself. Both read the same bf16 table values (the K3 features are
+    # equal bit for bit); the MLPs' float32 rounding leaves the SDF a few ulp
+    # apart (~5e-7 at |sdf| ~ 1.2), which the Laplace density's slope at
+    # the surface, 1/(2β²) ~ 2.4e3, turns into ~1.6e-5 of the largest
+    # density (1/β ~ 69).
+    blocked = np.asarray(jsm.build_density_cache(jcfg, jparams, jnp.asarray(vox)))[:, 0]
+    scale = np.abs(blocked).max()
+    np.testing.assert_allclose(cache_t, blocked, rtol=0, atol=2e-5 * scale)
+    # the fp32 reference: the JAX combine_sdf on the same linspace grid +
+    # density. The port's bf16 cache may differ from it by the bf16 rounding
+    # of the tables, as the JAX package's bf16 cache does, and no more.
     xs = np.linspace(-1.0, 1.0, res, dtype=np.float32)
     grid = np.stack(np.meshgrid(xs, xs, xs, indexing="ij"), -1).reshape(-1, 3)
     sdf = jf.combine_sdf(jcfg.combine, jparams["implicit"], jnp.asarray(grid), "fine")[:, 0]
     dens_j = np.asarray(jsm._density(jcfg, jparams, jnp.asarray(vox), sdf, jnp.asarray(grid)))
-    _close(cache_t, dens_j, rtol=1e-4)
-    # the JAX package's own cache (bf16-packed tables), column 0 = the corner itself
-    blocked = np.asarray(jsm.build_density_cache(jcfg, jparams, jnp.asarray(vox)))
-    np.testing.assert_allclose(cache_t, blocked[:, 0], rtol=0,
-                               atol=2e-2 * np.abs(blocked[:, 0]).max())
+    bf16_effect = np.abs(blocked - dens_j).max()
+    assert np.abs(cache_t - dens_j).max() <= bf16_effect + 2e-5 * scale

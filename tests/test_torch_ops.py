@@ -255,8 +255,8 @@ def test_port_never_imports_jax():
             "ops.density", "ops.embedder", "ops.safe_math", "utils.camera",
             "utils.profiling", "models.linear", "models.fields", "models.scene_model",
             "models.losses", "slam.state", "slam.tracking", "slam.mapping",
-            "slam.frame_store", "slam.checkpoint", "slam.runner",
-            "datasets.scene_dataset", "training.exp_runner")]
+            "slam.frame_store", "slam.checkpoint", "slam.runner", "slam.render",
+            "utils.plots", "datasets.scene_dataset", "training.exp_runner")]
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.'))\n"

@@ -1,8 +1,9 @@
 """The SLAM slice of the torch port against the JAX package, on the CPU:
 one map_step with BA, flow edges, warp and fractional slot confidence, and a
-5-iteration track_frame, on shrunk grids with the JAX package's random
-draws replayed (tests/_torch_draws.py) and the same prepass cache. Then the
-CLI end to end, and checkpoints in both directions.
+5-iteration track_frame, each with every sample colored and with colour
+top-k (the flagship configuration's color_topk), on shrunk grids with the
+JAX package's random draws replayed (tests/_torch_draws.py) and the same
+prepass cache. Then the CLI end to end, and checkpoints in both directions.
 
 Tolerances: loss terms rtol 1e-4; color-side gradients rtol 1e-4 with an
 atol of 1e-4 of the largest entry of each parameter (float32 sums in
@@ -94,9 +95,23 @@ def _adam_mu(opt_state):
     return out
 
 
+# colour top-k of the top-k cases: S = 12 + 6 + 2 = 20 samples per ray
+TOPK = 6
+
+
 def test_map_step_with_ba_matches_jax(scene):
+    _map_step_case(scene, color_topk=0)
+
+
+def test_map_step_with_ba_and_color_topk_matches_jax(scene):
+    _map_step_case(scene, color_topk=TOPK)
+
+
+def _map_step_case(scene, color_topk):
     s = scene
-    ds, jcfg, tcfg = s["ds"], s["jcfg"], s["tcfg"]
+    ds = s["ds"]
+    jcfg = s["jcfg"]._replace(color_topk=color_topk)
+    tcfg = s["tcfg"]._replace(color_topk=color_topk)
     frames, Smax, R = [0, 4], 4, 48
     rows = [ds.frame(f) for f in frames]
     rgb = np.stack([np.clip(r["rgb"] * 255 + 0.5, 0, 255).astype(np.uint8) for r in rows])
@@ -207,8 +222,18 @@ def test_map_step_with_ba_matches_jax(scene):
 
 
 def test_track_frame_matches_jax(scene):
+    _track_frame_case(scene, color_topk=0)
+
+
+def test_track_frame_with_color_topk_matches_jax(scene):
+    _track_frame_case(scene, color_topk=TOPK)
+
+
+def _track_frame_case(scene, color_topk):
     s = scene
-    ds, jcfg, tcfg = s["ds"], s["jcfg"], s["tcfg"]
+    ds = s["ds"]
+    jcfg = s["jcfg"]._replace(color_topk=color_topk)
+    tcfg = s["tcfg"]._replace(color_topk=color_topk)
     frame = 2
     rgb = np.clip(ds.frame(frame)["rgb"] * 255 + 0.5, 0, 255).astype(np.uint8)
     K = ds.intrinsics_all[frame]
