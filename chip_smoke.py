@@ -62,9 +62,10 @@ PATHS = {
     # On the synthetic scan the flagship conf's frame-0 mapping call (100
     # iterations, the metric depth anchor at weight 10) drives the SDF
     # negative everywhere ("fog": the camera ends up inside the surface) in
-    # the JAX package as in the port, and no mesh has a zero crossing. The
-    # JAX package's camera free-space guard (loss.cam_freespace_w, off in
-    # the shipped confs) keeps the camera outside the surface.
+    # the JAX package as in the port, and no mesh has a zero crossing
+    # (tests/test_torch_frame0_fog.py). The JAX package's camera free-space
+    # guard (loss.cam_freespace_w, off in the shipped confs) keeps the
+    # camera outside the surface.
     "flagship": dict(conf=os.path.join(ROOT, "confs", "replica", "runconf_replica_2.conf"),
                      H=680, W=1200, scan_id=2, data_dir='"../Datasets/processed/Replica"',
                      n_images=2000,

@@ -146,8 +146,9 @@ def build_density_cache(cfg: SceneConfig, model: SceneModel,
 
 @torch.no_grad()
 def _exact_prepass(cfg: SceneConfig, model: SceneModel, voxels: torch.Tensor,
-                   cam_loc: torch.Tensor, ray_dirs: torch.Tensor,
-                   perm: torch.Tensor, eik_idx: torch.Tensor, beta_scale=None):
+                   packed_tables: Dict[str, torch.Tensor], cam_loc: torch.Tensor,
+                   ray_dirs: torch.Tensor, perm: torch.Tensor, eik_idx: torch.Tensor,
+                   beta_scale=None):
     """The exact prepass of an eval render (scene_model.py:246-287 with
     ray_sampling.py:112-163, training=False): the SDF network from the
     bf16-packed tables (K3) and the voxel β (K7) at the 640 unjittered z of
@@ -156,8 +157,7 @@ def _exact_prepass(cfg: SceneConfig, model: SceneModel, voxels: torch.Tensor,
     R = cam_loc.shape[0]
     z, _, _ = uniform_z_vals(sc, cam_loc, ray_dirs, None)
     pts = (cam_loc[:, None, :] + z[..., None] * ray_dirs[:, None, :]).reshape(-1, 3)
-    packed = fields.pack_combine_tables(model.implicit)
-    sdf = fields.combine_sdf_packed(model.implicit, packed, pts, "fine")
+    sdf = fields.combine_sdf_packed(model.implicit, packed_tables, pts, "fine")
     density = _density(cfg, model, voxels, sdf, pts, beta_scale)
     return importance_sample_given(sc, z, density.reshape(R, sc.N_samples_eval),
                                    perm, eik_idx)
@@ -211,14 +211,20 @@ def render_rays(cfg: SceneConfig, model: SceneModel, voxels: torch.Tensor,
                 is_mapping: bool = False, edges: Optional[FlowEdges] = None,
                 full_rgb: Optional[torch.Tensor] = None,
                 density_cache: Optional[torch.Tensor] = None,
+                packed_tables: Optional[Dict[str, torch.Tensor]] = None,
                 beta_scale: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Forward pass over a flat ray batch. With ``is_mapping`` the output
     also holds the updated voxel counter (``voxels``) and the eikonal
     gradients (``grad_theta``, ``grad_theta_nei``). Without a
-    ``density_cache`` the prepass is exact (eval renders only)."""
+    ``density_cache`` the prepass is exact (eval renders only) and reads
+    ``packed_tables``, the caller's ``fields.pack_combine_tables`` of the
+    model, packed once for all the chunks of a render."""
     if density_cache is None and training:
         raise NotImplementedError(
             "training with the exact prepass is not ported: pass the density cache")
+    if density_cache is None and packed_tables is None:
+        raise ValueError("the exact prepass reads packed_tables "
+                         "(fields.pack_combine_tables of the model)")
     R = batch.uv.shape[0]
     K = batch.intrinsics[batch.kf_slot]
     c2w = batch.poses[batch.kf_slot]
@@ -231,9 +237,8 @@ def render_rays(cfg: SceneConfig, model: SceneModel, voxels: torch.Tensor,
         perm = torch.as_tensor(np.linspace(0, ne - 1, cfg.sampler.N_samples_extra)
                                .astype(np.int64), device=ray_dirs.device)
     if density_cache is None:
-        z_vals, z_eik = _exact_prepass(cfg, model, voxels, cam_loc.detach(),
-                                       ray_dirs.detach(), perm, draws.eik_idx,
-                                       beta_scale)
+        z_vals, z_eik = _exact_prepass(cfg, model, voxels, packed_tables, cam_loc.detach(),
+                                       ray_dirs.detach(), perm, draws.eik_idx, beta_scale)
     else:
         z_vals, z_eik = importance_sample(
             cfg.sampler, cam_loc, ray_dirs, density_cache,

@@ -5,7 +5,8 @@ Every pixel of the frame is one ray; the rays go through ``render_rays``
 in chunks of ``chunk`` rays (the conf's ``train.split_n_pixels``), the
 tail padded to a full chunk, under ``torch.no_grad()``. Without a density
 cache the render takes the exact prepass: the SDF network through K3 at
-all ``N_samples_eval`` prepass samples of every ray.
+all ``N_samples_eval`` prepass samples of every ray, from bf16 tables
+packed once per render.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..models import fields
 from ..models import scene_model as sm
 
 
@@ -40,6 +42,7 @@ def render_image(scene_cfg: sm.SceneConfig, model: sm.SceneModel,
         frame_ids=torch.tensor([frame_idx], dtype=torch.int64, device=dev),
         slot_valid=torch.ones((1,), dtype=torch.bool, device=dev),
         ray_valid=torch.ones((chunk,), dtype=torch.bool, device=dev))
+    packed = fields.pack_combine_tables(model.implicit)
     keys = ("rgb_values", "depth_values", "normal_map")
     outs = {k: [] for k in keys}
     for start in range(0, total, chunk):
@@ -49,7 +52,7 @@ def render_image(scene_cfg: sm.SceneConfig, model: sm.SceneModel,
             uv = torch.cat([uv, uv.new_zeros((chunk - (end - start), 2))])
         res = sm.render_rays(scene_cfg, model, voxels, batch._replace(uv=uv), draws,
                              stage="fine", color_stage="highfreq", training=False,
-                             is_mapping=False)
+                             is_mapping=False, packed_tables=packed)
         for k in keys:
             outs[k].append(res[k][: end - start].cpu())
     out = {k: torch.cat(v).numpy() for k, v in outs.items()}

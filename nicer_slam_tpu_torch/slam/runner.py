@@ -18,7 +18,7 @@ from __future__ import annotations
 import os
 import time
 from datetime import datetime
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -532,14 +532,12 @@ class SLAMRunner:
         self.log("phase timings: " + self.timer.report())
 
     # ------------------------------------------------------------------
-    def render_full_image(self, frame_idx: int, pose: Optional[np.ndarray] = None,
-                          chunk: Optional[int] = None) -> Dict[str, np.ndarray]:
+    def render_full_image(self, frame_idx: int) -> Dict[str, np.ndarray]:
         """Render a full frame at its estimated pose (GT before it has one)
         in chunks of ``split_n_pixels`` rays, with the exact prepass."""
         from .render import render_image
 
-        c2w = pose if pose is not None else self.est_pose_all.get(
-            frame_idx, self.dataset.gt_pose_all[frame_idx])
+        c2w = self.est_pose_all.get(frame_idx, self.dataset.gt_pose_all[frame_idx])
         return render_image(self.scene_cfg, self.model, self.voxels, np.asarray(c2w),
                             np.asarray(self.dataset.intrinsics_all[frame_idx]),
-                            frame_idx=frame_idx, chunk=chunk or self.split_n_pixels)
+                            frame_idx=frame_idx, chunk=self.split_n_pixels)

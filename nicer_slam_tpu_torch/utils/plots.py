@@ -88,27 +88,25 @@ def vertex_colors(model, verts: np.ndarray, normals: np.ndarray, device,
     return colors
 
 
-def save_mesh(runner, frame_idx: int, resolution: Optional[int] = None,
-              suffix: str = "") -> Optional[str]:
-    """Extract and write the colored SDF mesh; returns its path, or None
-    when the SDF has no zero crossing on the grid."""
+def save_mesh(runner, frame_idx: int) -> Optional[str]:
+    """Extract and write the colored SDF mesh at the conf's plot.resolution;
+    returns its path, or None when the SDF has no zero crossing on the grid."""
     c = runner.conf
-    resolution = resolution or c.get_int("plot.resolution", 512)
     gb = c.get_list("plot.grid_boundary", [-1.0, 1.0])
     mesh = extract_mesh(mesh_sdf_fn(runner.model, runner.device),
-                        resolution=resolution, grid_boundary=tuple(gb))
+                        resolution=c.get_int("plot.resolution", 512),
+                        grid_boundary=tuple(gb))
     if mesh is None:
         runner.log("unable to get a surface, NO MESH!")
         return None
     verts, faces, normals = mesh
     colors = vertex_colors(runner.model, verts, normals, runner.device)
-    path = os.path.join(runner.plots_dir, f"surface_{frame_idx:04d}{suffix}.ply")
+    path = os.path.join(runner.plots_dir, f"surface_{frame_idx:04d}.ply")
     write_ply(path, verts, faces, normals=normals, colors=colors)
     return path
 
 
-def vis_hook(runner, frame_idx: int, inner_iter: int = 0,
-             mesh_resolution: Optional[int] = None) -> None:
+def vis_hook(runner, frame_idx: int, inner_iter: int = 0) -> None:
     """The vis callback of ``SLAMRunner.run``: render the frame in full,
     write the panels beside its ground truth, write the mesh."""
     out = runner.render_full_image(frame_idx)
@@ -119,4 +117,4 @@ def vis_hook(runner, frame_idx: int, inner_iter: int = 0,
           "depth": data["depth"].reshape(H, W)}
     runner.dataset.clean(frame_idx)
     save_panels(runner.plots_dir, frame_idx, inner_iter, out, gt)
-    save_mesh(runner, frame_idx, resolution=mesh_resolution)
+    save_mesh(runner, frame_idx)

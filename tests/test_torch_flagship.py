@@ -320,11 +320,13 @@ def test_cli_on_a_flagship_derived_conf_writes_vis(tmp_path):
         text = text.replace(old, new)
     conf = tmp_path / "flagship_tiny.conf"
     conf.write_text(text)
+    # one torch thread: the suite runs files in parallel workers, where a
+    # many-threaded subprocess stalls on its descheduled threads
     out = subprocess.run(
         [sys.executable, "-m", "nicer_slam_tpu_torch.training.exp_runner", "--conf",
          str(conf), "--root_dir", str(tmp_path), "--device", "cpu"],
-        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True,
-        timeout=300)
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"),
+        capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     vis = next(os.path.join(r, "vis") for r, ds_, _ in os.walk(tmp_path / "exps")
                if "vis" in ds_)

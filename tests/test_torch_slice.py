@@ -281,11 +281,13 @@ def _jax_template(conf_path, n_images):
 def test_exp_runner_cli_writes_checkpoints_the_jax_package_reads(scene, tmp_path):
     data_dir = os.path.dirname(scene["ds"].instance_dir)
     conf = _tiny_conf(tmp_path, data_dir, 5)
+    # one torch thread: the suite runs files in parallel workers, where a
+    # many-threaded subprocess stalls on its descheduled threads
     out = subprocess.run(
         [sys.executable, "-m", "nicer_slam_tpu_torch.training.exp_runner", "--conf", conf,
          "--root_dir", str(tmp_path), "--device", "cpu"],
-        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True,
-        timeout=300)
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"),
+        capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     run = next(os.path.join(r, "checkpoints") for r, ds_, _ in os.walk(tmp_path)
                if "checkpoints" in ds_)
