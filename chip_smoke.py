@@ -11,12 +11,18 @@ Phases, in order (any failure exits non-zero without the final line):
   2. build: compile csrc/*.cu for sm_90a (one nvcc per source, in
      parallel; plain C interface).
   3. kernels: each hand-written kernel against its plain PyTorch version on
-     the card, with errors, tolerances and CUDA-event times of both: K1,
-     K2, K4 and K5 at the demo slice's shapes (4096 mapping rays x 98
-     samples, the demo configuration's coarse, fine and full 133M-entry
-     color grids), the flagship kernels at the flagship configuration's
-     (8192 mapping rays x 98 samples = 802,816 points, colour top-16, the
-     exact prepass of a 2580-ray render chunk = 1,651,200 points).
+     the card, with errors, tolerances, CUDA-event times of each launch
+     alone (on preallocated operands; a gradient table is zeroed outside
+     the timed window) and of the plain version, and the kernel's bound
+     (the bytes it must move over the card's memory rate, or its
+     operations over the float32 rate, whichever is larger): K1 and K2 at
+     the flagship path's shapes on ray-ordered and on uniform points
+     (802,816 SDF points through the fine and coarse grids; the full
+     133M-entry colour grid at the 131,072 top-16 points and at the demo's
+     4096 x 98), K4 and K5 at the demo slice's shapes, the flagship
+     kernels at the flagship configuration's (8192 mapping rays x 98
+     samples, colour top-16, the exact prepass of a 2580-ray render chunk
+     = 1,651,200 points). The plain versions of K1/K2 run once.
   4. demo: the demo configuration (confs/runconf_demo_1.conf, every network
      at full width) through the port's exp_runner: tracking on every frame,
      mapping + BA at frames 0, 5 and 10, global_window_start = 10 (200 by
@@ -80,8 +86,10 @@ MESH_RESOLUTION = 256
 PATH_KERNELS = {
     "demo": ("hash_encode_with_grad.fwd", "hash_encode_with_grad.bwd", "hash_encode.fwd",
              "hash_encode.bwd", "composite.fwd", "composite.bwd", "importance_sample"),
-    "flagship": ("hash_encode_bf16", "weights_topk.fwd", "weights_topk.bwd", "topk_rgb.fwd",
-                 "topk_rgb.bwd", "importance_sample_given", "voxels.scatter", "voxels.beta"),
+    "flagship": ("hash_encode_with_grad.fwd", "hash_encode_with_grad.bwd", "hash_encode.fwd",
+                 "hash_encode.bwd", "hash_encode_bf16", "weights_topk.fwd", "weights_topk.bwd",
+                 "topk_rgb.fwd", "topk_rgb.bwd", "importance_sample_given", "voxels.scatter",
+                 "voxels.beta"),
 }
 # (tolerance) values: max|kernel - plain| <= VAL_RTOL * max|plain|, per
 # output; gradients written with float atomics (order changes from run to
@@ -91,6 +99,12 @@ GRAD_REL_L2 = 1e-5
 # importance sampler: every ray's z_vals and z_eik within Z_ATOL (float32
 # scans in another order move a sample by a few ulps of z <= 3.5)
 Z_ATOL = 1e-4
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM3
+# rate and float32 outside the tensor cores, for each kernel's bound
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# ~1 ms of device clock cycles: longer than any wrapper's host time
+SLEEP_CYCLES = 2_000_000
 
 
 def log(*a):
@@ -104,18 +118,42 @@ def card_line() -> str:
     return out[0]
 
 
-def cuda_time(fn, iters=10, warmup=2):
+def cuda_time(fn, iters=10, warmup=2, before=None):
+    """Mean CUDA-event time of ``fn`` in ms, each launch timed alone on the
+    device: a sleep kernel queued ahead of the start event keeps the card
+    busy while the host runs the wrapper and enqueues the launch, so the
+    host's time does not count; ``before`` (e.g. zeroing a gradient table)
+    runs outside the timed window."""
     import torch
     for _ in range(warmup):
+        if before is not None:
+            before()
         fn()
+    marks = []
+    for _ in range(iters):
+        if before is not None:
+            before()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in marks) / iters
+
+
+def timed_once(fn):
+    """(fn(), its CUDA-event time in ms): the plain versions at the path's
+    shapes run once."""
+    import torch
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for _ in range(iters):
-        fn()
+    out = fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return out, start.elapsed_time(end)
 
 
 def rel_l2(a, b) -> float:
@@ -126,29 +164,49 @@ def max_abs(a, b) -> float:
     return float((a - b).abs().max())
 
 
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def bound(bytes_: float, ops: float):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the float32 rate."""
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 class Checks:
     """Kernel results by name, and the names that failed."""
 
     def __init__(self):
         self.results, self.failures = {}, []
 
-    def record(self, name, source, replaces, err, ok, ms, plain_ms, extra=""):
+    def record(self, name, source, replaces, err, ok, ms, plain_ms, bytes_, ops,
+               extra="", library_ms=None):
+        bound_ms, bound_by = bound(bytes_, ops)
         self.results[name] = {"name": name, "route": "cuda", "source": source,
                               "replaces": replaces, "max_abs_err": err, "ms": ms,
-                              "plain_ms": plain_ms}
-        log(f"  {name:30s} max_abs_err {err:.3e} {extra} kernel {ms:.3f} ms "
-            f"plain {plain_ms:.3f} ms {'OK' if ok else 'FAIL'}")
+                              "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "library_ms": library_ms,
+                              "share_of_bound": bound_ms / ms, "bytes": bytes_, "ops": ops}
+        lib = "" if library_ms is None else f" library {library_ms:.3f} ms"
+        log(f"  {name:38s} max_abs_err {err:.3e} {extra} kernel {ms:.3f} ms plain "
+            f"{plain_ms:.3f} ms{lib} bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{bytes_ / 1e6:.1f} MB, {ops / 1e9:.2f} Gop) share {bound_ms / ms:.1%} "
+            f"{'OK' if ok else 'FAIL'}")
         if not ok:
             self.failures.append(name)
 
-    def values(self, name, source, replaces, kern_outs, plain_outs, ms, pms, labels):
+    def values(self, name, source, replaces, kern_outs, plain_outs, ms, pms, labels,
+               bytes_, ops, library_ms=None):
         """Per output: max|kernel - plain| <= VAL_RTOL * max|plain|."""
         errs = [max_abs(a, b) for a, b in zip(kern_outs, plain_outs)]
         scales = [float(b.abs().max()) for b in plain_outs]
         self.record(name, source, replaces, max(errs),
                     all(e <= VAL_RTOL * s for e, s in zip(errs, scales)), ms, pms,
+                    bytes_, ops,
                     "(" + ", ".join(f"{n} {e:.2e} of {s:.2e}" for n, e, s
-                                    in zip(labels, errs, scales)) + ")")
+                                    in zip(labels, errs, scales)) + ")", library_ms)
 
 
 def _sampler_rays(g, dev, R):
@@ -165,86 +223,158 @@ def _sampler_rays(g, dev, R):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_demo_kernels(dev, chk: Checks, R: int = 4096):
-    """K1, K2, K4 and K5 (cached prepass) at the demo slice's shapes."""
+def ray_points(g, dev, R, S, surface_spread=None):
+    """R rays x S points, ray-major and sorted along each ray, as the path
+    hands them to the hash grids: z uniform in [0.05, 1.85] (the mapping
+    samples), or within about ±3·surface_spread of a surface depth per ray
+    (the colour top-k samples, which crowd at the surface)."""
+    import torch
+    o, d = _sampler_rays(g, dev, R)
+    if surface_spread is None:
+        z = torch.rand((R, S), generator=g, device=dev) * 1.8 + 0.05
+    else:
+        z = (0.9 + 0.3 * torch.rand((R, 1), generator=g, device=dev)
+             + surface_spread * torch.randn((R, S), generator=g, device=dev))
+    z = torch.sort(z, dim=1)[0]
+    return (o[:, None, :] + z[..., None] * d[:, None, :]).reshape(-1, 3).contiguous()
+
+
+def uniform_points(g, dev, n):
+    """n points uniform in [-1.05, 1.05]^3 (some outside: zero features)."""
+    import torch
+    return (torch.rand((n, 3), generator=g, device=dev) * 2.1 - 1.05).contiguous()
+
+
+def touched_rows(spec, x) -> int:
+    """Distinct table rows that the in-range points of x read, all levels:
+    the table bytes a hash kernel must move for these inputs."""
+    import torch
+    from nicer_slam_tpu_torch.ops import hash_encoder as he
+    u = (x + 1.0) / 2.0
+    u = u[((u >= 0) & (u <= 1)).all(-1)]
+    bits = torch.tensor(he._CORNER_BITS, dtype=torch.int64, device=x.device)
+    mark = torch.zeros(spec.total_entries, dtype=torch.bool, device=x.device)
+    for lvl in range(spec.num_levels):
+        left = torch.floor(u * spec.scales[lvl]).to(torch.int64)
+        mark[he._level_rows(spec, lvl, left[None] + bits[:, None, :]).reshape(-1)] = True
+    return int(mark.sum())
+
+
+def hash_cost(spec, n, rows, jac, bwd):
+    """(bytes, operations) of one K1/K2 launch over n points that touch
+    ``rows`` table rows: each input read once, each output written once
+    (the table rows read, and in the backward their gradient written);
+    operations are 2 per multiply-add of the corner sums."""
+    L, C = spec.num_levels, spec.level_dim
+    per_pt = 3 + L * C * (1 + 3 * jac)           # x and feats (+ dfeat)
+    table = rows * C
+    if bwd:                                       # + g_x; table read, g_table written
+        words, madds = n * (per_pt + 3) + 2 * table, C * (1 + 3 * jac) * 4
+    else:
+        words, madds = n * per_pt + table, C * (1 + 3 * jac)
+    return 4 * words, 2 * madds * 8 * L * n
+
+
+# (grid, kernel, points): the SDF grids through K1 at the flagship's 8192
+# mapping rays x 98 samples, the colour grid through K2 at its top-16
+# samples and at the demo's 4096 x 98; each on ray-ordered and on uniform
+# points
+HASH_CASES = (("fine", True, "sdf"), ("coarse", True, "sdf"),
+              ("color", False, "top16"), ("color", False, "demo"))
+
+
+def hash_points(g, dev, kind, order):
+    R, S, spread = {"sdf": (8192, 98, None), "top16": (8192, 16, 0.02),
+                    "demo": (4096, 98, None)}[kind]
+    return (ray_points(g, dev, R, S, spread) if order == "ray"
+            else uniform_points(g, dev, R * S))
+
+
+def check_hash_kernels(dev, chk: Checks):
+    """K1 (fine, coarse) and K2 (color) forward and backward at the path's
+    shapes, on ray-ordered and on uniform points, each launch timed alone
+    on preallocated operands; the plain versions run once."""
     import torch
     from nicer_slam_tpu_torch.models import fields
     from nicer_slam_tpu_torch.ops import hash_encoder as he
-    from nicer_slam_tpu_torch.ops import ray_sampling as rs
-    from nicer_slam_tpu_torch.ops import volume_rendering as vr
-    from nicer_slam_tpu.config import parse_file
+    from nicer_slam_tpu_torch.config import parse_file
 
-    conf = parse_file(PATHS["demo"]["conf"]).get_config("model")
+    conf = parse_file(PATHS["flagship"]["conf"]).get_config("model")
     fvs = conf.get_int("feature_vector_size")
     comb = fields.combine_config_from_conf(conf.get_config("implicit_network"), fvs)
     rend = fields.rendering_config_from_conf(conf.get_config("rendering_network"), fvs)
+    specs = {"fine": comb.fine.hash_spec(), "coarse": comb.coarse.hash_spec(),
+             "color": rend.hash_spec()}
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    src = "nicer_slam_tpu_torch/csrc/hash_encoder.cu"
+    for grid, jac, kind in HASH_CASES:
+        spec = specs[grid]
+        L, C = spec.num_levels, spec.level_dim
+        table = torch.rand((spec.total_entries, C), generator=g, device=dev) * 2 - 1
+        for order in ("ray", "uniform"):
+            x = hash_points(g, dev, kind, order)
+            N = x.shape[0]
+            rows = touched_rows(spec, x)
+            tag = f"[{grid}/{kind}/{order}]"
+            kname = "hash_encode_with_grad" if jac else "hash_encode"
+            replaces = "nicer_slam_tpu/ops/hash_encoder.py:" + ("266" if jac else "177")
+            feats = torch.empty((N, L * C), device=dev)
+            dfeat = torch.empty((N, L * C, 3), device=dev) if jac else None
+
+            def fwd():
+                he.hash_encode_fwd_launch(spec, table, x, 1.0, feats, dfeat)
+
+            fwd()
+            po, pms = timed_once(lambda: he.hash_encode_plain(spec, table, x, 1.0, jac))
+            po = list(po) if jac else [po]
+            chk.values(f"{kname}.fwd{tag}", src, replaces,
+                       [feats, dfeat] if jac else [feats], po, cuda_time(fwd), pms,
+                       ("feats", "dfeat"), *hash_cost(spec, N, rows, jac, False))
+            del po
+            # backward: the table gradient (mapping) and the input gradient
+            gf = torch.randn((N, L * C), generator=g, device=dev)
+            gd = torch.randn((N, L * C, 3), generator=g, device=dev) if jac else None
+            g_table = torch.zeros_like(table)
+            g_x = torch.empty((N, 3), device=dev)
+
+            def bwd():
+                he.hash_encode_bwd_launch(spec, table, x, 1.0, jac, gf, gd, g_table, g_x)
+
+            bwd()
+            xx, tt = x.clone().requires_grad_(True), table.clone().requires_grad_(True)
+
+            def plain_bwd():
+                out = he.hash_encode_plain(spec, tt, xx, 1.0, jac)
+                loss = (out[0] * gf).sum() + (out[1] * gd).sum() if jac else (out * gf).sum()
+                return torch.autograd.grad(loss, [xx, tt])
+
+            (pgx, pgt), pms = timed_once(plain_bwd)
+            ex, et = rel_l2(g_x, pgx), rel_l2(g_table, pgt)
+            err = max(max_abs(g_x, pgx), max_abs(g_table, pgt))
+            ms = cuda_time(bwd, before=g_table.zero_)
+            chk.record(f"{kname}.bwd{tag}", src,
+                       replaces if jac else "nicer_slam_tpu/ops/hash_encoder.py:613",
+                       err, ex <= GRAD_REL_L2 and et <= GRAD_REL_L2, ms, pms,
+                       *hash_cost(spec, N, rows, jac, True),
+                       f"(rel L2: grad_x {ex:.2e}, grad_table {et:.2e}; {N} points, "
+                       f"{rows} rows)")
+            del xx, tt, pgx, pgt, g_table, g_x, gf, gd, feats, dfeat, x
+            torch.cuda.empty_cache()
+        del table
+        torch.cuda.empty_cache()
+
+
+def check_demo_kernels(dev, chk: Checks, R: int = 4096):
+    """K4 and K5 (cached prepass) at the demo slice's shapes."""
+    import torch
+    from nicer_slam_tpu_torch.ops import ray_sampling as rs
+    from nicer_slam_tpu_torch.ops import volume_rendering as vr
+
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     S, Ne = 98, 640
-    N = R * S
-
-    def x_points(n):
-        # mostly inside [-1, 1]^3 (some outside: zero features)
-        return (torch.rand((n, 3), generator=g, device=dev) * 2.1 - 1.05).contiguous()
-
-    # ---- K1 on the fine (C=4) and coarse (C=8) SDF grids; K2 on the color grid
-    hash_cases = [("fine", comb.fine.hash_spec(), True),
-                  ("coarse", comb.coarse.hash_spec(), True),
-                  ("color", rend.hash_spec(), False)]
-    for grid, spec, jac in hash_cases:
-        table = (torch.rand((spec.level_dim, spec.total_entries), generator=g,
-                            device=dev) * 2 - 1)
-        x = x_points(N)
-        L, C = spec.num_levels, spec.level_dim
-        gf = torch.randn((N, L * C), generator=g, device=dev)
-        gd = torch.randn((N, L * C, 3), generator=g, device=dev) if jac else None
-        kname = "hash_encode_with_grad" if jac else "hash_encode"
-        kern = he.hash_encode_with_grad if jac else he.hash_encode
-
-        def plain(xx, tt):
-            return he.hash_encode_plain(spec, tt, xx, 1.0, jac)
-
-        def run(fn, need_grad):
-            xx = x.clone().requires_grad_(need_grad)
-            tt = table.clone().requires_grad_(need_grad)
-            out = fn(spec, tt, xx) if fn is kern else fn(xx, tt)
-            return out, xx, tt
-
-        with torch.no_grad():
-            ko = kern(spec, table, x)
-            po = plain(x, table)
-            ms = cuda_time(lambda: kern(spec, table, x))
-            pms = cuda_time(lambda: plain(x, table), iters=3, warmup=1)
-        # feats, and dfeat for K1, each against its own scale
-        chk.values(f"{kname}.fwd[{grid}]", "nicer_slam_tpu_torch/csrc/hash_encoder.cu",
-                   "nicer_slam_tpu/ops/hash_encoder.py:266" if jac
-                   else "nicer_slam_tpu/ops/hash_encoder.py:177",
-                   ko if jac else [ko], po if jac else [po], ms, pms, ("feats", "dfeat"))
-        del ko, po
-
-        def loss_of(out):
-            if jac:
-                return (out[0] * gf).sum() + (out[1] * gd).sum()
-            return (out * gf).sum()
-
-        ko, kx, kt = run(kern, True)
-        kl = loss_of(ko)
-        kgx, kgt = torch.autograd.grad(kl, [kx, kt], retain_graph=True)
-        po, px, pt = run(plain, True)
-        pl = loss_of(po)
-        pgx, pgt = torch.autograd.grad(pl, [px, pt], retain_graph=True)
-        ex, et = rel_l2(kgx, pgx), rel_l2(kgt, pgt)
-        ms = cuda_time(lambda: torch.autograd.grad(kl, [kx, kt], retain_graph=True))
-        pms = cuda_time(lambda: torch.autograd.grad(pl, [px, pt], retain_graph=True),
-                        iters=3, warmup=1)
-        err = max(max_abs(kgx, pgx), max_abs(kgt, pgt))
-        chk.record(f"{kname}.bwd[{grid}]", "nicer_slam_tpu_torch/csrc/hash_encoder.cu",
-                   "nicer_slam_tpu/ops/hash_encoder.py:266" if jac
-                   else "nicer_slam_tpu/ops/hash_encoder.py:613",
-                   err, ex <= GRAD_REL_L2 and et <= GRAD_REL_L2, ms, pms,
-                   f"(rel L2: grad_x {ex:.2e}, grad_table {et:.2e})")
-        del ko, kx, kt, kl, kgx, kgt, po, px, pt, pl, pgx, pgt, table
-        torch.cuda.empty_cache()
+    cu = "nicer_slam_tpu_torch/csrc/"
 
     # ---- K4 composite at R x S
     z = torch.sort(torch.rand((R, S), generator=g, device=dev) * 3.0, dim=1)[0]
@@ -256,9 +386,10 @@ def check_demo_kernels(dev, chk: Checks, R: int = 4096):
         ko, po = vr.composite(z, dens, rgb, nrm), vr.composite_plain(z, dens, rgb, nrm)
         ms = cuda_time(lambda: vr.composite(z, dens, rgb, nrm))
         pms = cuda_time(lambda: vr.composite_plain(z, dens, rgb, nrm))
-    chk.values("composite.fwd", "nicer_slam_tpu_torch/csrc/composite.cu",
+    chk.values("composite.fwd", cu + "composite.cu",
                "nicer_slam_tpu/ops/volume_rendering.py:15", ko, po, ms, pms,
-               ("weights", "rgb", "depth", "normal"))
+               ("weights", "rgb", "depth", "normal"), nbytes(z, dens, rgb, nrm, *ko),
+               R * S * 30)
     ins_k = [t.clone().requires_grad_(True) for t in (dens, rgb, nrm)]
     ins_p = [t.clone().requires_grad_(True) for t in (dens, rgb, nrm)]
     kl = sum((o * go).sum() for o, go in zip(vr.composite(z, *ins_k), gouts))
@@ -266,12 +397,14 @@ def check_demo_kernels(dev, chk: Checks, R: int = 4096):
     kg = torch.autograd.grad(kl, ins_k, retain_graph=True)
     pg = torch.autograd.grad(pl, ins_p, retain_graph=True)
     errs = [rel_l2(a, b) for a, b in zip(kg, pg)]
-    ms = cuda_time(lambda: torch.autograd.grad(kl, ins_k, retain_graph=True))
+    # the backward kernel's launch alone, on the same cotangents
+    ms = cuda_time(lambda: vr._composite_bwd("composite.bwd", z, dens, rgb, nrm, *gouts))
     pms = cuda_time(lambda: torch.autograd.grad(pl, ins_p, retain_graph=True))
-    chk.record("composite.bwd", "nicer_slam_tpu_torch/csrc/composite.cu",
+    chk.record("composite.bwd", cu + "composite.cu",
                "nicer_slam_tpu/ops/volume_rendering.py:15",
                max(max_abs(a, b) for a, b in zip(kg, pg)), max(errs) <= GRAD_REL_L2,
-               ms, pms, "(rel L2 density/rgb/normals " + "/".join(f"{e:.1e}" for e in errs) + ")")
+               ms, pms, nbytes(z, dens, rgb, nrm, *gouts, *kg), R * S * 60,
+               "(rel L2 density/rgb/normals " + "/".join(f"{e:.1e}" for e in errs) + ")")
 
     # ---- K5 importance sampler at R rays, Ne = 640 prepass samples
     scfg = rs.SamplerConfig(N_samples=64, N_samples_eval=Ne, N_samples_extra=32,
@@ -290,14 +423,19 @@ def check_demo_kernels(dev, chk: Checks, R: int = 4096):
     pz, pe = rs.importance_sample_plain(scfg, o, d, cache, t_rand, perm, eik)
     ms = cuda_time(lambda: rs.importance_sample(scfg, o, d, cache, t_rand, perm, eik))
     pms = cuda_time(lambda: rs.importance_sample_plain(scfg, o, d, cache, t_rand, perm, eik))
-    _sampler_record(chk, "importance_sample", kz, ke, pz, pe, ms, pms, R)
+    # the cache counted whole; per prepass sample a trilinear read and a
+    # CDF step (~40 operations), per output sample a binary search
+    _sampler_record(chk, "importance_sample", kz, ke, pz, pe, ms, pms, R,
+                    nbytes(o, d, cache, t_rand, perm, eik, kz, ke),
+                    R * Ne * 40 + R * kz.shape[1] * 40)
 
 
-def _sampler_record(chk, name, kz, ke, pz, pe, ms, pms, R):
+def _sampler_record(chk, name, kz, ke, pz, pe, ms, pms, R, bytes_, ops):
     ray_ok = ((kz - pz).abs().amax(1) <= Z_ATOL) & ((ke - pe).abs()[:, 0] <= Z_ATOL)
     n_off = int((~ray_ok).sum())
     chk.record(name, "nicer_slam_tpu_torch/csrc/sampler.cu",
                "nicer_slam_tpu/ops/ray_sampling.py:112", max_abs(kz, pz), n_off == 0, ms, pms,
+               bytes_, ops,
                f"(rays off by more than {Z_ATOL:g}: {n_off} of {R}; median ray err "
                f"{float((kz - pz).abs().amax(1).median()):.1e})")
 
@@ -312,7 +450,7 @@ def check_flagship_kernels(dev, chk: Checks, R: int = 8192, S: int = 98, Kc: int
     from nicer_slam_tpu_torch.ops import hash_encoder as he
     from nicer_slam_tpu_torch.ops import ray_sampling as rs
     from nicer_slam_tpu_torch.ops import volume_rendering as vr
-    from nicer_slam_tpu.config import parse_file
+    from nicer_slam_tpu_torch.config import parse_file
 
     conf = parse_file(PATHS["flagship"]["conf"]).get_config("model")
     comb = fields.combine_config_from_conf(conf.get_config("implicit_network"),
@@ -336,15 +474,24 @@ def check_flagship_kernels(dev, chk: Checks, R: int = 8192, S: int = 98, Kc: int
     exact = bool(torch.equal(kv, pv))
     ms = cuda_time(lambda: dens_ops.update_voxels(vox0, x))
     pms = cuda_time(lambda: dens_ops.update_voxels_plain(vox0, x))
+    # the library call: one accumulating index_put_ of ones at the points'
+    # voxels (indices computed outside the timed call)
+    vidx, boundary = dens_ops._voxel_index(x, 64)
+    flat = ((vidx[:, 0] * 64 + vidx[:, 1]) * 64 + vidx[:, 2])[~boundary]
+    ones, counter = torch.ones_like(flat, dtype=torch.float32), vox0.clone().view(-1)
+    lib_ms = cuda_time(lambda: counter.index_put_((flat,), ones, accumulate=True))
+    # x read, the counter copied and scattered into (read and written once)
     chk.record("voxels.scatter", cu + "voxels.cu", "nicer_slam_tpu/ops/density.py:61",
-               max_abs(kv, pv), exact, ms, pms,
-               f"(counter bit for bit: {exact}; {N} points, largest count {float(pv.max()):g})")
+               max_abs(kv, pv), exact, ms, pms, nbytes(x, vox0, kv), N * 12,
+               f"(counter bit for bit: {exact}; {N} points, largest count {float(pv.max()):g})",
+               library_ms=lib_ms)
+    del vidx, boundary, flat, ones, counter
     kb = dens_ops.grid_predefined_beta(kv, x)
     pb = dens_ops.grid_predefined_beta_plain(kv, x)
     ms = cuda_time(lambda: dens_ops.grid_predefined_beta(kv, x))
     pms = cuda_time(lambda: dens_ops.grid_predefined_beta_plain(kv, x))
     chk.values("voxels.beta", cu + "voxels.cu", "nicer_slam_tpu/ops/density.py:46",
-               [kb], [pb], ms, pms, ("beta",))
+               [kb], [pb], ms, pms, ("beta",), nbytes(x, kv, kb), N * 20)
     del u, shell, anywhere, pick, kv, pv, kb, pb
 
     # ---- K3 on both SDF grids at one render chunk's prepass (1,651,200
@@ -352,14 +499,16 @@ def check_flagship_kernels(dev, chk: Checks, R: int = 8192, S: int = 98, Kc: int
     Np = R_render * 640
     xp = (torch.rand((Np, 3), generator=g, device=dev) * 2.1 - 1.05).contiguous()
     for grid, spec in (("coarse", comb.coarse.hash_spec()), ("fine", comb.fine.hash_spec())):
-        table = torch.rand((spec.level_dim, spec.total_entries), generator=g, device=dev) * 2 - 1
+        table = torch.rand((spec.total_entries, spec.level_dim), generator=g, device=dev) * 2 - 1
         packed = he.pack_table_bf16(table)
+        L, C = spec.num_levels, spec.level_dim
         ko = he.hash_encode_bf16(spec, packed, xp)
         po = he.hash_encode_bf16_plain(spec, packed, xp)
         ms = cuda_time(lambda: he.hash_encode_bf16(spec, packed, xp))
         pms = cuda_time(lambda: he.hash_encode_bf16_plain(spec, packed, xp), iters=3, warmup=1)
         chk.values(f"hash_encode_bf16[{grid}]", cu + "hash_encoder.cu",
-                   "nicer_slam_tpu/ops/hash_encoder.py:858", [ko], [po], ms, pms, ("feats",))
+                   "nicer_slam_tpu/ops/hash_encoder.py:858", [ko], [po], ms, pms, ("feats",),
+                   nbytes(xp, ko) + touched_rows(spec, xp) * C * 2, 2 * C * 8 * L * Np)
         del table, packed, ko, po
     del xp
     torch.cuda.empty_cache()
@@ -383,7 +532,8 @@ def check_flagship_kernels(dev, chk: Checks, R: int = 8192, S: int = 98, Kc: int
                "nicer_slam_tpu/models/scene_model.py:321",
                list(ko[:3]) + [picked_k], list(po[:3]) + [picked_p], ms, pms,
                ("weights", "depth", "normal", f"picked weights ({n_diff} rays pick "
-                                                f"other indices)"))
+                                                f"other indices)"),
+               nbytes(z, dens, nrm, *ko), R * S * (30 + Kc))
     idx = po[3]
     gw = torch.randn((R, S), generator=g, device=dev)
     gdep = torch.randn((R, 1), generator=g, device=dev)
@@ -397,11 +547,14 @@ def check_flagship_kernels(dev, chk: Checks, R: int = 8192, S: int = 98, Kc: int
     kg = torch.autograd.grad(kl, ins_k, retain_graph=True)
     pg = torch.autograd.grad(pl, ins_p, retain_graph=True)
     errs = [rel_l2(a, b) for a, b in zip(kg, pg)]
-    ms = cuda_time(lambda: torch.autograd.grad(kl, ins_k, retain_graph=True))
+    # the backward kernel's launch alone, on the same cotangents
+    ms = cuda_time(lambda: vr._composite_bwd("weights_topk.bwd", z, dens, None, nrm, gw,
+                                             None, gdep, gn))
     pms = cuda_time(lambda: torch.autograd.grad(pl, ins_p, retain_graph=True))
     chk.record("weights_topk.bwd", cu + "composite.cu",
                "nicer_slam_tpu/models/scene_model.py:321",
                max(max_abs(a, b) for a, b in zip(kg, pg)), max(errs) <= GRAD_REL_L2, ms, pms,
+               nbytes(z, dens, nrm, gw, gdep, gn, *kg), R * S * 50,
                "(rel L2 density/normals " + "/".join(f"{e:.1e}" for e in errs) + ")")
     with torch.no_grad():
         w = po[0]
@@ -414,7 +567,7 @@ def check_flagship_kernels(dev, chk: Checks, R: int = 8192, S: int = 98, Kc: int
         ms = cuda_time(lambda: vr.topk_rgb(topk_w, wsum, rgb))
         pms = cuda_time(lambda: vr.topk_rgb_plain(topk_w, wsum, rgb))
     chk.values("topk_rgb.fwd", cu + "composite.cu", "nicer_slam_tpu/models/scene_model.py:338",
-               [ko], [po], ms, pms, ("rgb",))
+               [ko], [po], ms, pms, ("rgb",), nbytes(topk_w, wsum, rgb, ko), R * Kc * 8)
     go = torch.randn((R, 3), generator=g, device=dev)
     ins_k = [t.clone().requires_grad_(True) for t in (topk_w, wsum, rgb)]
     ins_p = [t.clone().requires_grad_(True) for t in (topk_w, wsum, rgb)]
@@ -422,10 +575,11 @@ def check_flagship_kernels(dev, chk: Checks, R: int = 8192, S: int = 98, Kc: int
     pl = (vr.topk_rgb_plain(*ins_p) * go).sum()
     kg = torch.autograd.grad(kl, ins_k, retain_graph=True)
     pg = torch.autograd.grad(pl, ins_p, retain_graph=True)
-    ms = cuda_time(lambda: torch.autograd.grad(kl, ins_k, retain_graph=True))
+    ms = cuda_time(lambda: vr._topk_rgb_bwd(topk_w, wsum, rgb, go))
     pms = cuda_time(lambda: torch.autograd.grad(pl, ins_p, retain_graph=True))
     chk.values("topk_rgb.bwd", cu + "composite.cu", "nicer_slam_tpu/models/scene_model.py:338",
-               kg, pg, ms, pms, ("g_topk_w", "g_wsum", "g_rgb"))
+               kg, pg, ms, pms, ("g_topk_w", "g_wsum", "g_rgb"),
+               nbytes(topk_w, wsum, rgb, go, *kg), R * Kc * 12)
 
     # ---- K5 given densities: one render chunk of 2580 rays x 640
     scfg = rs.SamplerConfig(N_samples=64, N_samples_eval=640, N_samples_extra=32)
@@ -440,7 +594,9 @@ def check_flagship_kernels(dev, chk: Checks, R: int = 8192, S: int = 98, Kc: int
     pz, pe = rs.importance_sample_given_plain(scfg, zs, dens, perm, eik)
     ms = cuda_time(lambda: rs.importance_sample_given(scfg, zs, dens, perm, eik))
     pms = cuda_time(lambda: rs.importance_sample_given_plain(scfg, zs, dens, perm, eik))
-    _sampler_record(chk, "importance_sample_given", kz, ke, pz, pe, ms, pms, R_render)
+    _sampler_record(chk, "importance_sample_given", kz, ke, pz, pe, ms, pms, R_render,
+                    nbytes(zs, dens, perm, eik, kz, ke),
+                    R_render * 640 * 20 + R_render * kz.shape[1] * 40)
 
 
 # ---------------------------------------------------------------------------
@@ -572,7 +728,7 @@ def run_slam(dev, kind: str, data_dir: str):
 
 def report(kind: str, r, failures) -> None:
     import torch
-    from nicer_slam_tpu.utils.ply import read_ply
+    from nicer_slam_tpu_torch.utils.ply import read_ply
 
     log("  translation error vs GT per frame: "
         + " ".join(f"{i}:{e:.4f}" for i, e in r["errs"].items()))
@@ -631,8 +787,12 @@ def main() -> int:
 
         log(f"[3/6] kernels vs plain versions (tolerance: values {VAL_RTOL:g}·max|ref| "
             f"per output, atomic gradients rel L2 {GRAD_REL_L2:g}, sampler {Z_ATOL:g} "
-            f"on every ray, the voxel counter bit for bit); card {card}")
+            f"on every ray, the voxel counter bit for bit); each kernel's launch "
+            f"alone, mean of 10 after 2; the plain versions of K1/K2 once; bounds at "
+            f"{HBM_BYTES_PER_S / 1e12:g} TB/s and {FP32_OPS_PER_S / 1e12:g} "
+            f"TFLOP/s float32; card {card}")
         chk = Checks()
+        check_hash_kernels(dev, chk)
         check_demo_kernels(dev, chk)
         check_flagship_kernels(dev, chk)
         torch.cuda.empty_cache()

@@ -24,8 +24,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from nicer_slam_tpu.utils import fastio
-
+from ..utils import fastio
 from ..utils.camera import load_K_Rt_from_P
 
 

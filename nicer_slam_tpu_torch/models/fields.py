@@ -3,7 +3,9 @@ network (counterpart of nicer_slam_tpu/models/fields.py).
 
 Modules hold the parameters (state_dict keys = the JAX npz keys:
 ``encoding``, ``lins.<i>.{v,g,b}``); the functions keep the JAX package's
-names and take the module.
+names and take the module. A grid's ``encoding`` is its hash table
+``[T, C]``, the transpose of the JAX package's ``[C, T]``
+(``slam/checkpoint.py`` converts at the file boundary).
 
 SDF normals take the analytic route: the grid encoder returns features and
 their Jacobian from one gather (K1), ``dSDF/dinput`` comes from
@@ -20,8 +22,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from nicer_slam_tpu.config import Config
-
+from ..config import Config
 from ..ops import hash_encoder as he
 from ..ops.embedder import (positional_encoding, positional_encoding_dim,
                             positional_encoding_grad_contract)

@@ -15,7 +15,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
-from nicer_slam_tpu.config import Config
+from ..config import Config
 
 from ..ops.safe_math import safe_norm, safe_normalize
 from .scene_model import FlowEdges, RayBatch

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from nicer_slam_tpu.config import Config
+from ..config import Config
 
 from ..ops import density as density_ops
 from ..ops.ray_sampling import (SamplerConfig, importance_sample,

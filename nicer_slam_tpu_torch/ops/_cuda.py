@@ -50,12 +50,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry point -> argtypes (all return int = cudaError_t)
 _SIGNATURES = {
-    # x, table, lvl_meta, lvl_scale, feats, dfeat, N, L, C, T, size, stream
-    "nsl_hash_encode_fwd": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I64, _F, _P],
-    # x, table, meta, scale, g_feat, g_dfeat, g_table, g_x_partial,
-    # N, L, C, T, size, stream
-    "nsl_hash_encode_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I,
-                            _I64, _F, _P],
+    # x, table [T, C], lvl_meta, lvl_scale, feats, dfeat, N, L, C, size, stream
+    "nsl_hash_encode_fwd": [_P] * 6 + [_I64, _I, _I, _F, _P],
+    # x, table, meta, scale, g_feat, g_dfeat, g_table, g_x [N, 3],
+    # N, L, C, size, stream
+    "nsl_hash_encode_bwd": [_P] * 8 + [_I64, _I, _I, _F, _P],
     # z, density, rgb, normals, weights, rgb_out, depth_out, normal_out,
     # R, S, stream
     "nsl_composite_fwd": [_P] * 8 + [_I64, _I, _P],

@@ -14,18 +14,24 @@ nicer_slam_tpu/ops/hash_encoder.py): kernels K1 and K2.
     in the density-cache build and the exact prepass of an eval render,
     the JAX package's packed-bf16 inference encode.
 
+Tables are ``[T, C]`` float32 (a corner's C channels are one row), the
+transpose of the JAX package's ``[C, T]``; ``slam/checkpoint.py``
+transposes at the file boundary, so checkpoints keep the JAX layout.
+
 All share a plain PyTorch version (``hash_encode_plain``), which the
 wrapper runs for a CPU tensor, and a CUDA kernel (``csrc/hash_encoder.cu``),
 which it launches for a CUDA tensor. The TPU package's row gathers, cell-block tables, sorted
 scatters, uint32 channel-pair packing and ICI modes are TPU workarounds and have no
-counterpart here: on the card the backward is an atomic scatter, and K3's
-table is ``[T, C]`` bf16 so a corner is one vector load.
+counterpart here: on the card the backward is an atomic scatter, and a
+corner is one vector load (and one vector atomic) of a ``[T, C]`` row.
 
-On the card both kernels are memory-latency bound: random 4-byte gathers
-(forward) and float atomics (backward) into tables of up to 1 GB. The
-design keeps one thread per (point, level) with its 8·C corner loads in
-flight together, and skips the table scatter when the table needs no
-gradient (tracking); the note at the top of csrc/hash_encoder.cu has more.
+On the card K1/K2 are bound by bytes: the Jacobian and cotangent tiles
+they stream and the random corner rows they gather and scatter. A block
+is 32 consecutive points × L levels, one warp per level; its output and
+cotangent tiles pass through shared memory to move as coalesced runs,
+lanes that share a corner row merge their gradients before one atomic,
+and the table scatter is skipped when the table needs no gradient
+(tracking); the note at the top of csrc/hash_encoder.cu has more.
 
 Semantics (reference hashencoder.cu): level l has ``scale =
 2^(l·log2 pls)·H − 1`` and resolution ``ceil(scale) + 1``; table sizes use
@@ -95,10 +101,11 @@ def make_spec(input_dim: int = 3, num_levels: int = 16, level_dim: int = 2,
 
 
 def init_hash_params(rng: np.random.Generator, spec: HashGridSpec) -> np.ndarray:
-    """U(-1e-4, 1e-4) table in the ``[C, T]`` layout, drawn from the same
-    numpy stream as the reference package (float32)."""
-    return rng.uniform(-1e-4, 1e-4,
-                       (spec.level_dim, spec.total_entries)).astype(np.float32)
+    """U(-1e-4, 1e-4) table, drawn from the same numpy stream as the
+    reference package (float32, ``[C, T]``), returned as this package's
+    ``[T, C]``."""
+    table = rng.uniform(-1e-4, 1e-4, (spec.level_dim, spec.total_entries))
+    return np.ascontiguousarray(table.astype(np.float32).T)
 
 
 # ---------------------------------------------------------------------------
@@ -128,8 +135,8 @@ _CORNER_BITS = [[(k >> d) & 1 for d in range(3)] for k in range(8)]
 def hash_encode_plain(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor,
                       size: float = 1.0, jacobian: bool = False):
     """Plain version of K2 (``jacobian`` False: [N, 3] -> [N, L·C]) and K1
-    (-> feats, dfeat/dx [N, L·C, 3]); autograd differentiates every output,
-    second order included."""
+    (-> feats, dfeat/dx [N, L·C, 3]) from a ``[T, C]`` table; autograd
+    differentiates every output, second order included."""
     u = (x + size) / (2.0 * size)
     oob = ((u < 0.0) | (u > 1.0)).any(dim=-1)
     bits = torch.tensor(_CORNER_BITS, dtype=torch.int64, device=x.device)
@@ -145,18 +152,18 @@ def hash_encode_plain(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor,
         dwb = 6.0 * f * (1.0 - f) * (scale * chain)
         corner = left.to(torch.int64)[None] + bits[:, None, :]   # [8, N, 3]
         rows = _level_rows(spec, lvl, corner)                     # [8, N]
-        vals = table[:, rows]                                     # [C, 8, N]
+        vals = table[rows]                                        # [8, N, C]
         sels = [torch.where(bits[:, None, d] == 1, wb[None, :, d], wa[None, :, d])
                 for d in range(3)]                                # [8, N] each
         w = sels[0] * sels[1] * sels[2]
-        outs.append(torch.einsum("kn,ckn->nc", w, vals))
+        outs.append(torch.einsum("kn,knc->nc", w, vals))
         if jacobian:
             dsels = [torch.where(bits[:, None, d] == 1, dwb[None, :, d],
                                  -dwb[None, :, d]) for d in range(3)]
             dws = [dsels[0] * sels[1] * sels[2], dsels[1] * sels[0] * sels[2],
                    dsels[2] * sels[0] * sels[1]]
             douts.append(torch.stack(
-                [torch.einsum("kn,ckn->nc", dw, vals) for dw in dws], dim=2))
+                [torch.einsum("kn,knc->nc", dw, vals) for dw in dws], dim=2))
     feats = torch.where(oob[:, None], 0.0, torch.cat(outs, dim=-1))
     if not jacobian:
         return feats
@@ -181,12 +188,58 @@ def _level_tables(spec: HashGridSpec, size: float, device: str):
 
 
 def _check_operands(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor):
-    if spec.input_dim != 3 or spec.level_dim not in (2, 4, 8):
-        raise ValueError(f"kernel supports input_dim 3 and C in (2, 4, 8), "
-                         f"got {spec.input_dim}, {spec.level_dim}")
+    if spec.input_dim != 3 or spec.level_dim not in (2, 4, 8) or spec.num_levels > 32:
+        raise ValueError(f"kernel supports input_dim 3, C in (2, 4, 8) and at most "
+                         f"32 levels, got {spec.input_dim}, {spec.level_dim}, "
+                         f"{spec.num_levels}")
     _cuda.check(x, "x", torch.float32, (x.shape[0], 3))
     _cuda.check(table, "table", torch.float32,
-                (spec.level_dim, spec.total_entries), device=x.device)
+                (spec.total_entries, spec.level_dim), device=x.device)
+    if table.data_ptr() % 16:
+        raise ValueError("table: the kernel's vector row loads and atomics need a "
+                         "16-byte aligned table")
+
+
+def hash_encode_fwd_launch(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor,
+                           size: float, feats: torch.Tensor,
+                           dfeat: torch.Tensor | None = None) -> None:
+    """One launch of the forward kernel into preallocated outputs: K1 with
+    ``dfeat`` [N, L·C, 3], K2 without. Operands as ``_check_operands``."""
+    N, L, C = x.shape[0], spec.num_levels, spec.level_dim
+    meta, scl = _level_tables(spec, float(size), str(x.device))
+    _cuda.check(feats, "feats", torch.float32, (N, L * C), device=x.device)
+    if dfeat is not None:
+        _cuda.check(dfeat, "dfeat", torch.float32, (N, L * C, 3), device=x.device)
+    _cuda.launch("hash_encode_with_grad.fwd" if dfeat is not None else "hash_encode.fwd",
+                 "nsl_hash_encode_fwd", N, x.data_ptr(), table.data_ptr(),
+                 meta.data_ptr(), scl.data_ptr(), feats.data_ptr(), _cuda.ptr(dfeat),
+                 N, L, C, float(size))
+
+
+def hash_encode_bwd_launch(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor,
+                           size: float, jacobian: bool, g_feat: torch.Tensor,
+                           g_dfeat: torch.Tensor | None, g_table: torch.Tensor | None,
+                           g_x: torch.Tensor | None) -> None:
+    """One launch of the backward kernel (K1's if ``jacobian``, else K2's):
+    accumulates into ``g_table`` ([T, C], zeroed by the caller) and writes
+    ``g_x`` [N, 3]; either may be None (not needed). ``g_dfeat`` None
+    leaves out the Jacobian's cotangent."""
+    N, L, C = x.shape[0], spec.num_levels, spec.level_dim
+    meta, scl = _level_tables(spec, float(size), str(x.device))
+    _cuda.check(g_feat, "g_feat", torch.float32, (N, L * C), device=x.device)
+    if g_dfeat is not None:
+        _cuda.check(g_dfeat, "g_dfeat", torch.float32, (N, L * C, 3), device=x.device)
+    if g_table is not None:
+        _cuda.check(g_table, "g_table", torch.float32, tuple(table.shape), device=x.device)
+        if g_table.data_ptr() % 16:
+            raise ValueError("g_table: the kernel's vector atomics need a 16-byte "
+                             "aligned table")
+    if g_x is not None:
+        _cuda.check(g_x, "g_x", torch.float32, (N, 3), device=x.device)
+    _cuda.launch("hash_encode_with_grad.bwd" if jacobian else "hash_encode.bwd",
+                 "nsl_hash_encode_bwd", N, x.data_ptr(), table.data_ptr(),
+                 meta.data_ptr(), scl.data_ptr(), g_feat.data_ptr(), _cuda.ptr(g_dfeat),
+                 _cuda.ptr(g_table), _cuda.ptr(g_x), N, L, C, float(size))
 
 
 class _HashEncodeCUDA(torch.autograd.Function):
@@ -195,14 +248,10 @@ class _HashEncodeCUDA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, table, spec, size, jacobian):
         N, L, C = x.shape[0], spec.num_levels, spec.level_dim
-        meta, scl = _level_tables(spec, float(size), str(x.device))
         feats = torch.empty((N, L * C), dtype=torch.float32, device=x.device)
         dfeat = (torch.empty((N, L * C, 3), dtype=torch.float32, device=x.device)
                  if jacobian else None)
-        _cuda.launch("hash_encode_with_grad.fwd" if jacobian else "hash_encode.fwd",
-                     "nsl_hash_encode_fwd", N, x.data_ptr(), table.data_ptr(),
-                     meta.data_ptr(), scl.data_ptr(), feats.data_ptr(),
-                     _cuda.ptr(dfeat), N, L, C, spec.total_entries, float(size))
+        hash_encode_fwd_launch(spec, table, x, size, feats, dfeat)
         ctx.save_for_backward(x, table)
         ctx.spec, ctx.size, ctx.jacobian = spec, float(size), jacobian
         ctx.set_materialize_grads(False)
@@ -221,16 +270,12 @@ class _HashEncodeCUDA(torch.autograd.Function):
                   if g_feat is None else g_feat.contiguous())
         if g_dfeat is not None:
             g_dfeat = g_dfeat.contiguous()
-        meta, scl = _level_tables(spec, ctx.size, str(x.device))
         g_table = torch.zeros_like(table) if need_t else None
-        g_x = (torch.empty((N, L, 3), dtype=torch.float32, device=x.device)
+        g_x = (torch.empty((N, 3), dtype=torch.float32, device=x.device)
                if need_x else None)
-        _cuda.launch("hash_encode_with_grad.bwd" if ctx.jacobian else "hash_encode.bwd",
-                     "nsl_hash_encode_bwd", N, x.data_ptr(), table.data_ptr(),
-                     meta.data_ptr(), scl.data_ptr(), g_feat.data_ptr(),
-                     _cuda.ptr(g_dfeat), _cuda.ptr(g_table), _cuda.ptr(g_x),
-                     N, L, C, spec.total_entries, ctx.size)
-        return (g_x.sum(dim=1) if need_x else None), g_table, None, None, None
+        hash_encode_bwd_launch(spec, table, x, ctx.size, ctx.jacobian, g_feat, g_dfeat,
+                               g_table, g_x)
+        return g_x, g_table, None, None, None
 
 
 def _dispatch(spec, table, x, size, jacobian):
@@ -249,15 +294,15 @@ def hash_encode(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor,
 
 
 def pack_table_bf16(table: torch.Tensor) -> torch.Tensor:
-    """K3's table: ``[C, T]`` float32 -> ``[T, C]`` bfloat16, rounded to
+    """K3's table: ``[T, C]`` float32 -> ``[T, C]`` bfloat16, rounded to
     nearest-even (as the JAX package's ``astype(bfloat16)``)."""
-    return table.detach().to(torch.bfloat16).t().contiguous()
+    return table.detach().to(torch.bfloat16).contiguous()
 
 
 def hash_encode_bf16_plain(spec: HashGridSpec, packed: torch.Tensor,
                            x: torch.Tensor, size: float = 1.0) -> torch.Tensor:
     """Plain version of K3: the K2 plain version on the widened table."""
-    return hash_encode_plain(spec, packed.t().to(torch.float32), x, size)
+    return hash_encode_plain(spec, packed.to(torch.float32), x, size)
 
 
 def hash_encode_bf16(spec: HashGridSpec, packed: torch.Tensor, x: torch.Tensor,

@@ -180,17 +180,21 @@ class _TopkRGBCUDA(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g_out):
-        topk_w, wsum, rgb = ctx.saved_tensors
-        R, Kc = topk_w.shape
-        dev = topk_w.device
-        g_out = g_out.contiguous()
-        g_w = torch.empty((R, Kc), dtype=torch.float32, device=dev)
-        g_wsum = torch.empty((R, 1), dtype=torch.float32, device=dev)
-        g_rgb = torch.empty((R, Kc, 3), dtype=torch.float32, device=dev)
-        _cuda.launch("topk_rgb.bwd", "nsl_topk_rgb_bwd", R, topk_w.data_ptr(),
-                     wsum.data_ptr(), rgb.data_ptr(), g_out.data_ptr(), g_w.data_ptr(),
-                     g_wsum.data_ptr(), g_rgb.data_ptr(), R, Kc)
-        return g_w, g_wsum, g_rgb
+        return _topk_rgb_bwd(*ctx.saved_tensors, g_out)
+
+
+def _topk_rgb_bwd(topk_w, wsum, rgb, g_out):
+    """topk_rgb_bwd_kernel: (g_topk_w, g_wsum, g_rgb)."""
+    R, Kc = topk_w.shape
+    dev = topk_w.device
+    g_out = g_out.contiguous()
+    g_w = torch.empty((R, Kc), dtype=torch.float32, device=dev)
+    g_wsum = torch.empty((R, 1), dtype=torch.float32, device=dev)
+    g_rgb = torch.empty((R, Kc, 3), dtype=torch.float32, device=dev)
+    _cuda.launch("topk_rgb.bwd", "nsl_topk_rgb_bwd", R, topk_w.data_ptr(),
+                 wsum.data_ptr(), rgb.data_ptr(), g_out.data_ptr(), g_w.data_ptr(),
+                 g_wsum.data_ptr(), g_rgb.data_ptr(), R, Kc)
+    return g_w, g_wsum, g_rgb
 
 
 def _on_card(name: str, t: torch.Tensor) -> bool:

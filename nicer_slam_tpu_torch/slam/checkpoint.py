@@ -9,9 +9,12 @@
 
 The model and pose files are interchangeable with the JAX package's: param
 paths are the JAX pytree paths (``implicit/coarse/lins/0/v``), which are
-the module's state_dict keys with '.' replaced by '/'. The optimizer file
-holds torch Adam state keyed by the same paths; reading the JAX package's
-optax state is not supported.
+the module's state_dict keys with '.' replaced by '/'. The hash-grid tables
+(``.../encoding``) are ``[T, C]`` in this package and ``[C, T]`` in the
+files, as the JAX package holds them: ``jax_layout``/``port_layout``
+transpose at this boundary, for the model file and the Adam moments alike.
+The optimizer file holds torch Adam state keyed by the same paths; reading
+the JAX package's optax state is not supported.
 """
 
 from __future__ import annotations
@@ -25,11 +28,29 @@ import torch
 _PREFIX = "model_state_dict/"
 
 
+def _is_table(path: str) -> bool:
+    return path.rsplit("/", 1)[-1] == "encoding"
+
+
+def jax_layout(path: str, t: torch.Tensor) -> np.ndarray:
+    """The array at JAX param path ``path`` (a parameter, its gradient or an
+    Adam moment) in the JAX package's layout: tables transposed to
+    ``[C, T]`` (on the tensor's device, before the copy to the host)."""
+    t = t.detach()
+    return (t.t().contiguous() if _is_table(path) else t).cpu().numpy()
+
+
+def port_layout(path: str, a: np.ndarray) -> torch.Tensor:
+    """Inverse of ``jax_layout``: a host tensor in this package's layout."""
+    t = torch.from_numpy(np.require(a, requirements=["C", "W"]))
+    return t.t().contiguous() if _is_table(path) else t
+
+
 def params_to_numpy(model: torch.nn.Module) -> Dict[str, np.ndarray]:
     """Module parameters -> {JAX param path: array} (what the JAX package's
-    ``_flatten_pytree(params)`` makes)."""
-    return {k.replace(".", "/"): v.detach().cpu().numpy()
-            for k, v in model.state_dict().items()}
+    ``_flatten_pytree(params)`` makes, tables ``[C, T]``)."""
+    return {path: jax_layout(path, v) for path, v in
+            ((k.replace(".", "/"), v) for k, v in model.state_dict().items())}
 
 
 def params_from_numpy(flat: Dict[str, np.ndarray], model: torch.nn.Module):
@@ -41,7 +62,7 @@ def params_from_numpy(flat: Dict[str, np.ndarray], model: torch.nn.Module):
             k = k[len(_PREFIX):]
         elif "/" not in k and k in ("voxels", "frame_idx"):
             continue
-        state[k.replace("/", ".")] = torch.from_numpy(np.require(v, requirements=["C", "W"]))
+        state[k.replace("/", ".")] = port_layout(k, v)
     missing = set(model.state_dict()) - set(state)
     unexpected = set(state) - set(model.state_dict())
     if missing or unexpected:
@@ -82,8 +103,9 @@ def save_optimizer(path_dir: str, model: torch.nn.Module,
     flat = {"frame_idx": np.asarray(frame_idx)}
     for name, p in _param_paths(model, optimizer):
         for k, v in optimizer.state.get(p, {}).items():
-            flat[f"{name}/{k}"] = (v.detach().cpu().numpy() if torch.is_tensor(v)
-                                   else np.asarray(v))
+            flat[f"{name}/{k}"] = (np.asarray(v) if not torch.is_tensor(v)
+                                   else v.detach().cpu().numpy() if k == "step"
+                                   else jax_layout(name, v))
     np.savez(os.path.join(path_dir, "latest.npz"), **flat)
 
 
@@ -101,8 +123,9 @@ def load_optimizer(path_dir: str, model: torch.nn.Module,
             continue
         state = {}
         for k in keys:
-            v = torch.from_numpy(flat[k])
             field = k[len(name) + 1:]
+            v = (torch.from_numpy(flat[k]) if field == "step"
+                 else port_layout(name, flat[k]))
             if field != "step" and tuple(v.shape) != tuple(p.shape):
                 raise ValueError(f"optimizer state {k}: shape {tuple(v.shape)} "
                                  f"!= {tuple(p.shape)}")

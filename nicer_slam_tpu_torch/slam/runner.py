@@ -23,9 +23,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from nicer_slam_tpu import config as config_mod
-from nicer_slam_tpu.slam.keyframes import KeyframeConfig, KeyframeSelector
-
+from .. import config as config_mod
 from ..models import scene_model as sm
 from ..models.fields import init_implicit_lins
 from ..models.linear import WNLinear
@@ -36,6 +34,7 @@ from ..utils.camera import (camera_from_tensor_np, clamp_pose_to_anchor_np,
 from ..utils.profiling import PhaseTimer
 from . import checkpoint as ckpt
 from .frame_store import FrameStore
+from .keyframes import KeyframeConfig, KeyframeSelector
 from .mapping import (MapBatchRefs, MapConfig, make_map_draws, map_step,
                       slot_confidence)
 from .state import OptimConfig, make_optimizer

@@ -10,8 +10,8 @@ Per call of ``vis_hook`` it writes, under the run's ``vis/``:
 
 PNGs go through OpenCV. The mesh's SDF grid is evaluated on the model's
 device (``combine_sdf``); the isosurface extraction and the PLY writer are
-the JAX package's numpy-only ``ops.marching_cubes`` and ``utils.ply``,
-reused by import. Vertex colours come from the color network with the
+this package's numpy copies of the JAX package's ``ops.marching_cubes`` and
+``utils.ply``. Vertex colours come from the color network with the
 view direction set to -normal, as the reference colours its meshes.
 """
 
@@ -23,10 +23,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from nicer_slam_tpu.ops.marching_cubes import extract_mesh
-from nicer_slam_tpu.utils.ply import write_ply
-
 from ..models import fields
+from ..ops.marching_cubes import extract_mesh
+from .ply import write_ply
 
 
 def colorize_depth(depth: np.ndarray, lo=None, hi=None) -> np.ndarray:

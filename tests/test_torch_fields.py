@@ -23,7 +23,8 @@ from nicer_slam_tpu.models import scene_model as jsm
 from nicer_slam_tpu.slam.checkpoint import _flatten_pytree, _unflatten_into
 from nicer_slam_tpu_torch.models import fields as tf
 from nicer_slam_tpu_torch.models import scene_model as tsm
-from nicer_slam_tpu_torch.slam.checkpoint import params_from_numpy, params_to_numpy
+from nicer_slam_tpu_torch.slam.checkpoint import (jax_layout, params_from_numpy,
+                                                 params_to_numpy)
 
 import _torch_tiny
 
@@ -125,7 +126,7 @@ def test_second_order_gradients_match(setup, color_stage):
             assert color_stage == "base" and key == "render/encoding"
             assert not np.any(flat_j[key])
             continue
-        _close(p.grad.numpy(), flat_j[key])
+        _close(jax_layout(key, p.grad), flat_j[key])
 
 
 def test_density_cache_matches_fp32_and_bf16_references(setup):

@@ -43,6 +43,7 @@ from nicer_slam_tpu_torch.ops import hash_encoder as the
 from nicer_slam_tpu_torch.ops import ray_sampling as trs
 from nicer_slam_tpu_torch.ops import volume_rendering as tvr
 from nicer_slam_tpu_torch.slam import render as trender
+from nicer_slam_tpu_torch.slam.checkpoint import port_layout
 from nicer_slam_tpu_torch.utils import plots as tplots
 
 import _torch_tiny
@@ -98,7 +99,8 @@ def test_bf16_pack_rounds_as_xla():
     bits = (bits & 0x3FFFFFFF) | 0x38000000                  # finite, O(1e-3..1e3)
     table = bits.view(np.float32)
     packed_j = np.asarray(jhe.pack_table_bf16_pairs(jnp.asarray(table)))      # [C/2, T]
-    packed_t = the.pack_table_bf16(T(table)).view(torch.int16).numpy().view(np.uint16)
+    packed_t = the.pack_table_bf16(port_layout("encoding", table)).view(
+        torch.int16).numpy().view(np.uint16)                                # [T, C]
     np.testing.assert_array_equal((packed_j >> 16).astype(np.uint16), packed_t[:, 0::2].T)
     np.testing.assert_array_equal((packed_j & 0xFFFF).astype(np.uint16), packed_t[:, 1::2].T)
 
@@ -113,13 +115,14 @@ def test_hash_encode_bf16_matches_jax(name):
     x = rng.uniform(-1.05, 1.05, (257, 3)).astype(np.float32)
     f_j = np.asarray(jhe.hash_encode_packed(
         spec_j, jhe.pack_table_bf16_pairs(jnp.asarray(table)), jnp.asarray(x)))
-    f_t = the.hash_encode_bf16(spec_t, the.pack_table_bf16(T(table)), T(x)).numpy()
+    table_t = port_layout("encoding", table)
+    f_t = the.hash_encode_bf16(spec_t, the.pack_table_bf16(table_t), T(x)).numpy()
     np.testing.assert_allclose(f_t, f_j, atol=1e-6, rtol=0)
     # the bf16 rounding is visible: the fp32 encode differs by more
-    f_32 = the.hash_encode(spec_t, T(table), T(x)).numpy()
+    f_32 = the.hash_encode(spec_t, table_t, T(x)).numpy()
     assert np.abs(f_32 - f_j).max() > 1e-5
     with pytest.raises(ValueError, match="no backward"):
-        the.hash_encode_bf16(spec_t, the.pack_table_bf16(T(table)),
+        the.hash_encode_bf16(spec_t, the.pack_table_bf16(table_t),
                              T(x).requires_grad_(True))
 
 

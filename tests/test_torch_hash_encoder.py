@@ -2,6 +2,10 @@
 hash_encode) with the JAX package's, on the CPU (the port's plain versions;
 the CUDA kernels are held against those on the card by chip_smoke.py).
 
+Tables are drawn in the JAX package's ``[C, T]`` layout and reach the port
+as its ``[T, C]`` through the checkpoint boundary's ``port_layout``; the
+port's table gradients come back through ``jax_layout``.
+
 Tolerances: values atol 1e-6 and gradients rtol 1e-5 / atol 1e-6, float32
 throughout — the two packages sum the same float32 terms in different
 orders. Tables are U(-0.01, 0.01), so features are O(1e-2) and Jacobians
@@ -16,6 +20,7 @@ import torch
 
 from nicer_slam_tpu.ops import hash_encoder as jhe
 from nicer_slam_tpu_torch.ops import hash_encoder as the
+from nicer_slam_tpu_torch.slam.checkpoint import jax_layout, port_layout
 
 SPECS = {
     # fractional per-level scale (allocator vs kernel resolution), all dense
@@ -51,6 +56,11 @@ def _inputs(name, n=257, seed=0):
     return spec_j, spec_t, table, x, g_feat, g_dfeat
 
 
+def _port(table):
+    """A JAX-layout [C, T] table as the port holds it, [T, C]."""
+    return port_layout("encoding", table)
+
+
 def test_make_spec_matches():
     for kw in SPECS.values():
         assert tuple(jhe.make_spec(**kw)) == tuple(the.make_spec(**kw))
@@ -71,13 +81,14 @@ def test_hash_encode_matches_jax(name):
                        jnp.asarray(table), jnp.asarray(x))
     gt_j, gx_j = vjp(jnp.asarray(g_feat))
 
-    tt = torch.from_numpy(table).requires_grad_(True)
+    tt = _port(table).requires_grad_(True)
     xt = torch.from_numpy(x).requires_grad_(True)
     f_t = the.hash_encode(spec_t, tt, xt)
     gt_t, gx_t = torch.autograd.grad(f_t, [tt, xt], torch.from_numpy(g_feat))
 
     np.testing.assert_allclose(f_t.detach().numpy(), np.asarray(f_j), atol=1e-6, rtol=0)
-    np.testing.assert_allclose(gt_t.numpy(), np.asarray(gt_j), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(jax_layout("encoding", gt_t), np.asarray(gt_j),
+                               rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(gx_t.numpy(), np.asarray(gx_j), rtol=1e-5, atol=1e-6)
     # points outside [-1, 1]^3 give zero features
     oob = (np.abs(x) > 1).any(-1)
@@ -91,7 +102,7 @@ def test_hash_encode_with_grad_matches_jax(name):
                               jnp.asarray(table), jnp.asarray(x))
     gt_j, gx_j = vjp((jnp.asarray(g_feat), jnp.asarray(g_dfeat)))
 
-    tt = torch.from_numpy(table).requires_grad_(True)
+    tt = _port(table).requires_grad_(True)
     xt = torch.from_numpy(x).requires_grad_(True)
     f_t, d_t = the.hash_encode_with_grad(spec_t, tt, xt)
     gt_t, gx_t = torch.autograd.grad([f_t, d_t], [tt, xt],
@@ -99,7 +110,8 @@ def test_hash_encode_with_grad_matches_jax(name):
 
     np.testing.assert_allclose(f_t.detach().numpy(), np.asarray(f_j), atol=1e-6, rtol=0)
     np.testing.assert_allclose(d_t.detach().numpy(), np.asarray(d_j), atol=1e-6, rtol=0)
-    np.testing.assert_allclose(gt_t.numpy(), np.asarray(gt_j), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(jax_layout("encoding", gt_t), np.asarray(gt_j),
+                               rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(gx_t.numpy(), np.asarray(gx_j), rtol=1e-5, atol=1e-6)
 
 
@@ -108,7 +120,7 @@ def test_dfeat_is_the_jacobian_of_feats():
     (float64, so the check is tight)."""
     spec = the.make_spec(**SPECS["hashed_c2"])
     _, _, table, x, _, _ = _inputs("hashed_c2", n=9)
-    t64 = torch.from_numpy(table).double()
+    t64 = _port(table).double()
     x64 = torch.from_numpy(x).double() * 0.9
     _, dfeat = the.hash_encode_with_grad(spec, t64, x64)
     jac = torch.autograd.functional.jacobian(
@@ -121,7 +133,7 @@ def test_dfeat_is_the_jacobian_of_feats():
 def test_hash_encode_matches_dense_reference(name):
     spec_j, spec_t, table, x, _, _ = _inputs(name)
     ref = jhe.hash_encode_dense_ref(spec_j, table, x)
-    out = the.hash_encode(spec_t, torch.from_numpy(table), torch.from_numpy(x))
+    out = the.hash_encode(spec_t, _port(table), torch.from_numpy(x))
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-6, rtol=0)
 
 
@@ -143,4 +155,4 @@ def test_cuda_wrapper_rejects_other_devices():
     spec = the.make_spec(**SPECS["dense_c4"])
     x = torch.zeros((4, 3), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        the.hash_encode(spec, torch.zeros((4, spec.total_entries), device="meta"), x)
+        the.hash_encode(spec, torch.zeros((spec.total_entries, 4), device="meta"), x)
