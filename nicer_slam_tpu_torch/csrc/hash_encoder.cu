@@ -5,7 +5,8 @@
 // gather. K2 replaces hash_encode (:177-263) with its big-grid variant
 // _hash_encode_unified/_grid_corner_values (:601-678, :784-834): features
 // only. Both share one forward and one backward kernel, templated on the
-// channel count C in {2, 4, 8} and on whether the Jacobian is carried.
+// channel count C in {2, 4, 8} and on whether the Jacobian is carried; K3
+// (below) is the same forward kernel reading a bf16 table.
 //
 // Semantics (reference hashencoder.cu): level l has scale s_l and
 // resolution r_l; u = (x + size) / (2 size); pos = u s_l; smoothstep
@@ -27,7 +28,8 @@
 //   * one vector load (and one vector atomicAdd, sm_90's float2/float4
 //     atomics in global memory) per corner row instead of C scalar ones;
 //   * a block is 32 consecutive points x L levels, one warp per level, so a
-//     warp's 32 lanes are 32 points of one level. The path's points are
+//     warp's 32 lanes are 32 points of one level (the features-only
+//     forward of K2/K3 takes 64 points, two per lane). The path's points are
 //     ray-major and sorted along each ray, so neighbouring lanes often fall
 //     in the same cell on the coarse levels: the backward finds the lanes
 //     that share a corner row (__match_any_sync), sums their gradients in
@@ -42,12 +44,16 @@
 // The atomics' order changes from run to run: the table gradient is equal
 // to the plain version's up to float32 rounding, not bit for bit.
 //
-// Measured on an H100 (PERF.md §6): the forward reaches 34-50 % of its
-// byte bound on the SDF grids; the colour grid's random 8-byte rows cost a
-// whole 32-byte sector each, forward and backward. The backward takes the
-// same time on ray-ordered and uniform points of the dense coarse grid: it
-// is bound by the instructions and latency of its per-corner chain, not by
-// bytes. Variants measured against this one: grad_x in a loop of its own
+// Measured on an H100 80GB HBM3 at 700 W (PERF.md §6): the forward reaches
+// 42-58 % of its byte bound on the SDF grids' ray-ordered points; the
+// colour grid's random 8-byte rows cost a whole 32-byte sector each,
+// forward and backward. Copying the tiles row by row, each warp along its
+// rows (no division by the runtime width), and reading each point from L1
+// instead of staging it took 2-16 % off the K1 forward and 0-10 % off its
+// backward, in one call with the earlier tiles (tools/hash_kernel_ab.py).
+// The backward takes the same time on ray-ordered and uniform points of
+// the dense coarse grid: it is bound by the instructions and latency of its
+// per-corner chain, not by bytes. Variants measured against this one: grad_x in a loop of its own
 // (its row loads in flight together) raised the registers to 127-168 and
 // lost ~50 % on the SDF grids; no lane merging won 12 % on the coarse grid
 // and lost 40 % on the colour grid's top-16 points; a division-free level
@@ -64,9 +70,24 @@
 // [T, C] bf16, so a corner's C channels are one 16-byte (C = 8), 8-byte
 // (C = 4) or 4-byte (C = 2) load, half the bytes of the fp32 [T, C]
 // table's row. Values widen to float32 exactly (a bf16 is the top half of
-// a float32) and the sums run in float32, as the reference's. Forward
-// only: the caller holds no gradient. It keeps one thread per
-// (point, level).
+// a float32) and the sums run in float32, in the plain version's corner
+// order. Forward only: the caller holds no gradient. K3 is the K1/K2
+// forward kernel with the bf16 row loader (hash_fwd_kernel<C, false,
+// Bf16Rows>): a warp per level over 64 points, two per lane, the feats
+// tile written as contiguous runs. An
+// earlier design gave each thread one (point, level): a warp's gathers fell
+// in 8 level tables at once and its C-float stores were strided by 4 C
+// bytes across lanes. Measured against it in one call (H100 80GB HBM3,
+// 700 W; tools/hash_kernel_ab.py, PERF.md §6): 1.5-1.8x faster on the
+// coarse grid (16-byte rows) at every point order; on the fine grid
+// (8-byte rows) 3 % faster on a density-cache chunk, 0.5-1.6 % slower on
+// ray-ordered and uniform points. Variants that did not beat this one on
+// the fine grid, timed in turns on the same card: one point per lane; the
+// levels mixed within a warp (thread t on point t / L); no tile, each lane
+// storing its slice of the row; four points per lane; a warp per 32 points
+// over every level with a warp-private tile and no block barrier; a
+// shared-memory carveout sized to full occupancy; a multiply by
+// 1 / (2 size) in place of the division.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -219,29 +240,86 @@ __device__ __forceinline__ void atomic_add_row(float* t, uint32_t row,
   }
 }
 
-// Shared memory of a K1/K2 block, in floats (every part a multiple of 4
-// floats, so each starts 16-byte aligned). LC = L*C.
+// ---- one [T, C] bf16 row (K3): one 4-, 8- or 16-byte load, widened ----
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+template <int C>
+__device__ __forceinline__ void load_bf16_row(const uint16_t* __restrict__ t,
+                                              uint32_t row, float v[C]) {
+  uint32_t ws[C / 2];
+  if constexpr (C == 2) {
+    ws[0] = __ldg(reinterpret_cast<const uint32_t*>(t) + row);
+  } else if constexpr (C == 4) {
+    uint2 w = __ldg(reinterpret_cast<const uint2*>(t) + row);
+    ws[0] = w.x;
+    ws[1] = w.y;
+  } else {
+    uint4 w = __ldg(reinterpret_cast<const uint4*>(t) + row);
+    ws[0] = w.x;
+    ws[1] = w.y;
+    ws[2] = w.z;
+    ws[3] = w.w;
+  }
+#pragma unroll
+  for (int i = 0; i < C / 2; ++i) {
+    v[2 * i] = bf16_lo(ws[i]);
+    v[2 * i + 1] = bf16_hi(ws[i]);
+  }
+}
+
+// the forward kernel's table rows: fp32 (K1/K2) or bf16 widened (K3)
+struct Fp32Rows {
+  using Elem = float;
+  template <int C>
+  static __device__ __forceinline__ void load(const float* __restrict__ t,
+                                              uint32_t row, float v[C]) {
+    load_row<C>(t, row, v);
+  }
+};
+
+struct Bf16Rows {
+  using Elem = uint16_t;
+  template <int C>
+  static __device__ __forceinline__ void load(const uint16_t* __restrict__ t,
+                                              uint32_t row, float v[C]) {
+    load_bf16_row<C>(t, row, v);
+  }
+};
+
+// Shared memory of a K1/K2/K3 block of `pts` points, in floats (every part
+// a multiple of 4 floats, so each starts 16-byte aligned). LC = L*C.
 __host__ __device__ constexpr int smem_x() { return kPts * 3; }
-__host__ __device__ constexpr int smem_feat(int LC) { return kPts * (LC + 1); }
-__host__ __device__ constexpr int smem_dfeat(int LC) { return kPts * (3 * LC + 1); }
+__host__ __device__ constexpr int smem_feat(int LC, int pts = kPts) { return pts * (LC + 1); }
+__host__ __device__ constexpr int smem_dfeat(int LC, int pts = kPts) { return pts * (3 * LC + 1); }
+
+// points per lane of a forward block: 2 without the Jacobian (K2, K3: a
+// block of 64 points, one barrier per 64 points, 16 corner rows in flight
+// per lane), 1 with it (K1: its dfeat tile would double)
+template <bool JAC>
+__host__ __device__ constexpr int fwd_points_per_lane() { return JAC ? 1 : 2; }
 
 // the block's [np, W] tile of a row-major [N, W] array, staged in shared
 // memory with rows padded to W + 1, to or from device memory in
-// contiguous runs
+// contiguous runs: each warp copies whole rows, its lanes along the row
+// (no division by the runtime width W in the loop)
 __device__ __forceinline__ void tile_out(float* __restrict__ dst,
                                          const float* s, int np, int W) {
-  for (int i = threadIdx.x; i < np * W; i += blockDim.x) {
-    int p = i / W;
-    dst[i] = s[i + p];
-  }
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  for (int p = threadIdx.x >> 5; p < np; p += nw)
+    for (int c = lane; c < W; c += 32) dst[p * W + c] = s[p * (W + 1) + c];
 }
 
 __device__ __forceinline__ void tile_in(float* s, const float* __restrict__ src,
                                         int np, int W) {
-  for (int i = threadIdx.x; i < np * W; i += blockDim.x) {
-    int p = i / W;
-    s[i + p] = src[i];
-  }
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  for (int p = threadIdx.x >> 5; p < np; p += nw)
+    for (int c = lane; c < W; c += 32) s[p * (W + 1) + c] = src[p * W + c];
 }
 
 // the block's points [np, 3] into shared memory; lane p's point, or the
@@ -257,69 +335,78 @@ __device__ __forceinline__ void block_points(float* s_x,
 }
 
 // feats[n, l*C + c] = sum_k w_k v_k[c];  dfeat[n, l*C + c, d] = sum_k dw_k,d v_k[c]
-template <int C, bool JAC>
+// A block is PPL * 32 points x L levels, one warp per level; lane i of a
+// warp takes points i, i + 32, ... of the block at its level.
+template <int C, bool JAC, typename Rows = Fp32Rows>
 __global__ void hash_fwd_kernel(const float* __restrict__ x,
-                                const float* __restrict__ table,
+                                const typename Rows::Elem* __restrict__ table,
                                 const int* __restrict__ meta,
                                 const float* __restrict__ scl,
                                 float* __restrict__ feats,
                                 float* __restrict__ dfeat, int64_t N, int L,
                                 float size) {
+  constexpr int PPL = fwd_points_per_lane<JAC>();
+  constexpr int kBlockPts = kPts * PPL;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
   const int LC = L * C;
-  float* s_x = smem;
-  float* s_f = s_x + smem_x();
-  float* s_d = s_f + smem_feat(LC);
+  float* s_f = reinterpret_cast<float*>(smem4);
+  float* s_d = s_f + smem_feat(LC, kBlockPts);
   const int lane = threadIdx.x & 31, l = threadIdx.x >> 5;
-  const int64_t n0 = (int64_t)blockIdx.x * kPts;
-  const int np = (int)(N - n0 < kPts ? N - n0 : kPts);
-  float xp[3];
-  block_points(s_x, x, n0, np, lane, xp);
-
-  LevelGeom g;
-  bool oob = level_geom(xp, size, scl[2 * l], scl[2 * l + 1], g);
-  float acc[C], dacc[C][3];
+  const int64_t n0 = (int64_t)blockIdx.x * kBlockPts;
+  const int np = (int)(N - n0 < kBlockPts ? N - n0 : kBlockPts);
+  const uint32_t offset = (uint32_t)meta[4 * l], lsize = (uint32_t)meta[4 * l + 1];
+  const uint32_t res = (uint32_t)meta[4 * l + 2];
+  const bool dense = meta[4 * l + 3] != 0;
+  const float scale = scl[2 * l], dscale = scl[2 * l + 1];
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    acc[c] = 0.0f;
-    dacc[c][0] = dacc[c][1] = dacc[c][2] = 0.0f;
-  }
-  if (lane < np && !oob) {
-    uint32_t offset = (uint32_t)meta[4 * l], lsize = (uint32_t)meta[4 * l + 1];
-    uint32_t res = (uint32_t)meta[4 * l + 2];
-    bool dense = meta[4 * l + 3] != 0;
-    uint32_t rows[8];
-    corner_rows(g, res, lsize, offset, dense, rows);
+  for (int h = 0; h < PPL; ++h) {
+    const int p = lane + kPts * h;
+    // the point (the L warps of the block read it from L1), or the origin
+    // for a lane past the end (its outputs are never written)
+    float xp[3];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      float v[C];
-      load_row<C>(table, rows[k], v);
-      float w, dw[3];
-      corner_weights(g, k, w, dw);
+    for (int d = 0; d < 3; ++d) xp[d] = p < np ? x[(n0 + p) * 3 + d] : 0.0f;
+    LevelGeom g;
+    bool oob = level_geom(xp, size, scale, dscale, g);
+    float acc[C], dacc[C][3];
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        acc[c] += w * v[c];
-        if (JAC) {
-          dacc[c][0] += dw[0] * v[c];
-          dacc[c][1] += dw[1] * v[c];
-          dacc[c][2] += dw[2] * v[c];
+    for (int c = 0; c < C; ++c) {
+      acc[c] = 0.0f;
+      dacc[c][0] = dacc[c][1] = dacc[c][2] = 0.0f;
+    }
+    if (p < np && !oob) {
+      uint32_t rows[8];
+      corner_rows(g, res, lsize, offset, dense, rows);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        float v[C];
+        Rows::template load<C>(table, rows[k], v);
+        float w, dw[3];
+        corner_weights(g, k, w, dw);
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          acc[c] += w * v[c];
+          if (JAC) {
+            dacc[c][0] += dw[0] * v[c];
+            dacc[c][1] += dw[1] * v[c];
+            dacc[c][2] += dw[2] * v[c];
+          }
         }
       }
     }
-  }
-  // lane p's row of each tile; rows padded by one float, so the 32 lanes
-  // of a warp store to 32 different banks
-  float* fr = s_f + lane * (LC + 1) + l * C;
+    // point p's row of each tile; rows padded by one float, so the 32
+    // lanes of a warp store to 32 different banks
+    float* fr = s_f + p * (LC + 1) + l * C;
 #pragma unroll
-  for (int c = 0; c < C; ++c) fr[c] = acc[c];
-  if (JAC) {
-    float* dr = s_d + lane * (3 * LC + 1) + l * C * 3;
+    for (int c = 0; c < C; ++c) fr[c] = acc[c];
+    if (JAC) {
+      float* dr = s_d + p * (3 * LC + 1) + l * C * 3;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      dr[3 * c] = dacc[c][0];
-      dr[3 * c + 1] = dacc[c][1];
-      dr[3 * c + 2] = dacc[c][2];
+      for (int c = 0; c < C; ++c) {
+        dr[3 * c] = dacc[c][0];
+        dr[3 * c + 1] = dacc[c][1];
+        dr[3 * c + 2] = dacc[c][2];
+      }
     }
   }
   __syncthreads();
@@ -445,97 +532,10 @@ __global__ void hash_bwd_kernel(const float* __restrict__ x,
   }
 }
 
-// the C bf16 channels of one [T, C] row, widened to float32
-template <int C>
-__device__ __forceinline__ void load_bf16_row(const uint16_t* __restrict__ t,
-                                              uint32_t row, float v[C]);
-
-__device__ __forceinline__ float bf16_lo(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf16_hi(uint32_t w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-
-template <>
-__device__ __forceinline__ void load_bf16_row<2>(const uint16_t* __restrict__ t,
-                                                 uint32_t row, float v[2]) {
-  uint32_t w = __ldg(reinterpret_cast<const uint32_t*>(t) + row);
-  v[0] = bf16_lo(w);
-  v[1] = bf16_hi(w);
-}
-
-template <>
-__device__ __forceinline__ void load_bf16_row<4>(const uint16_t* __restrict__ t,
-                                                 uint32_t row, float v[4]) {
-  uint2 w = __ldg(reinterpret_cast<const uint2*>(t) + row);
-  v[0] = bf16_lo(w.x);
-  v[1] = bf16_hi(w.x);
-  v[2] = bf16_lo(w.y);
-  v[3] = bf16_hi(w.y);
-}
-
-template <>
-__device__ __forceinline__ void load_bf16_row<8>(const uint16_t* __restrict__ t,
-                                                 uint32_t row, float v[8]) {
-  uint4 w = __ldg(reinterpret_cast<const uint4*>(t) + row);
-  uint32_t ws[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[2 * i] = bf16_lo(ws[i]);
-    v[2 * i + 1] = bf16_hi(ws[i]);
-  }
-}
-
-// K3: features from a [T, C] bf16 table; one thread per (point, level)
-template <int C>
-__global__ void hash_bf16_fwd_kernel(const float* __restrict__ x,
-                                     const uint16_t* __restrict__ table,
-                                     const int* __restrict__ meta,
-                                     const float* __restrict__ scl,
-                                     float* __restrict__ feats, int64_t N,
-                                     int L, float size) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N * L) return;
-  int64_t n = i / L;
-  int l = (int)(i - n * L);
-  float xp[3] = {x[n * 3], x[n * 3 + 1], x[n * 3 + 2]};
-  LevelGeom g;
-  bool oob = level_geom(xp, size, scl[2 * l], scl[2 * l + 1], g);
-  float acc[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
-  if (!oob) {
-    uint32_t offset = (uint32_t)meta[4 * l], lsize = (uint32_t)meta[4 * l + 1];
-    uint32_t res = (uint32_t)meta[4 * l + 2];
-    bool dense = meta[4 * l + 3] != 0;
-    uint32_t rows[8];
-    corner_rows(g, res, lsize, offset, dense, rows);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      float w, dw[3];
-      corner_weights(g, k, w, dw);
-      float v[C];
-      load_bf16_row<C>(table, rows[k], v);
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[c] += w * v[c];
-    }
-  }
-  float* fo = feats + (n * L + l) * C;
-#pragma unroll
-  for (int c = 0; c < C; ++c) fo[c] = acc[c];
-}
-
-constexpr int kThreads = 256;
-
-inline unsigned blocks_for(int64_t work) {
-  return (unsigned)((work + kThreads - 1) / kThreads);
-}
-
-// launch K1/K2 kernel `kern` with one block of L warps per 32 points and
-// `floats` of dynamic shared memory (opting in above the default 48 KB)
+// launch K1/K2/K3 kernel `kern` with one block of L warps per `pts` points
+// and `floats` of dynamic shared memory (opting in above the default 48 KB)
 template <typename Kernel, typename... Args>
-int launch_blocks(Kernel kern, int64_t N, int L, int floats, cudaStream_t s,
+int launch_blocks(Kernel kern, int64_t N, int L, int pts, int floats, cudaStream_t s,
                   Args... args) {
   size_t bytes = (size_t)floats * sizeof(float);
   if (bytes > 48 * 1024) {
@@ -543,22 +543,39 @@ int launch_blocks(Kernel kern, int64_t N, int L, int floats, cudaStream_t s,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  unsigned blocks = (unsigned)((N + kPts - 1) / kPts);
+  unsigned blocks = (unsigned)((N + pts - 1) / pts);
   kern<<<blocks, 32 * L, bytes, s>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// the forward kernel on a fp32 (K1/K2) or bf16 (K3) table
+template <int C, bool JAC, typename Rows>
+int launch_fwd_rows(const float* x, const typename Rows::Elem* table, const int* meta,
+                    const float* scl, float* feats, float* dfeat, int64_t N, int L,
+                    float size, cudaStream_t s) {
+  const int LC = L * C, pts = kPts * fwd_points_per_lane<JAC>();
+  return launch_blocks(hash_fwd_kernel<C, JAC, Rows>, N, L, pts,
+                       smem_feat(LC, pts) + (JAC ? smem_dfeat(LC, pts) : 0), s, x, table,
+                       meta, scl, feats, dfeat, N, L, size);
 }
 
 template <int C>
 int launch_fwd(const float* x, const float* table, const int* meta,
                const float* scl, float* feats, float* dfeat, int64_t N, int L,
                float size, cudaStream_t s) {
-  const int LC = L * C;
   if (dfeat != nullptr)
-    return launch_blocks(hash_fwd_kernel<C, true>, N, L,
-                         smem_x() + smem_feat(LC) + smem_dfeat(LC), s, x, table,
-                         meta, scl, feats, dfeat, N, L, size);
-  return launch_blocks(hash_fwd_kernel<C, false>, N, L, smem_x() + smem_feat(LC), s,
-                       x, table, meta, scl, feats, dfeat, N, L, size);
+    return launch_fwd_rows<C, true, Fp32Rows>(x, table, meta, scl, feats, dfeat, N, L,
+                                              size, s);
+  return launch_fwd_rows<C, false, Fp32Rows>(x, table, meta, scl, feats, dfeat, N, L,
+                                             size, s);
+}
+
+template <int C>
+int launch_bf16_fwd(const float* x, const uint16_t* table, const int* meta,
+                    const float* scl, float* feats, int64_t N, int L, float size,
+                    cudaStream_t s) {
+  return launch_fwd_rows<C, false, Bf16Rows>(x, table, meta, scl, feats, nullptr, N, L,
+                                             size, s);
 }
 
 template <int C>
@@ -569,10 +586,10 @@ int launch_bwd(const float* x, const float* table, const int* meta,
   const int LC = L * C;
   const int floats = smem_x() + L * kPts * (C + 3) + smem_feat(LC);
   if (g_dfeat != nullptr)
-    return launch_blocks(hash_bwd_kernel<C, true>, N, L, floats + smem_dfeat(LC), s,
-                         x, table, meta, scl, g_feat, g_dfeat, g_table, g_x, N, L,
+    return launch_blocks(hash_bwd_kernel<C, true>, N, L, kPts, floats + smem_dfeat(LC),
+                         s, x, table, meta, scl, g_feat, g_dfeat, g_table, g_x, N, L,
                          size);
-  return launch_blocks(hash_bwd_kernel<C, false>, N, L, floats, s, x, table, meta,
+  return launch_blocks(hash_bwd_kernel<C, false>, N, L, kPts, floats, s, x, table, meta,
                        scl, g_feat, g_dfeat, g_table, g_x, N, L, size);
 }
 
@@ -623,26 +640,24 @@ int nsl_hash_encode_bwd(const void* x, const void* table, const void* meta,
 }
 
 // K3: table is [T, C] bfloat16 (C in {2, 4, 8}), 2 C bytes per row, the
-// base aligned to 16 bytes (the wrapper checks)
+// base aligned to 16 bytes, L <= 32 (the wrapper checks)
 int nsl_hash_encode_bf16_fwd(const void* x, const void* table,
                              const void* meta, const void* scl, void* feats,
                              int64_t N, int L, int C, float size,
                              void* stream) {
   if (N == 0) return 0;
+  if (L < 1 || L > 32) return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
-  unsigned blocks = blocks_for(N * L);
-  const float* xf = (const float*)x;
-  const uint16_t* t = (const uint16_t*)table;
-  const int* m = (const int*)meta;
-  const float* sc = (const float*)scl;
-  float* f = (float*)feats;
+  auto args = [&](auto launch) {
+    return launch((const float*)x, (const uint16_t*)table, (const int*)meta,
+                  (const float*)scl, (float*)feats, N, L, size, s);
+  };
   switch (C) {
-    case 2: hash_bf16_fwd_kernel<2><<<blocks, kThreads, 0, s>>>(xf, t, m, sc, f, N, L, size); break;
-    case 4: hash_bf16_fwd_kernel<4><<<blocks, kThreads, 0, s>>>(xf, t, m, sc, f, N, L, size); break;
-    case 8: hash_bf16_fwd_kernel<8><<<blocks, kThreads, 0, s>>>(xf, t, m, sc, f, N, L, size); break;
+    case 2: return args(launch_bf16_fwd<2>);
+    case 4: return args(launch_bf16_fwd<4>);
+    case 8: return args(launch_bf16_fwd<8>);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

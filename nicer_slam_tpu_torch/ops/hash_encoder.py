@@ -31,7 +31,8 @@ is 32 consecutive points × L levels, one warp per level; its output and
 cotangent tiles pass through shared memory to move as coalesced runs,
 lanes that share a corner row merge their gradients before one atomic,
 and the table scatter is skipped when the table needs no gradient
-(tracking); the note at the top of csrc/hash_encoder.cu has more.
+(tracking). K3 is the same forward kernel with a bf16 row loader; the
+note at the top of csrc/hash_encoder.cu has more.
 
 Semantics (reference hashencoder.cu): level l has ``scale =
 2^(l·log2 pls)·H − 1`` and resolution ``ceil(scale) + 1``; table sizes use
@@ -187,11 +188,15 @@ def _level_tables(spec: HashGridSpec, size: float, device: str):
     return (torch.from_numpy(meta).to(device), torch.from_numpy(scl).to(device))
 
 
-def _check_operands(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor):
+def _check_spec(spec: HashGridSpec):
     if spec.input_dim != 3 or spec.level_dim not in (2, 4, 8) or spec.num_levels > 32:
         raise ValueError(f"kernel supports input_dim 3, C in (2, 4, 8) and at most "
                          f"32 levels, got {spec.input_dim}, {spec.level_dim}, "
                          f"{spec.num_levels}")
+
+
+def _check_operands(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor):
+    _check_spec(spec)
     _cuda.check(x, "x", torch.float32, (x.shape[0], 3))
     _cuda.check(table, "table", torch.float32,
                 (spec.total_entries, spec.level_dim), device=x.device)
@@ -317,9 +322,7 @@ def hash_encode_bf16(spec: HashGridSpec, packed: torch.Tensor, x: torch.Tensor,
         return hash_encode_bf16_plain(spec, packed, x, size)
     if x.device.type != "cuda":
         raise ValueError(f"hash_encode_bf16: unsupported device {x.device}")
-    if spec.input_dim != 3 or spec.level_dim not in (2, 4, 8):
-        raise ValueError(f"kernel supports input_dim 3 and C in (2, 4, 8), "
-                         f"got {spec.input_dim}, {spec.level_dim}")
+    _check_spec(spec)
     N, L, C = x.shape[0], spec.num_levels, spec.level_dim
     _cuda.check(x, "x", torch.float32, (N, 3))
     _cuda.check(packed, "packed", torch.bfloat16, (spec.total_entries, C),

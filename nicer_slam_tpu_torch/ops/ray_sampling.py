@@ -18,10 +18,21 @@ Every random draw is an input: ``t_rand [R, Ne]`` (stratified jitter),
 eikonal anchor). Rays are detached: z never carries a pose gradient.
 
 On the card K5 is latency bound: per ray, 640 trilinear reads of an
-L2-resident 8 MB volume and two sequential 640-long scans. One 128-thread
-block per ray runs the reads, the binary searches and the rank sort in
-parallel and keeps everything but z_vals and z_eik in shared memory
-(csrc/sampler.cu).
+L2-resident 8 MB volume and two 640-long scans. One warp holds one ray:
+the reads are lane-strided, the scans lane-chunked and combined by warp
+shuffles, the binary searches lane-strided, and the merged row is sorted
+by a warp bitonic sort in 128 slots; nothing but z_vals and z_eik
+touches device memory (csrc/sampler.cu). The kernel takes
+``N_samples_eval <= 1024`` and ``N_samples + N_samples_extra + 2 <= 128``
+(the wrappers raise above them).
+
+The plain version sums in the kernel's order (``lane_exclusive_cumsum``,
+``lane_total``): the inverse CDF is a discontinuous function of the cdf
+(the u = 1 sample follows the last bit of the cdf's total, and a bin whose
+cdf step falls under 1e-5 snaps to its lower edge), so on the card the two
+must see the same float32 numbers, not numbers a few ulps apart. Every
+other operation rounds once, in the order the expressions below state,
+and the kernel keeps that order (no fused multiply-adds).
 """
 
 from __future__ import annotations
@@ -54,8 +65,23 @@ class SamplerConfig(NamedTuple):
         return self.N_samples + self.N_samples_extra + 2
 
 
+# the kernel's limits: prepass samples (32 per lane in registers) and
+# sorted samples (4 per lane in the warp's bitonic sort)
+KERNEL_MAX_EVAL = 1024
+KERNEL_MAX_SORTED = 128
+
+
 def _step(n: int) -> float:
     return float(np.float32(1.0 / (n - 1)))
+
+
+def _check_kernel_shape(cfg: SamplerConfig, Ne: int) -> None:
+    if not (2 <= Ne <= KERNEL_MAX_EVAL and cfg.N_samples >= 2
+            and cfg.N_samples_extra >= 0 and cfg.total_samples <= KERNEL_MAX_SORTED):
+        raise ValueError(
+            f"importance sampler kernel: needs 2 <= N_samples_eval <= {KERNEL_MAX_EVAL}, "
+            f"N_samples >= 2 and N_samples + N_samples_extra + 2 <= {KERNEL_MAX_SORTED}; "
+            f"got {Ne}, {cfg.N_samples}, {cfg.N_samples_extra}")
 
 
 def linspace01(n: int, device=None) -> torch.Tensor:
@@ -84,12 +110,59 @@ def uniform_z_vals(cfg: SamplerConfig, rays_o: torch.Tensor,
     return z_vals, near, far
 
 
+# The kernel's summation order: a warp holds a row of M entries, lane l the
+# ceil(M/32) contiguous entries from l·ceil(M/32), summed serially from 0;
+# the lanes' sums combine by a Hillis–Steele scan (a prefix) or a butterfly
+# (a total), as csrc/warp.cuh does.
+_LANES = 32
+
+
+def _lane_chunks(x: torch.Tensor) -> torch.Tensor:
+    """[R, M] -> [R, 32, ceil(M/32)], zero-padded."""
+    R, M = x.shape
+    n = -(-M // _LANES)
+    return torch.nn.functional.pad(x, (0, _LANES * n - M)).reshape(R, _LANES, n)
+
+
+def _lane_sums(xc: torch.Tensor) -> torch.Tensor:
+    s = torch.zeros_like(xc[..., 0])
+    for j in range(xc.shape[-1]):
+        s = s + xc[..., j]
+    return s
+
+
+def lane_exclusive_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Exclusive prefix sums along the rows of ``x`` [R, M] in the kernel's
+    order: each lane's entries serially from the exclusive scan of the
+    lanes' sums."""
+    xc = _lane_chunks(x)
+    incl = _lane_sums(xc)
+    for o in (1, 2, 4, 8, 16):
+        incl = torch.cat([incl[:, :o], incl[:, o:] + incl[:, :-o]], 1)
+    run = torch.cat([torch.zeros_like(incl[:, :1]), incl[:, :-1]], 1)
+    out = []
+    for j in range(xc.shape[-1]):
+        out.append(run)
+        run = run + xc[..., j]
+    return torch.stack(out, -1).reshape(x.shape[0], -1)[:, :x.shape[1]]
+
+
+def lane_total(x: torch.Tensor) -> torch.Tensor:
+    """Row sums of ``x`` [R, M] -> [R, 1] in the kernel's order."""
+    s = _lane_sums(_lane_chunks(x))
+    for o in (16, 8, 4, 2, 1):
+        s = s + s[:, torch.arange(_LANES, device=x.device) ^ o]
+    return s[:, :1]
+
+
 def sample_cdf(bins: torch.Tensor, weights: torch.Tensor, n: int) -> torch.Tensor:
-    """Deterministic inverse-CDF sampling at u = linspace(0, 1, n)."""
+    """Deterministic inverse-CDF sampling at u = linspace(0, 1, n). The pdf
+    (``weights[:, :-1] + 1e-5``) is laid out over the Ne entries of the row
+    (its last one 0), so its sums take the lane chunks of the prepass."""
     pdf = weights[..., :-1] + 1e-5
-    pdf = pdf / pdf.sum(-1, keepdim=True)
-    cdf = torch.cumsum(pdf, -1)
-    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)
+    pdf = torch.nn.functional.pad(pdf, (0, 1))
+    pdf = pdf / lane_total(pdf)
+    cdf = lane_exclusive_cumsum(pdf)
     u = linspace01(n, bins.device).expand(cdf.shape[0], n).contiguous()
     inds = torch.searchsorted(cdf.contiguous(), u, right=True)
     below = (inds - 1).clamp_min(0)
@@ -121,18 +194,22 @@ def density_cache_lookup(cache: torch.Tensor, res: int, pts: torch.Tensor) -> to
     return torch.where(inb, dens, torch.zeros_like(dens))
 
 
+def prepass_weights(z_vals: torch.Tensor, density: torch.Tensor) -> torch.Tensor:
+    """Volume-rendering weights of the prepass samples [R, Ne]: the free
+    energy's exclusive cumsum, last dist 1e10."""
+    dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
+                       torch.full_like(z_vals[:, :1], 1e10)], -1)
+    free_energy = dists * density
+    return ((1.0 - torch.exp(-free_energy))
+            * torch.exp(-lane_exclusive_cumsum(free_energy)))
+
+
 def _sample_from_density(cfg: SamplerConfig, z_vals, near, far, density,
                          perm, eik_idx):
     """Weights, inverse CDF, merge with near, far and z[perm], sort, the
     eikonal anchor (ray_sampler.py:100-166 after the density)."""
     R = z_vals.shape[0]
-    dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
-                       torch.full_like(z_vals[:, :1], 1e10)], -1)
-    free_energy = dists * density
-    shifted = torch.cat([torch.zeros_like(free_energy[:, :1]),
-                         free_energy[:, :-1]], -1)
-    weights = (1.0 - torch.exp(-free_energy)) * torch.exp(-torch.cumsum(shifted, -1))
-    z_samples = sample_cdf(z_vals, weights, cfg.N_samples)
+    z_samples = sample_cdf(z_vals, prepass_weights(z_vals, density), cfg.N_samples)
     z_all = torch.cat([z_samples, near, far, z_vals[:, perm]], -1)
     z_all, _ = torch.sort(z_all, -1)
     z_eik = torch.gather(z_all, -1, eik_idx.reshape(R, 1))
@@ -179,6 +256,7 @@ def importance_sample(cfg: SamplerConfig, rays_o: torch.Tensor,
         raise ValueError(f"importance_sample: unsupported device {rays_o.device}")
     R = rays_o.shape[0]
     Ne, Ns, Nx = cfg.N_samples_eval, cfg.N_samples, cfg.N_samples_extra
+    _check_kernel_shape(cfg, Ne)
     res = cfg.prepass_cache_res
     dev = rays_o.device
     rays_o, rays_d = rays_o.detach().contiguous(), rays_d.detach().contiguous()
@@ -213,6 +291,7 @@ def importance_sample_given(cfg: SamplerConfig, z_vals: torch.Tensor,
         raise ValueError(f"importance_sample_given: unsupported device {z_vals.device}")
     R = z_vals.shape[0]
     Ne, Ns, Nx = cfg.N_samples_eval, cfg.N_samples, cfg.N_samples_extra
+    _check_kernel_shape(cfg, Ne)
     dev = z_vals.device
     z_vals, density = z_vals.detach().contiguous(), density.detach().contiguous()
     _cuda.check(z_vals, "z_vals", torch.float32, (R, Ne))

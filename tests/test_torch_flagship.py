@@ -198,13 +198,9 @@ def test_weights_topk_and_topk_rgb_match_jax():
 # K5 given densities
 # ---------------------------------------------------------------------------
 
-def test_importance_sample_given_matches_jax():
-    """The exact prepass (eval: no jitter, perm = linspace) on densities of
-    an analytic SDF: z_vals to 1e-5 except the u = 1 inverse-CDF sample of
-    a ray (test_torch_ops.test_sample_cdf_matches_jax). β = 0.2 leaves the
-    far end of a ray some weight, so most rays match on every sample."""
-    cfg_j = jrs.SamplerConfig(N_samples=16, N_samples_eval=64, N_samples_extra=8)
-    cfg_t = trs.SamplerConfig(N_samples=16, N_samples_eval=64, N_samples_extra=8)
+def _given_matches_jax(Ne):
+    cfg_j = jrs.SamplerConfig(N_samples=16, N_samples_eval=Ne, N_samples_extra=8)
+    cfg_t = trs.SamplerConfig(N_samples=16, N_samples_eval=Ne, N_samples_extra=8)
     rng = np.random.default_rng(5)
     R = 32
     o = np.tile(np.array([[0.0, 0.0, -0.95]], np.float32), (R, 1))
@@ -222,7 +218,7 @@ def test_importance_sample_given_matches_jax():
     pts = (T(o)[:, None] + z[..., None] * T(d)[:, None]).reshape(-1, 3)
     dens = tdens.laplace_density(T(sdf_np(pts.numpy()).astype(np.float32)),
                                  torch.tensor(beta)).reshape(R, -1)
-    perm = T(np.linspace(0, 63, 8).astype(np.int64))
+    perm = T(np.linspace(0, Ne - 1, 8).astype(np.int64))
     z_t, e_t = trs.importance_sample_given(cfg_t, z, dens, perm,
                                            torch.zeros(R, dtype=torch.int64))
     z_j, z_t = np.asarray(z_j), z_t.numpy()
@@ -230,6 +226,20 @@ def test_importance_sample_given_matches_jax():
     assert _match_all_but_one(z_t, z_j, 1e-5).all()
     assert (np.abs(z_t - z_j).max(1) <= 1e-5).mean() > 0.5
     np.testing.assert_array_equal(e_t.numpy()[:, 0], z_t[:, 0])
+
+
+def test_importance_sample_given_matches_jax():
+    """The exact prepass (eval: no jitter, perm = linspace) on densities of
+    an analytic SDF: z_vals to 1e-5 except the u = 1 inverse-CDF sample of
+    a ray (test_torch_ops.test_sample_cdf_matches_jax). β = 0.2 leaves the
+    far end of a ray some weight, so most rays match on every sample."""
+    _given_matches_jax(64)
+
+
+def test_importance_sample_given_matches_jax_at_ne_100():
+    """The same at 100 prepass samples, no multiple of the kernel's 32
+    lanes."""
+    _given_matches_jax(100)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from nicer_slam_tpu.models import losses as jlosses
 from nicer_slam_tpu.models import scene_model as jsm
@@ -191,15 +193,123 @@ def test_sample_cdf_matches_jax():
         assert np.all((s[:, -1] >= bins[:, -2] - 1e-6) & (s[:, -1] <= bins[:, -1] + 1e-6))
 
 
-@pytest.mark.parametrize("training", [True, False])
-def test_importance_sampler_matches_jax(training):
+@st.composite
+def _prepass_rays(draw):
+    """A few rays' prepass: stratified z from a point inside the cube
+    (jittered or not, N_samples_eval not tied to 32) and densities that are
+    all zero, flat, spiked (1e4 at a few samples: everything behind the
+    first spike has weight exactly 0) or random."""
+    Ne = draw(st.integers(2, 100))
+    kind = draw(st.sampled_from(["zero", "flat", "spiked", "random"]))
+    jitter = draw(st.booleans())
+    near = draw(st.sampled_from([0.0, 0.05]))      # below far: |o| <= 0.9 in the unit cube
+    rng = np.random.default_rng(draw(st.integers(0, 2 ** 32 - 1)))
+    R = 3
+    cfg = trs.SamplerConfig(near=near, N_samples=draw(st.integers(2, 40)),
+                            N_samples_eval=Ne, N_samples_extra=0)
+    o = rng.uniform(-0.9, 0.9, (R, 3)).astype(np.float32)
+    d = rng.standard_normal((R, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_rand = T(rng.uniform(0, 1, (R, Ne)).astype(np.float32)) if jitter else None
+    z, near_t, far_t = trs.uniform_z_vals(cfg, T(o), T(d), t_rand)
+    dens = np.zeros((R, Ne), np.float32)
+    if kind == "flat":
+        dens[:] = rng.uniform(0.01, 50.0)
+    elif kind == "spiked":
+        dens[np.arange(R), rng.integers(0, Ne, R)] = 1e4
+        dens[np.arange(R), rng.integers(0, Ne, R)] = 1e4
+    elif kind == "random":
+        dens[:] = rng.uniform(0, 1, (R, Ne)) ** 4 * 100.0
+    return cfg, z, near_t, far_t, T(dens)
+
+
+@settings(max_examples=150, deadline=None, derandomize=True, database=None)
+@given(_prepass_rays())
+def test_inverse_cdf_samples_are_monotone_and_within_the_ray(case):
+    """The property a merge of the inverse-CDF samples with the sorted
+    extras would rest on: ``sample_cdf`` at u = linspace(0, 1, n) gives
+    samples non-decreasing in u, inside [z_0, z_last] and so inside
+    [near, far], whatever the densities; and the plain sampler's merged row
+    is sorted inside [near, far]."""
+    cfg, z, near, far, dens = case
+    s = trs.sample_cdf(z, trs.prepass_weights(z, dens), cfg.N_samples)
+    assert torch.isfinite(s).all()
+    assert (s[:, 1:] >= s[:, :-1]).all()
+    assert ((s >= z[:, :1]) & (s <= z[:, -1:])).all()
+    assert ((z[:, :1] >= near) & (z[:, -1:] <= far)).all()
+    eik = torch.zeros(z.shape[0], dtype=torch.int64)
+    z_all, z_eik = trs.importance_sample_given_plain(
+        cfg, z, dens, torch.zeros(0, dtype=torch.int64), eik)
+    assert z_all.shape == (z.shape[0], cfg.total_samples)
+    assert (z_all[:, 1:] >= z_all[:, :-1]).all()
+    assert ((z_all >= near) & (z_all <= far)).all()
+    assert torch.equal(z_eik[:, 0], z_all[:, 0])
+
+
+@pytest.mark.parametrize("M", [1, 31, 33, 64, 100, 640, 1024])
+def test_lane_order_sums_are_prefix_sums(M):
+    """The plain sampler's sums in the kernel's lane-chunked order are the
+    exclusive prefix sums and row totals (float64: exact to rounding), for
+    rows that are no multiple of the 32 lanes too."""
+    x = torch.from_numpy(np.random.default_rng(M).uniform(0, 1, (5, M)))
+    excl = torch.cumsum(x, -1) - x
+    np.testing.assert_allclose(trs.lane_exclusive_cumsum(x).numpy(), excl.numpy(),
+                               rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(trs.lane_total(x).numpy(), x.sum(-1, keepdim=True).numpy(),
+                               rtol=1e-12)
+    assert trs.lane_exclusive_cumsum(x)[:, 0].eq(0).all()
+
+
+def test_sampler_kernel_shape_limits():
+    """The kernel's wrapper refuses what the kernel cannot hold (it has no
+    fallback): more than 1024 prepass samples or 128 sorted samples."""
+    ok = trs.SamplerConfig(N_samples=64, N_samples_eval=1024, N_samples_extra=62)
+    trs._check_kernel_shape(ok, 1024)
+    trs._check_kernel_shape(ok._replace(N_samples_eval=2), 2)
+    for bad, ne in ((ok, 1025), (ok, 1), (ok._replace(N_samples_extra=63), 640),
+                    (ok._replace(N_samples=1), 640)):
+        with pytest.raises(ValueError, match="importance sampler kernel"):
+            trs._check_kernel_shape(bad, ne)
+
+
+def _odd_sample_in_last_bin(a: np.ndarray, b: np.ndarray, z_pre: np.ndarray,
+                            tol: float) -> np.ndarray:
+    """Per row: True where a and b match within tol, or match but for one
+    sample each that lies within the row's last prepass bin
+    [z_pre[-2], z_pre[-1]] (the u = 1 inverse-CDF sample)."""
+    ok = np.zeros(a.shape[0], bool)
+    for r in range(a.shape[0]):
+        left, odd = list(b[r]), []
+        for v in a[r]:
+            k = int(np.argmin(np.abs(np.asarray(left) - v)))
+            if abs(left[k] - v) <= tol:
+                left.pop(k)
+            else:
+                odd.append(v)
+        lo, hi = z_pre[r, -2] - tol, z_pre[r, -1] + tol
+        ok[r] = len(odd) <= 1 and all(lo <= v <= hi for v in odd + (left if odd else []))
+    return ok
+
+
+@pytest.mark.parametrize("training, Ne, min_exact", [
+    pytest.param(True, 64, 0.5, id="True"), pytest.param(False, 64, 0.5, id="False"),
+    # a prepass count that is no multiple of the kernel's 32 lanes. Every
+    # ray here meets the surface, so its last pdf bin falls under the 1e-5
+    # floor and its u = 1 sample goes to far or one bin below it as the
+    # last bit of each package's cdf total says: a coin flip between the
+    # two summation orders, so no share of exact rays is asserted; the
+    # odd sample is pinned to the last prepass bin instead
+    pytest.param(True, 100, None, id="True-Ne100"),
+    pytest.param(False, 100, None, id="False-Ne100")])
+def test_importance_sampler_matches_jax(training, Ne, min_exact):
     """K5's plain version: same cache, same replayed draws -> same z_vals
     (to 1e-5), apart from the u = 1 inverse-CDF sample of a ray (see
-    test_sample_cdf_matches_jax); every ray matches on all other samples."""
+    test_sample_cdf_matches_jax), which lies in the ray's last prepass bin
+    in both; every ray matches on all other samples."""
     res = 16
-    cfg_j = jrs.SamplerConfig(N_samples=16, N_samples_eval=64, N_samples_extra=8,
+    cfg_j = jrs.SamplerConfig(N_samples=16, N_samples_eval=Ne, N_samples_extra=8,
                               prepass_mode="cached", prepass_cache_res=res)
-    cfg_t = trs.SamplerConfig(N_samples=16, N_samples_eval=64, N_samples_extra=8,
+    cfg_t = trs.SamplerConfig(N_samples=16, N_samples_eval=Ne, N_samples_extra=8,
                               prepass_mode="cached", prepass_cache_res=res)
     rng = np.random.default_rng(5)
     g = np.linspace(-1, 1, res, dtype=np.float32)
@@ -219,13 +329,15 @@ def test_importance_sampler_matches_jax(training):
         lambda s, p: jsm._density_cache_lookup(blocked, res, p), k_sample,
         training=training)
     dr = render_draws(key, cfg_t, R, 1.0, is_mapping=False)
-    perm = dr.perm if training else T(np.linspace(0, 63, 8).astype(np.int64))
+    perm = dr.perm if training else T(np.linspace(0, Ne - 1, 8).astype(np.int64))
     z_t, e_t = trs.importance_sample(cfg_t, T(o), T(d), T(vol.reshape(-1)),
                                      dr.t_rand if training else None, perm, dr.eik_idx)
+    z_pre = trs.uniform_z_vals(cfg_t, T(o), T(d), dr.t_rand if training else None)[0]
     z_j, e_j, z_t, e_t = (np.asarray(z_j), np.asarray(e_j), z_t.numpy(), e_t.numpy())
-    assert _match_all_but_one(z_t, z_j, 1e-5).all()
+    assert _odd_sample_in_last_bin(z_t, z_j, z_pre.numpy(), 1e-5).all()
     exact = np.abs(z_t - z_j).max(1) <= 1e-5
-    assert exact.mean() > 0.5
+    if min_exact is not None:
+        assert exact.mean() > min_exact
     np.testing.assert_allclose(e_t[exact], e_j[exact], atol=1e-5, rtol=0)
     # the trilinear read itself
     p = rng.uniform(-1.02, 1.02, (300, 3)).astype(np.float32)

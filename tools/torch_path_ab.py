@@ -6,12 +6,14 @@ card.
   python3 tools/torch_path_ab.py --other build/other [--out build/path_ab.json]
 
 Runs chip_smoke.py's demo and flagship configurations (the same synthetic
-scans, confs and cuts, without the vis hook and the checkpoint writes)
-from the other checkout and from this one, each run in a process of its
-own, in turns: other, this, this, other. Both read the scans this checkout
-generates. Reports per run the runner's phase times: ms per mapping and
-per tracking iteration, ms per density-cache build, and s/frame (the loop
-over the 11 frames, card synchronised at both ends).
+scans, confs and cuts, without the checkpoint writes) from the other
+checkout and from this one, each run in a process of its own, in turns:
+other, this, this, other. Both read the scans this checkout generates.
+Reports per run the runner's phase times: ms per mapping and per tracking
+iteration, ms per density-cache build, s/frame (the loop over the 11
+frames, card synchronised at both ends), and after the loop the vis hook
+once (vis s: a full frame rendered with the exact prepass, the panels and
+the mesh) and, before it, that render alone (render s).
 """
 
 from __future__ import annotations
@@ -52,14 +54,24 @@ for f in range(r.n_images):
 torch.cuda.synchronize()
 loop = time.perf_counter() - t
 s = r.timer.summary()
+from nicer_slam_tpu_torch.utils.plots import vis_hook
+t = time.perf_counter()
+r.render_full_image(r.n_images - 1)
+torch.cuda.synchronize()
+render = time.perf_counter() - t
+t = time.perf_counter()
+vis_hook(r, r.n_images - 1)
+torch.cuda.synchronize()
 print("RESULT " + json.dumps(dict(
     s_per_frame=loop / r.n_images, ms_per_map_iter=s["mapping"]["mean_ms"],
     ms_per_track_iter=1000 * s["tracking"]["total_s"] / (s["tracking"]["count"] * r.num_cam_iters),
     ms_per_cache_build=s.get("cache", {}).get("mean_ms", float("nan")),
+    render_s=render, vis_s=time.perf_counter() - t,
     phases_s={k: v["total_s"] for k, v in s.items()})))
 """
 
-METRICS = ("ms_per_map_iter", "ms_per_track_iter", "ms_per_cache_build", "s_per_frame")
+METRICS = ("ms_per_map_iter", "ms_per_track_iter", "ms_per_cache_build", "s_per_frame",
+           "render_s", "vis_s")
 
 
 def one_run(tree: str, kind: str, data_dir: str, tag: str) -> dict:
