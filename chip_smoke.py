@@ -12,20 +12,26 @@ Phases, in order (any failure exits non-zero without the final line):
      parallel; plain C interface).
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the card, with errors, tolerances, CUDA-event times of each launch
-     alone (on preallocated operands; a gradient table is zeroed outside
-     the timed window) and of the plain version, and the kernel's bound
+     alone (on preallocated operands; the K1/K2 backward's time includes
+     zeroing its fixed-point accumulator) and of the plain version, and the kernel's bound
      (the bytes it must move over the card's memory rate, or its
      operations over the float32 rate, whichever is larger): K1 and K2 at
      the flagship path's shapes on ray-ordered and on uniform points
      (802,816 SDF points through the fine and coarse grids; the full
      133M-entry colour grid at the 131,072 top-16 points and at the demo's
-     4096 x 98), K4 at the demo slice's shapes, K7 and K4 with colour
-     top-k at the flagship configuration's (8192 mapping rays x 98
-     samples, top-16), K3 on both SDF grids at a density-cache build
+     4096 x 98), K4 at the demo slice's shapes, K7 at the flagship
+     configuration's (8192 mapping rays x 98 samples), K4 with colour
+     top-16 at its tracking and mapping rays (1024 and 8192 x 98; the
+     weights pass also on surface-like densities, where ties at exact
+     zeros decide the last picks; torch.topk timed beside it as the
+     library's pick alone), K4 at small shapes that the paths do not give
+     it (64 rays x 200 samples, top-40 and top-12), K3 on both SDF grids at a density-cache build
      chunk (131,072 grid points), the ray-ordered exact prepass of a
      2580-ray render chunk (1,651,200 points) and as many uniform points,
      K5 at 1024 (tracking), 4096 and 8192 (mapping) rays and K5 given
-     densities at a render chunk. The plain versions of K1/K2 run once.
+     densities at a render chunk. The plain versions of K1/K2 run once;
+     the K1/K2 backward runs twice more and its table gradient must come
+     out the same bit for bit.
   4. demo: the demo configuration (confs/runconf_demo_1.conf, every network
      at full width) through the port's exp_runner: tracking on every frame,
      mapping + BA at frames 0, 5 and 10, global_window_start = 10 (200 by
@@ -44,8 +50,10 @@ Phases, in order (any failure exits non-zero without the final line):
      vis/ must hold rendering_*.png and surface_*.ply. Then one JSON line
      with every kernel, the nvidia-smi line, and the result line.
 
-Float32 matmuls run without TF32 (set explicitly below). Scratch data goes
-to build/smoke/ inside the checkout.
+Float32 matmuls run without TF32 (set explicitly below). The runner makes
+its runs repeatable (slam/runner.py use_deterministic_cuda); cuBLAS's
+deterministic workspace is set below before the first cuBLAS call, as
+torch requires. Scratch data goes to build/smoke/ inside the checkout.
 """
 
 from __future__ import annotations
@@ -332,7 +340,7 @@ def check_hash_kernels(dev, chk: Checks):
             # backward: the table gradient (mapping) and the input gradient
             gf = torch.randn((N, L * C), generator=g, device=dev)
             gd = torch.randn((N, L * C, 3), generator=g, device=dev) if jac else None
-            g_table = torch.zeros_like(table)
+            g_table = torch.empty_like(table)
             g_x = torch.empty((N, 3), device=dev)
 
             def bwd():
@@ -349,27 +357,32 @@ def check_hash_kernels(dev, chk: Checks):
             (pgx, pgt), pms = timed_once(plain_bwd)
             ex, et = rel_l2(g_x, pgx), rel_l2(g_table, pgt)
             err = max(max_abs(g_x, pgx), max_abs(g_table, pgt))
-            ms = cuda_time(bwd, before=g_table.zero_)
+            # the table gradient is summed in fixed point: run to run the same
+            first = g_table.clone()
+            bwd()
+            bwd()
+            same = torch.equal(first, g_table)
+            del first
+            ms = cuda_time(bwd)
             chk.record(f"{kname}.bwd{tag}", src,
                        replaces if jac else "nicer_slam_tpu/ops/hash_encoder.py:613",
-                       err, ex <= GRAD_REL_L2 and et <= GRAD_REL_L2, ms, pms,
+                       err, ex <= GRAD_REL_L2 and et <= GRAD_REL_L2 and same, ms, pms,
                        *hash_cost(spec, N, rows, jac, True),
                        f"(rel L2: grad_x {ex:.2e}, grad_table {et:.2e}; {N} points, "
-                       f"{rows} rows)")
+                       f"{rows} rows; the same over 3 runs: {same})")
             del xx, tt, pgx, pgt, g_table, g_x, gf, gd, feats, dfeat, x
             torch.cuda.empty_cache()
         del table
         torch.cuda.empty_cache()
 
 
-def check_demo_kernels(dev, chk: Checks, R: int = 4096):
-    """K4 at the demo slice's shapes."""
+def check_demo_kernels(dev, chk: Checks, R: int = 4096, S: int = 98, tag: str = ""):
+    """K4 at the demo slice's shapes, or at the R x S that `tag` names."""
     import torch
     from nicer_slam_tpu_torch.ops import volume_rendering as vr
 
     g = torch.Generator(device=dev)
     g.manual_seed(0)
-    S = 98
     cu = "nicer_slam_tpu_torch/csrc/"
 
     # ---- K4 composite at R x S
@@ -382,7 +395,7 @@ def check_demo_kernels(dev, chk: Checks, R: int = 4096):
         ko, po = vr.composite(z, dens, rgb, nrm), vr.composite_plain(z, dens, rgb, nrm)
         ms = cuda_time(lambda: vr.composite(z, dens, rgb, nrm))
         pms = cuda_time(lambda: vr.composite_plain(z, dens, rgb, nrm))
-    chk.values("composite.fwd", cu + "composite.cu",
+    chk.values(f"composite.fwd{tag}", cu + "composite.cu",
                "nicer_slam_tpu/ops/volume_rendering.py:15", ko, po, ms, pms,
                ("weights", "rgb", "depth", "normal"), nbytes(z, dens, rgb, nrm, *ko),
                R * S * 30)
@@ -396,7 +409,7 @@ def check_demo_kernels(dev, chk: Checks, R: int = 4096):
     # the backward kernel's launch alone, on the same cotangents
     ms = cuda_time(lambda: vr._composite_bwd("composite.bwd", z, dens, rgb, nrm, *gouts))
     pms = cuda_time(lambda: torch.autograd.grad(pl, ins_p, retain_graph=True))
-    chk.record("composite.bwd", cu + "composite.cu",
+    chk.record(f"composite.bwd{tag}", cu + "composite.cu",
                "nicer_slam_tpu/ops/volume_rendering.py:15",
                max(max_abs(a, b) for a, b in zip(kg, pg)), max(errs) <= GRAD_REL_L2,
                ms, pms, nbytes(z, dens, rgb, nrm, *gouts, *kg), R * S * 60,
@@ -585,6 +598,29 @@ def hash_specs():
 SDF_GRIDS = ("coarse", "fine")
 
 
+def density_cache_cost(res: int = 128, voxel_res: int = 64):
+    """(bytes, operations) of one density-cache build (K6) of the flagship
+    configuration, the least the card must do: read both SDF grids' fp32
+    tables, the MLP weights and the voxel counter once, write the [res³]
+    cache once; per grid point the corner sums of both grids (2 operations
+    per multiply-add), both MLPs (2 per weight) and ~30 for the positional
+    encoding and the density."""
+    from nicer_slam_tpu_torch.config import parse_file
+    from nicer_slam_tpu_torch.models import fields
+    conf = parse_file(PATHS["flagship"]["conf"]).get_config("model")
+    comb = fields.combine_config_from_conf(conf.get_config("implicit_network"),
+                                           conf.get_int("feature_vector_size"))
+    n = res ** 3
+    words, per_pt = voxel_res ** 3 + n, 30
+    for cfg in (comb.coarse, comb.fine):
+        spec, dims = cfg.hash_spec(), cfg.layer_dims
+        weights = sum(dims[i] * (dims[i + 1] - (dims[0] if i + 1 in cfg.skip_in else 0))
+                      for i in range(len(dims) - 1))
+        words += spec.total_entries * spec.level_dim + weights
+        per_pt += 2 * spec.level_dim * 8 * spec.num_levels + 2 * weights
+    return 4 * words, per_pt * n
+
+
 def check_bf16_kernels(dev, chk: Checks):
     """K3 on both SDF grids, from tables rounded to bf16, at the three
     point orders of its launches; the plain version 3 times after 1."""
@@ -616,11 +652,10 @@ def check_bf16_kernels(dev, chk: Checks):
         torch.cuda.empty_cache()
 
 
-def check_flagship_kernels(dev, chk: Checks, R: int = 8192, S: int = 98, Kc: int = 16):
-    """K7 and K4 with colour top-k at the flagship configuration's shapes."""
+def check_voxel_kernels(dev, chk: Checks, R: int = 8192, S: int = 98):
+    """K7 at the flagship configuration's shapes."""
     import torch
     from nicer_slam_tpu_torch.ops import density as dens_ops
-    from nicer_slam_tpu_torch.ops import volume_rendering as vr
 
     g = torch.Generator(device=dev)
     g.manual_seed(1)
@@ -661,73 +696,113 @@ def check_flagship_kernels(dev, chk: Checks, R: int = 8192, S: int = 98, Kc: int
                [kb], [pb], ms, pms, ("beta",), nbytes(x, kv, kb), N * 20)
     del u, shell, anywhere, pick, kv, pv, kb, pb
 
-    # ---- K4 weights pass with the top-16 picks, and the top-k colour
-    # composite, at 8192 x 98
-    z = torch.sort(torch.rand((R, S), generator=g, device=dev) * 3.0, dim=1)[0]
-    dens = torch.rand((R, S), generator=g, device=dev) * 20.0
-    nrm = torch.randn((R, S, 3), generator=g, device=dev)
-    with torch.no_grad():
-        ko = vr.weights_topk(z, dens, nrm, Kc)
-        po = vr.weights_topk_plain(z, dens, nrm, Kc)
-        ms = cuda_time(lambda: vr.weights_topk(z, dens, nrm, Kc))
-        pms = cuda_time(lambda: vr.weights_topk_plain(z, dens, nrm, Kc))
-    # the picks through the plain weights: equal values whatever order ties
-    # take (exact zeros behind an opaque sample)
-    picked_k = torch.gather(po[0], 1, ko[3])
-    picked_p = torch.gather(po[0], 1, po[3])
-    n_diff = int((ko[3] != po[3]).any(1).sum())
-    chk.values("weights_topk.fwd", cu + "composite.cu",
-               "nicer_slam_tpu/models/scene_model.py:321",
-               list(ko[:3]) + [picked_k], list(po[:3]) + [picked_p], ms, pms,
-               ("weights", "depth", "normal", f"picked weights ({n_diff} rays pick "
-                                                f"other indices)"),
-               nbytes(z, dens, nrm, *ko), R * S * (30 + Kc))
-    idx = po[3]
-    gw = torch.randn((R, S), generator=g, device=dev)
-    gdep = torch.randn((R, 1), generator=g, device=dev)
-    gn = torch.randn((R, 3), generator=g, device=dev)
-    ins_k = [t.clone().requires_grad_(True) for t in (dens, nrm)]
-    ins_p = [t.clone().requires_grad_(True) for t in (dens, nrm)]
-    ok_ = vr.weights_topk(z, ins_k[0], ins_k[1], Kc)
-    op_ = vr.weights_topk_plain(z, ins_p[0], ins_p[1], Kc)
-    kl = (ok_[0] * gw).sum() + (ok_[1] * gdep).sum() + (ok_[2] * gn).sum()
-    pl = (op_[0] * gw).sum() + (op_[1] * gdep).sum() + (op_[2] * gn).sum()
-    kg = torch.autograd.grad(kl, ins_k, retain_graph=True)
-    pg = torch.autograd.grad(pl, ins_p, retain_graph=True)
-    errs = [rel_l2(a, b) for a, b in zip(kg, pg)]
-    # the backward kernel's launch alone, on the same cotangents
-    ms = cuda_time(lambda: vr._composite_bwd("weights_topk.bwd", z, dens, None, nrm, gw,
-                                             None, gdep, gn))
-    pms = cuda_time(lambda: torch.autograd.grad(pl, ins_p, retain_graph=True))
-    chk.record("weights_topk.bwd", cu + "composite.cu",
-               "nicer_slam_tpu/models/scene_model.py:321",
-               max(max_abs(a, b) for a, b in zip(kg, pg)), max(errs) <= GRAD_REL_L2, ms, pms,
-               nbytes(z, dens, nrm, gw, gdep, gn, *kg), R * S * 50,
-               "(rel L2 density/normals " + "/".join(f"{e:.1e}" for e in errs) + ")")
-    with torch.no_grad():
-        w = po[0]
-        topk_w = torch.gather(w, 1, idx).contiguous()
-        wsum = w.sum(1, keepdim=True)
-    rgb = torch.rand((R, Kc, 3), generator=g, device=dev)
-    with torch.no_grad():
-        ko = vr.topk_rgb(topk_w, wsum, rgb)
-        po = vr.topk_rgb_plain(topk_w, wsum, rgb)
-        ms = cuda_time(lambda: vr.topk_rgb(topk_w, wsum, rgb))
-        pms = cuda_time(lambda: vr.topk_rgb_plain(topk_w, wsum, rgb))
-    chk.values("topk_rgb.fwd", cu + "composite.cu", "nicer_slam_tpu/models/scene_model.py:338",
-               [ko], [po], ms, pms, ("rgb",), nbytes(topk_w, wsum, rgb, ko), R * Kc * 8)
-    go = torch.randn((R, 3), generator=g, device=dev)
-    ins_k = [t.clone().requires_grad_(True) for t in (topk_w, wsum, rgb)]
-    ins_p = [t.clone().requires_grad_(True) for t in (topk_w, wsum, rgb)]
-    kl = (vr.topk_rgb(*ins_k) * go).sum()
-    pl = (vr.topk_rgb_plain(*ins_p) * go).sum()
-    kg = torch.autograd.grad(kl, ins_k, retain_graph=True)
-    pg = torch.autograd.grad(pl, ins_p, retain_graph=True)
-    ms = cuda_time(lambda: vr._topk_rgb_bwd(topk_w, wsum, rgb, go))
-    pms = cuda_time(lambda: torch.autograd.grad(pl, ins_p, retain_graph=True))
-    chk.values("topk_rgb.bwd", cu + "composite.cu", "nicer_slam_tpu/models/scene_model.py:338",
-               kg, pg, ms, pms, ("g_topk_w", "g_wsum", "g_rgb"),
-               nbytes(topk_w, wsum, rgb, go, *kg), R * Kc * 12)
+
+# rays of the colour top-k launches on the flagship path: tracking (1000
+# launches per run) and mapping (300)
+TOPK_RAYS = (1024, 8192)
+
+
+def surface_densities(g, dev, z, beta: float = 3e-3):
+    """The Laplace density of an SDF that crosses zero at a random depth per
+    ray (beta 3e-3): most weights are exact zeros or subnormals, and many
+    rays have fewer than 16 non-zero weights, so the tie rule decides their
+    last picks."""
+    import torch
+    from nicer_slam_tpu_torch.ops import density as dens_ops
+    surf = 0.3 + 2.4 * torch.rand((z.shape[0], 1), generator=g, device=dev)
+    return dens_ops.laplace_density(surf - z, torch.tensor(beta, device=dev)).contiguous()
+
+
+# shapes the path does not give the top-k kernels, each holding other code
+# of them: 200 samples (the weights pass and its backward at 32 rounds),
+# Kc 40 (the backward's picks past the first 32, the colour composite's
+# loop over chunks of 32) and Kc 12 (colour groups of 16 lanes, 4 idle)
+TOPK_GENERAL = ((64, 200, 40), (64, 98, 12))
+
+
+def check_topk_kernels(dev, chk: Checks, S: int = 98, Kc: int = 16):
+    """K4 with colour top-k at the flagship configuration's shapes: the
+    weights pass forward and backward and the top-k colour composite at the
+    tracking and mapping ray counts (random densities), and the weights
+    pass on surface-like densities at 8192 rays; then all of them at the
+    TOPK_GENERAL shapes."""
+    import torch
+    from nicer_slam_tpu_torch.ops import volume_rendering as vr
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    src = "nicer_slam_tpu_torch/csrc/composite.cu"
+    cases = ([(R, S, Kc, "random", f"[{R}]") for R in TOPK_RAYS]
+             + [(TOPK_RAYS[-1], S, Kc, "surface", f"[surface {TOPK_RAYS[-1]}]")]
+             + [(R, S_, K_, "random", f"[general {R}x{S_} Kc{K_}]")
+                for R, S_, K_ in TOPK_GENERAL])
+    for R, S, Kc, kind, tag in cases:
+        z = torch.sort(torch.rand((R, S), generator=g, device=dev) * 3.0, dim=1)[0]
+        dens = (torch.rand((R, S), generator=g, device=dev) * 20.0 if kind == "random"
+                else surface_densities(g, dev, z))
+        nrm = torch.randn((R, S, 3), generator=g, device=dev)
+        with torch.no_grad():
+            ko = vr.weights_topk(z, dens, nrm, Kc)
+            po = vr.weights_topk_plain(z, dens, nrm, Kc)
+            ms = cuda_time(lambda: vr.weights_topk(z, dens, nrm, Kc))
+            pms = cuda_time(lambda: vr.weights_topk_plain(z, dens, nrm, Kc))
+            lib_ms = cuda_time(lambda: torch.topk(po[0], Kc, dim=1))
+        # the picks through the plain weights: equal values whatever order
+        # ties take
+        picked_k = po[0].reshape(-1)[ko[5].reshape(-1)].reshape(R, Kc)
+        n_diff = int((ko[5] != po[5]).any(1).sum())
+        sparse = int(((po[0] > 0).sum(1) < Kc).sum())
+        chk.values(f"weights_topk.fwd{tag}", src, "nicer_slam_tpu/models/scene_model.py:321",
+                   list(ko[:5]) + [picked_k], list(po[:5]) + [po[3]], ms, pms,
+                   ("weights", "depth", "normal", "topk_w", "wsum",
+                    f"picked plain weights ({n_diff} rays pick other indices; {sparse} "
+                    f"rays with fewer than {Kc} non-zero weights; library = torch.topk, "
+                    f"pick only)"),
+                   nbytes(z, dens, nrm, *ko), R * S * (30 + Kc), library_ms=lib_ms)
+        # the backward: autograd through the kernel's weights pass, cotangents
+        # on all five outputs, against the closed form at the kernel's picks
+        picks = ko[5]
+        cots = [torch.randn(t.shape, generator=g, device=dev) for t in ko[:5]]
+        gw, gdep, gn, gtw, gws = cots
+        ins = [t.clone().requires_grad_(True) for t in (dens, nrm)]
+        kg = torch.autograd.grad(vr.weights_topk(z, *ins, Kc)[:5], ins, cots)
+        pg = vr.weights_topk_bwd_plain(z, dens, nrm, picks, *cots)
+        errs = [rel_l2(a, b) for a, b in zip(kg, pg)]
+        # the launch alone with the path's cotangents (nothing reads the
+        # weights with a gradient: g_weights is None)
+        ms = cuda_time(lambda: vr._composite_bwd("weights_topk.bwd", z, dens, None, nrm, None,
+                                                 None, gdep, gn, picks, gtw, gws))
+        pms = cuda_time(lambda: vr.weights_topk_bwd_plain(z, dens, nrm, picks, None, gdep, gn,
+                                                          gtw, gws))
+        chk.record(f"weights_topk.bwd{tag}", src, "nicer_slam_tpu/models/scene_model.py:321",
+                   max(max_abs(a, b) for a, b in zip(kg, pg)), max(errs) <= GRAD_REL_L2,
+                   ms, pms, nbytes(z, dens, nrm, gdep, gn, picks, gtw, gws, *kg), R * S * 50,
+                   "(rel L2 density/normals " + "/".join(f"{e:.1e}" for e in errs)
+                   + "; timed with the path's cotangents, g_weights None)")
+        del kg, pg, ins, cots, gw
+        if kind == "surface":
+            continue
+        topk_w, wsum = po[3].contiguous(), po[4].contiguous()
+        rgb = torch.rand((R, Kc, 3), generator=g, device=dev)
+        with torch.no_grad():
+            ko = vr.topk_rgb(topk_w, wsum, rgb)
+            po = vr.topk_rgb_plain(topk_w, wsum, rgb)
+            ms = cuda_time(lambda: vr.topk_rgb(topk_w, wsum, rgb))
+            pms = cuda_time(lambda: vr.topk_rgb_plain(topk_w, wsum, rgb))
+        chk.values(f"topk_rgb.fwd{tag}", src, "nicer_slam_tpu/models/scene_model.py:338",
+                   [ko], [po], ms, pms, ("rgb",), nbytes(topk_w, wsum, rgb, ko), R * Kc * 8)
+        go = torch.randn((R, 3), generator=g, device=dev)
+        ins_k = [t.clone().requires_grad_(True) for t in (topk_w, wsum, rgb)]
+        ins_p = [t.clone().requires_grad_(True) for t in (topk_w, wsum, rgb)]
+        kl = (vr.topk_rgb(*ins_k) * go).sum()
+        pl = (vr.topk_rgb_plain(*ins_p) * go).sum()
+        kg = torch.autograd.grad(kl, ins_k, retain_graph=True)
+        pg = torch.autograd.grad(pl, ins_p, retain_graph=True)
+        ms = cuda_time(lambda: vr._topk_rgb_bwd(topk_w, wsum, rgb, go))
+        pms = cuda_time(lambda: torch.autograd.grad(pl, ins_p, retain_graph=True))
+        chk.values(f"topk_rgb.bwd{tag}", src, "nicer_slam_tpu/models/scene_model.py:338",
+                   kg, pg, ms, pms, ("g_topk_w", "g_wsum", "g_rgb"),
+                   nbytes(topk_w, wsum, rgb, go, *kg), R * Kc * 12)
 
 
 # ---------------------------------------------------------------------------
@@ -902,6 +977,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a card",
               file=sys.stderr)
         return 2
+    # before the first cuBLAS call: the runs of phases 4-5 are deterministic
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from nicer_slam_tpu_torch.ops import _cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -925,9 +1002,16 @@ def main() -> int:
         chk = Checks()
         check_hash_kernels(dev, chk)
         check_demo_kernels(dev, chk)
-        check_flagship_kernels(dev, chk)
+        # the backward at 32 rounds (S > 128), with colour
+        check_demo_kernels(dev, chk, 64, 200, "[general 64x200]")
+        check_voxel_kernels(dev, chk)
+        check_topk_kernels(dev, chk)
         check_bf16_kernels(dev, chk)
         check_sampler_kernels(dev, chk)
+        b_bytes, b_ops = density_cache_cost()
+        log(f"  K6 density-cache build (128³, not one kernel): bound "
+            f"{bound(b_bytes, b_ops)[0]:.4f} ms ({bound(b_bytes, b_ops)[1]}, "
+            f"{b_bytes / 1e6:.1f} MB, {b_ops / 1e9:.2f} Gop)")
         torch.cuda.empty_cache()
 
         runs = {}

@@ -25,15 +25,14 @@
 // 1.06 GB (color, 133M rows x 2 channels); the backward reads the same
 // cotangents, gathers the rows again for grad_x and scatters 8 rows of
 // gradient. The design:
-//   * one vector load (and one vector atomicAdd, sm_90's float2/float4
-//     atomics in global memory) per corner row instead of C scalar ones;
+//   * one vector load per corner row instead of C scalar ones;
 //   * a block is 32 consecutive points x L levels, one warp per level, so a
 //     warp's 32 lanes are 32 points of one level (the features-only
 //     forward of K2/K3 takes 64 points, two per lane). The path's points are
 //     ray-major and sorted along each ray, so neighbouring lanes often fall
 //     in the same cell on the coarse levels: the backward finds the lanes
 //     that share a corner row (__match_any_sync), sums their gradients in
-//     shared memory and lets one lane issue the atomic;
+//     shared memory and lets one lane issue the row's atomics;
 //   * the block's output tiles (feats [32, L*C], dfeat [32, L*C*3]) and
 //     cotangent tiles are staged in shared memory (rows padded by one
 //     float against bank conflicts) and move to device memory as contiguous
@@ -41,8 +40,25 @@
 //     written as [N, 3];
 //   * the table scatter is skipped entirely when the table needs no
 //     gradient (tracking), and grad_x when the input needs none.
-// The atomics' order changes from run to run: the table gradient is equal
-// to the plain version's up to float32 rounding, not bit for bit.
+//   * the table gradient is summed in fixed point, so it is the same bit
+//     for bit from run to run (below).
+//
+// The table gradient in fixed point. Float atomics sum a row's
+// contributions in whatever order they land, so the gradient changed in
+// its last bits from run to run, and the SLAM loop amplified that into
+// other maps and poses (PERF.md §7) where the JAX package's scatter is
+// deterministic. Integer adds give the same sum in any order, so the
+// backward adds each contribution as a 64-bit integer, v 2^k_l rounded to
+// nearest, into a scratch [T, C] int64 accumulator, and a last pass writes
+// g_table = acc 2^-k_l. k_l is per level, from a bound on the size of any
+// contribution there: |v| <= max|g_feat| + 1.5 dscale_l max_n sum_d
+// |g_dfeat[n, ., d]| (|w| <= 1, |dw/dx_d| <= 1.5 dscale_l), the maxima
+// taken by a first pass over the cotangents; with at most 8 N
+// contributions to a row, k_l = 61 - ceil(log2 8N) - e_l for a bound below
+// 2^e_l keeps every row's sum below 2^61. Each contribution is then off by
+// at most 2^-(k_l + 1), about 2^-40 of the level's bound at the flagship's
+// 802,816 points, and the sums are exact. A level whose cotangents are not
+// finite gets a NaN gradient in every row.
 //
 // Measured on an H100 80GB HBM3 at 700 W (PERF.md §6): the forward reaches
 // 42-58 % of its byte bound on the SDF grids' ray-ordered points; the
@@ -193,7 +209,7 @@ __device__ __forceinline__ void corner_hessian(const LevelGeom& g, int k,
   h[1][2] = h[2][1] = dsel[1] * dsel[2] * sel[0];
 }
 
-// ---- one [T, C] fp32 row: vector load, vector store, vector atomic ----
+// ---- one [T, C] fp32 row: vector load, vector store ----
 
 template <int C>
 __device__ __forceinline__ void load_row(const float* __restrict__ t,
@@ -227,17 +243,76 @@ __device__ __forceinline__ void store_vec(float* p, const float v[C]) {
   }
 }
 
+// ---- the table gradient in fixed point (see the header) ----
+
+// the exponent of a level whose cotangents are not finite
+constexpr int kNotFinite = -1000000;
+
+// k_l from the level's maxima (float bits: maxes[l] = max|g_feat|,
+// maxes[L + l] = max sum_d |g_dfeat[., d]|) and count_bits = ceil(log2 8N)
+__device__ __forceinline__ int fixed_exp(const unsigned* __restrict__ maxes, int l, int L,
+                                         float dscale, int count_bits) {
+  float bound = __uint_as_float(maxes[l]) + 1.5f * fabsf(dscale) * __uint_as_float(maxes[L + l]);
+  if (!isfinite(bound)) return kNotFinite;
+  if (bound == 0.0f) return 0;
+  int e;
+  frexpf(bound, &e);   // bound < 2^e
+  return 61 - count_bits - e;
+}
+
 template <int C>
-__device__ __forceinline__ void atomic_add_row(float* t, uint32_t row,
-                                               const float v[C]) {
-  if constexpr (C == 2) {
-    atomicAdd(reinterpret_cast<float2*>(t) + row, make_float2(v[0], v[1]));
-  } else {
+__device__ __forceinline__ void add_row_fixed(long long* acc, uint32_t row,
+                                              const float v[C], int k) {
+  unsigned long long* p = reinterpret_cast<unsigned long long*>(acc) + (size_t)row * C;
 #pragma unroll
-    for (int q = 0; q < C / 4; ++q)
-      atomicAdd(reinterpret_cast<float4*>(t) + (size_t)row * (C / 4) + q,
-                make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]));
+  for (int c = 0; c < C; ++c)
+    atomicAdd(p + c, (unsigned long long)__float2ll_rn(ldexpf(v[c], k)));
+}
+
+// per-level maxima of |g_feat| and of sum_d |g_dfeat[., d]| into maxes[2L]
+// (zeroed), as the bits of non-negative floats, which order as the floats
+// do (a NaN's above inf). A block is rows x LC threads, thread (r, col) on
+// column col of points r, r + rows, ...
+__global__ void level_max_kernel(const float* __restrict__ g_feat,
+                                 const float* __restrict__ g_dfeat, int64_t N, int L,
+                                 int C, unsigned* __restrict__ maxes) {
+  __shared__ unsigned s_max[64];
+  for (int i = threadIdx.x; i < 64; i += blockDim.x) s_max[i] = 0u;
+  __syncthreads();
+  const int LC = L * C, rows = blockDim.x / LC;
+  const int col = threadIdx.x % LC, r = threadIdx.x / LC;
+  unsigned a = 0u, b = 0u;
+  for (int64_t n = (int64_t)blockIdx.x * rows + r; n < N; n += (int64_t)gridDim.x * rows) {
+    a = max(a, __float_as_uint(fabsf(g_feat[n * LC + col])));
+    if (g_dfeat != nullptr) {
+      const float* d = g_dfeat + (n * LC + col) * 3;
+      b = max(b, __float_as_uint(fabsf(d[0]) + fabsf(d[1]) + fabsf(d[2])));
+    }
   }
+  const int l = col / C;
+  atomicMax(&s_max[l], a);
+  atomicMax(&s_max[32 + l], b);
+  __syncthreads();
+  if (threadIdx.x < L) {
+    atomicMax(&maxes[threadIdx.x], s_max[threadIdx.x]);
+    atomicMax(&maxes[L + threadIdx.x], s_max[32 + threadIdx.x]);
+  }
+}
+
+// g_table[row, c] = acc[row, c] 2^-k_l over the rows of level l = blockIdx.y
+__global__ void fixed_to_float_kernel(const long long* __restrict__ acc,
+                                      float* __restrict__ g_table,
+                                      const int* __restrict__ meta,
+                                      const float* __restrict__ scl,
+                                      const unsigned* __restrict__ maxes, int L, int C,
+                                      int count_bits) {
+  const int l = blockIdx.y;
+  const int64_t off = (int64_t)meta[4 * l] * C, n = (int64_t)meta[4 * l + 1] * C;
+  const int k = fixed_exp(maxes, l, L, scl[2 * l + 1], count_bits);
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x)
+    g_table[off + i] = k == kNotFinite ? __int_as_float(0x7fc00000)
+                                       : ldexpf(__ll2float_rn(acc[off + i]), -k);
 }
 
 // ---- one [T, C] bf16 row (K3): one 4-, 8- or 16-byte load, widened ----
@@ -414,7 +489,7 @@ __global__ void hash_fwd_kernel(const float* __restrict__ x,
   if (JAC) tile_out(dfeat + n0 * LC * 3, s_d, np, 3 * LC);
 }
 
-// g_table[row(k), c] += g_feat[c] w_k + sum_d g_dfeat[c, d] dw_k,d     (atomic)
+// acc[row(k), c] += (g_feat[c] w_k + sum_d g_dfeat[c, d] dw_k,d) 2^k_l   (atomic)
 // g_x[n, e] = sum_l sum_k sum_c v_k[c] (g_feat[c] dw_k,e + sum_d g_dfeat[c, d] h_k[d][e])
 template <int C, bool JAC>
 __global__ void hash_bwd_kernel(const float* __restrict__ x,
@@ -423,9 +498,10 @@ __global__ void hash_bwd_kernel(const float* __restrict__ x,
                                 const float* __restrict__ scl,
                                 const float* __restrict__ g_feat,
                                 const float* __restrict__ g_dfeat,
-                                float* __restrict__ g_table,
+                                long long* __restrict__ acc,
+                                const unsigned* __restrict__ maxes,
                                 float* __restrict__ g_x, int64_t N, int L,
-                                float size) {
+                                float size, int count_bits) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int LC = L * C;
@@ -459,6 +535,9 @@ __global__ void hash_bwd_kernel(const float* __restrict__ x,
   uint32_t res = (uint32_t)meta[4 * l + 2];
   bool dense = meta[4 * l + 3] != 0;
   float* s_mw = s_m + l * kPts * C;   // this warp's merge scratch
+  const int k_fix = acc != nullptr ? fixed_exp(maxes, l, L, scl[2 * l + 1], count_bits) : 0;
+  // a level with non-finite cotangents adds nothing (its rows become NaN)
+  long long* acc_l = k_fix == kNotFinite ? nullptr : acc;
   uint32_t rows[8];
   corner_rows(g, res, lsize, offset, dense, rows);
   float gx[3] = {0.0f, 0.0f, 0.0f};
@@ -467,7 +546,7 @@ __global__ void hash_bwd_kernel(const float* __restrict__ x,
     uint32_t row = active ? rows[k] : kNoRow;
     float w, dw[3];
     corner_weights(g, k, w, dw);
-    if (g_table != nullptr) {
+    if (acc_l != nullptr) {
       float gt[C];
 #pragma unroll
       for (int c = 0; c < C; ++c) {
@@ -488,11 +567,11 @@ __global__ void hash_bwd_kernel(const float* __restrict__ x,
 #pragma unroll
             for (int c = 0; c < C; ++c) sum[c] += src[c];
           }
-          atomic_add_row<C>(g_table, row, sum);
+          add_row_fixed<C>(acc_l, row, sum, k_fix);
         }
         __syncwarp();
       } else if (row != kNoRow) {
-        atomic_add_row<C>(g_table, row, gt);
+        add_row_fixed<C>(acc_l, row, gt, k_fix);
       }
     }
     if (g_x != nullptr && active) {
@@ -578,19 +657,43 @@ int launch_bf16_fwd(const float* x, const uint16_t* table, const int* meta,
                                              size, s);
 }
 
+// with a table gradient: zero the accumulator and the maxima, take the
+// maxima, scatter in fixed point, convert; acc is [T C + L] int64 (the
+// last L words hold the 2 L maxima)
 template <int C>
 int launch_bwd(const float* x, const float* table, const int* meta,
                const float* scl, const float* g_feat, const float* g_dfeat,
-               float* g_table, float* g_x, int64_t N, int L, float size,
-               cudaStream_t s) {
+               float* g_table, float* g_x, long long* acc, int64_t N, int L,
+               float size, int64_t T, cudaStream_t s) {
   const int LC = L * C;
+  unsigned* maxes = nullptr;
+  int count_bits = 0;
+  if (g_table != nullptr) {
+    maxes = reinterpret_cast<unsigned*>(acc + T * C);
+    while ((int64_t(1) << count_bits) < 8 * N) ++count_bits;
+    cudaError_t e = cudaMemsetAsync(acc, 0, (size_t)(T * C + L) * sizeof(long long), s);
+    if (e != cudaSuccess) return (int)e;
+    const int rows = LC >= 256 ? 1 : 256 / LC;
+    const int64_t want = (N + rows - 1) / rows;
+    level_max_kernel<<<(unsigned)(want < 1056 ? want : 1056), rows * LC, 0, s>>>(
+        g_feat, g_dfeat, N, L, C, maxes);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  } else {
+    acc = nullptr;
+  }
   const int floats = smem_x() + L * kPts * (C + 3) + smem_feat(LC);
-  if (g_dfeat != nullptr)
-    return launch_blocks(hash_bwd_kernel<C, true>, N, L, kPts, floats + smem_dfeat(LC),
-                         s, x, table, meta, scl, g_feat, g_dfeat, g_table, g_x, N, L,
-                         size);
-  return launch_blocks(hash_bwd_kernel<C, false>, N, L, kPts, floats, s, x, table, meta,
-                       scl, g_feat, g_dfeat, g_table, g_x, N, L, size);
+  int rc = g_dfeat != nullptr
+      ? launch_blocks(hash_bwd_kernel<C, true>, N, L, kPts, floats + smem_dfeat(LC), s, x,
+                      table, meta, scl, g_feat, g_dfeat, acc, (const unsigned*)maxes, g_x,
+                      N, L, size, count_bits)
+      : launch_blocks(hash_bwd_kernel<C, false>, N, L, kPts, floats, s, x, table, meta, scl,
+                      g_feat, g_dfeat, acc, (const unsigned*)maxes, g_x, N, L, size,
+                      count_bits);
+  if (rc != 0 || g_table == nullptr) return rc;
+  fixed_to_float_kernel<<<dim3(264, L), 256, 0, s>>>(acc, g_table, meta, scl, maxes, L, C,
+                                                     count_bits);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -617,19 +720,23 @@ int nsl_hash_encode_fwd(const void* x, const void* table, const void* meta,
   }
 }
 
-// g_dfeat == NULL selects K2; g_table (zeroed by the caller, accumulated
-// into) and g_x ([N, 3], written) may each be NULL (not needed).
+// g_dfeat == NULL selects K2. g_table [T, C] (written) and g_x ([N, 3],
+// written) may each be NULL (not needed); with g_table, scratch is
+// [T C + L] int64 (its contents on entry do not matter).
 int nsl_hash_encode_bwd(const void* x, const void* table, const void* meta,
                         const void* scl, const void* g_feat,
-                        const void* g_dfeat, void* g_table, void* g_x,
-                        int64_t N, int L, int C, float size, void* stream) {
-  if (N == 0) return 0;
+                        const void* g_dfeat, void* g_table, void* g_x, void* scratch,
+                        int64_t N, int L, int C, float size, int64_t T, void* stream) {
   if (L < 1 || L > 32) return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
+  if (N == 0)
+    return g_table == nullptr
+        ? 0 : (int)cudaMemsetAsync(g_table, 0, (size_t)(T * C) * sizeof(float), s);
+  if (g_table != nullptr && scratch == nullptr) return (int)cudaErrorInvalidValue;
   auto args = [&](auto launch) {
     return launch((const float*)x, (const float*)table, (const int*)meta,
                   (const float*)scl, (const float*)g_feat, (const float*)g_dfeat,
-                  (float*)g_table, (float*)g_x, N, L, size, s);
+                  (float*)g_table, (float*)g_x, (long long*)scratch, N, L, size, T, s);
   };
   switch (C) {
     case 2: return args(launch_bwd<2>);

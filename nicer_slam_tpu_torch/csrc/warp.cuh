@@ -1,6 +1,5 @@
 // Warp-level sums and scans shared by the per-ray kernels (composite.cu,
-// sampler.cu): one warp holds one ray, each lane a contiguous chunk of its
-// samples, and these combine the lanes' chunk values.
+// sampler.cu): one warp holds one ray, and these combine the lanes' values.
 
 #pragma once
 
@@ -18,31 +17,33 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// inclusive prefix over lanes (the sum of the values of this and lower lanes)
+__device__ __forceinline__ float warp_incl_prefix(float v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    float t = __shfl_up_sync(kFull, v, o);
+    if (lane >= o) v += t;
+  }
+  return v;
+}
+
 // exclusive prefix over lanes of a per-lane value. The inclusive scan is
 // shifted by one lane instead of subtracting the lane's own value: the last
 // sample's free energy is ~1e10 * sigma, and incl - v would cancel the
 // whole prefix away in float32.
 __device__ __forceinline__ float warp_excl_prefix(float v, int lane) {
-  float incl = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    float t = __shfl_up_sync(kFull, incl, o);
-    if (lane >= o) incl += t;
-  }
-  float excl = __shfl_up_sync(kFull, incl, 1);
+  float excl = __shfl_up_sync(kFull, warp_incl_prefix(v, lane), 1);
   return lane == 0 ? 0.0f : excl;
 }
 
-// exclusive suffix over lanes (sum of the values of higher lanes)
-__device__ __forceinline__ float warp_excl_suffix(float v, int lane) {
-  float incl = v;
+// inclusive suffix over lanes (the sum of the values of this and higher lanes)
+__device__ __forceinline__ float warp_incl_suffix(float v, int lane) {
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    float t = __shfl_down_sync(kFull, incl, o);
-    if (lane + o < 32) incl += t;
+    float t = __shfl_down_sync(kFull, v, o);
+    if (lane + o < 32) v += t;
   }
-  float excl = __shfl_down_sync(kFull, incl, 1);
-  return lane == 31 ? 0.0f : excl;
+  return v;
 }
 
 }  // namespace nsl

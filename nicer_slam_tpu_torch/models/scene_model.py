@@ -261,15 +261,13 @@ def render_rays(cfg: SceneConfig, model: SceneModel, voxels: torch.Tensor,
     if training and 0 < Kc < S:
         # color only at the Kc samples of largest weight (scene_model.py:
         # 323-353); gradients reach the kept weights and the weight sum
-        weights, depth_values, normal_comp, topk_i = weights_topk(
+        weights, depth_values, normal_comp, topk_w, wsum, picks = weights_topk(
             z_vals, density, normals, Kc)
-        topk_w = torch.gather(weights, 1, topk_i)
-        flat_i = (torch.arange(R, device=topk_i.device)[:, None] * S + topk_i).reshape(-1)
+        flat_i = picks.reshape(-1)
         rgb_k = fields.rendering_forward(
             model.render, points_flat[flat_i], gradients[flat_i], dirs_flat[flat_i],
             feature_vectors[flat_i], color_stage)
-        rgb_values = topk_rgb(topk_w, weights.sum(1, keepdim=True),
-                              rgb_k.reshape(R, Kc, 3))
+        rgb_values = topk_rgb(topk_w, wsum, rgb_k.reshape(R, Kc, 3))
     else:
         rgb_flat = fields.rendering_forward(model.render, points_flat, gradients,
                                             dirs_flat, feature_vectors, color_stage)

@@ -53,19 +53,20 @@ _SIGNATURES = {
     # x, table [T, C], lvl_meta, lvl_scale, feats, dfeat, N, L, C, size, stream
     "nsl_hash_encode_fwd": [_P] * 6 + [_I64, _I, _I, _F, _P],
     # x, table, meta, scale, g_feat, g_dfeat, g_table, g_x [N, 3],
-    # N, L, C, size, stream
-    "nsl_hash_encode_bwd": [_P] * 8 + [_I64, _I, _I, _F, _P],
+    # scratch [T·C + L] int64, N, L, C, size, T, stream
+    "nsl_hash_encode_bwd": [_P] * 9 + [_I64, _I, _I, _F, _I64, _P],
     # z, density, rgb, normals, weights, rgb_out, depth_out, normal_out,
     # R, S, stream
     "nsl_composite_fwd": [_P] * 8 + [_I64, _I, _P],
-    # z, density, rgb, normals, g_weights, g_rgb_out, g_depth, g_normal_out,
-    # g_density, g_rgb, g_normals, R, S, stream
-    "nsl_composite_bwd": [_P] * 11 + [_I64, _I, _P],
+    # z, density, rgb, normals, picks, g_weights, g_rgb_out, g_depth,
+    # g_normal_out, g_topk_w, g_wsum, g_density, g_rgb, g_normals, R, S, Kc,
+    # stream
+    "nsl_composite_bwd": [_P] * 14 + [_I64, _I, _I, _P],
     # x, table [T, C] bf16, meta, scale, feats, N, L, C, size, stream
     "nsl_hash_encode_bf16_fwd": [_P] * 5 + [_I64, _I, _I, _F, _P],
-    # z, density, normals, weights, depth_out, normal_out, topk_idx,
-    # R, S, Kc, stream
-    "nsl_weights_topk_fwd": [_P] * 7 + [_I64, _I, _I, _P],
+    # z, density, normals, weights, depth_out, normal_out, topk_w, wsum,
+    # picks, R, S, Kc, stream
+    "nsl_weights_topk_fwd": [_P] * 9 + [_I64, _I, _I, _P],
     # topk_w, wsum, rgb, out, R, Kc, stream
     "nsl_topk_rgb_fwd": [_P] * 4 + [_I64, _I, _P],
     # topk_w, wsum, rgb, g_out, g_topk_w, g_wsum, g_rgb, R, Kc, stream

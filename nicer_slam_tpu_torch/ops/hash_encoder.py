@@ -22,14 +22,16 @@ All share a plain PyTorch version (``hash_encode_plain``), which the
 wrapper runs for a CPU tensor, and a CUDA kernel (``csrc/hash_encoder.cu``),
 which it launches for a CUDA tensor. The TPU package's row gathers, cell-block tables, sorted
 scatters, uint32 channel-pair packing and ICI modes are TPU workarounds and have no
-counterpart here: on the card the backward is an atomic scatter, and a
-corner is one vector load (and one vector atomic) of a ``[T, C]`` row.
+counterpart here: on the card the backward is an atomic scatter in 64-bit
+fixed point (integer adds land in any order with the same sum, so the
+table gradient is the same from run to run, as XLA's scatter is), and a
+corner is one vector load of a ``[T, C]`` row.
 
 On the card K1/K2 are bound by bytes: the Jacobian and cotangent tiles
 they stream and the random corner rows they gather and scatter. A block
 is 32 consecutive points × L levels, one warp per level; its output and
 cotangent tiles pass through shared memory to move as coalesced runs,
-lanes that share a corner row merge their gradients before one atomic,
+lanes that share a corner row merge their gradients before one row of atomics,
 and the table scatter is skipped when the table needs no gradient
 (tracking). K3 is the same forward kernel with a bf16 row loader; the
 note at the top of csrc/hash_encoder.cu has more.
@@ -201,8 +203,8 @@ def _check_operands(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor):
     _cuda.check(table, "table", torch.float32,
                 (spec.total_entries, spec.level_dim), device=x.device)
     if table.data_ptr() % 16:
-        raise ValueError("table: the kernel's vector row loads and atomics need a "
-                         "16-byte aligned table")
+        raise ValueError("table: the kernel's vector row loads need a 16-byte "
+                         "aligned table")
 
 
 def hash_encode_fwd_launch(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor,
@@ -226,25 +228,26 @@ def hash_encode_bwd_launch(spec: HashGridSpec, table: torch.Tensor, x: torch.Ten
                            g_dfeat: torch.Tensor | None, g_table: torch.Tensor | None,
                            g_x: torch.Tensor | None) -> None:
     """One launch of the backward kernel (K1's if ``jacobian``, else K2's):
-    accumulates into ``g_table`` ([T, C], zeroed by the caller) and writes
-    ``g_x`` [N, 3]; either may be None (not needed). ``g_dfeat`` None
-    leaves out the Jacobian's cotangent."""
-    N, L, C = x.shape[0], spec.num_levels, spec.level_dim
+    writes ``g_table`` [T, C], summed in fixed point so that it is the same
+    bit for bit from run to run, and ``g_x`` [N, 3]; either may be None (not
+    needed). ``g_dfeat`` None leaves out the Jacobian's cotangent."""
+    N, L, C, T = x.shape[0], spec.num_levels, spec.level_dim, spec.total_entries
     meta, scl = _level_tables(spec, float(size), str(x.device))
     _cuda.check(g_feat, "g_feat", torch.float32, (N, L * C), device=x.device)
     if g_dfeat is not None:
         _cuda.check(g_dfeat, "g_dfeat", torch.float32, (N, L * C, 3), device=x.device)
+    scratch = None
     if g_table is not None:
         _cuda.check(g_table, "g_table", torch.float32, tuple(table.shape), device=x.device)
-        if g_table.data_ptr() % 16:
-            raise ValueError("g_table: the kernel's vector atomics need a 16-byte "
-                             "aligned table")
+        # the fixed-point accumulator and the per-level maxima
+        scratch = torch.empty(T * C + L, dtype=torch.int64, device=x.device)
     if g_x is not None:
         _cuda.check(g_x, "g_x", torch.float32, (N, 3), device=x.device)
     _cuda.launch("hash_encode_with_grad.bwd" if jacobian else "hash_encode.bwd",
                  "nsl_hash_encode_bwd", N, x.data_ptr(), table.data_ptr(),
                  meta.data_ptr(), scl.data_ptr(), g_feat.data_ptr(), _cuda.ptr(g_dfeat),
-                 _cuda.ptr(g_table), _cuda.ptr(g_x), N, L, C, float(size))
+                 _cuda.ptr(g_table), _cuda.ptr(g_x), _cuda.ptr(scratch), N, L, C,
+                 float(size), T)
 
 
 class _HashEncodeCUDA(torch.autograd.Function):
@@ -275,7 +278,7 @@ class _HashEncodeCUDA(torch.autograd.Function):
                   if g_feat is None else g_feat.contiguous())
         if g_dfeat is not None:
             g_dfeat = g_dfeat.contiguous()
-        g_table = torch.zeros_like(table) if need_t else None
+        g_table = torch.empty_like(table) if need_t else None
         g_x = (torch.empty((N, 3), dtype=torch.float32, device=x.device)
                if need_x else None)
         hash_encode_bwd_launch(spec, table, x, ctx.size, ctx.jacobian, g_feat, g_dfeat,

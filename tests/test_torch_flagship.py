@@ -149,23 +149,27 @@ def _topk_jax(z, density, rgb_all, normals, Kc):
     w = jvr.render_weights(z, density)
     topk_w, topk_i = jax.lax.top_k(w, Kc)
     rgb = jnp.take_along_axis(rgb_all, topk_i[..., None], axis=1)
-    renorm = w.sum(1, keepdims=True) / (topk_w.sum(1, keepdims=True) + 1e-8)
+    wsum = w.sum(1, keepdims=True)
+    renorm = wsum / (topk_w.sum(1, keepdims=True) + 1e-8)
     rgb_values = ((topk_w * renorm)[..., None] * rgb).sum(1)
     depth = (w * z).sum(1, keepdims=True) / (w.sum(1, keepdims=True) + 1e-8)
-    return (w, rgb_values, depth, (w[..., None] * normals).sum(1)), topk_i
+    return (w, rgb_values, depth, (w[..., None] * normals).sum(1), topk_w, wsum), topk_i
 
 
 def _topk_torch(z, density, rgb_all, normals, Kc):
-    w, depth, normal_map, idx = tvr.weights_topk(z, density, normals, Kc)
-    rgb = torch.gather(rgb_all, 1, idx[..., None].expand(-1, -1, 3))
-    rgb_values = tvr.topk_rgb(torch.gather(w, 1, idx), w.sum(1, keepdim=True), rgb)
-    return (w, rgb_values, depth, normal_map), idx
+    w, depth, normal_map, topk_w, wsum, picks = tvr.weights_topk(z, density, normals, Kc)
+    R, S = w.shape
+    rgb = rgb_all.reshape(R * S, 3)[picks.reshape(-1)].reshape(R, Kc, 3)
+    rgb_values = tvr.topk_rgb(topk_w, wsum, rgb)
+    idx = picks - torch.arange(R)[:, None] * S
+    return (w, rgb_values, depth, normal_map, topk_w, wsum), idx
 
 
 def test_weights_topk_and_topk_rgb_match_jax():
-    """Outputs atol 1e-5, picks equal (ray 0 ties at exact zeros: both take
-    the lower index), gradients to density, colours and normals through the
-    kept weights and their sum: atol 1e-5, rtol 1e-5."""
+    """Outputs atol 1e-5 (topk_w and wsum against lax.top_k's values and
+    w.sum), picks equal (ray 0 ties at exact zeros: both take the lower
+    index), gradients to density, colours and normals through the kept
+    weights and their sum: atol 1e-5, rtol 1e-5."""
     rng = np.random.default_rng(4)
     R, S, Kc = 24, 30, 8
     z = np.sort(rng.uniform(0.1, 3.0, (R, S)), 1).astype(np.float32)
@@ -177,18 +181,18 @@ def test_weights_topk_and_topk_rgb_match_jax():
     cots = [rng.standard_normal(s).astype(np.float32) for s in ((R, S), (R, 3), (R, 1), (R, 3))]
 
     def f_j(d, c, n):
-        return _topk_jax(jnp.asarray(z), d, c, n, Kc)[0]
+        return _topk_jax(jnp.asarray(z), d, c, n, Kc)[0][:4]
 
     outs_j, vjp = jax.vjp(f_j, jnp.asarray(dens), jnp.asarray(rgb), jnp.asarray(nrm))
     grads_j = vjp(tuple(jnp.asarray(c) for c in cots))
-    idx_j = np.asarray(_topk_jax(jnp.asarray(z), jnp.asarray(dens), jnp.asarray(rgb),
-                                 jnp.asarray(nrm), Kc)[1])
+    full_j, idx_j = _topk_jax(jnp.asarray(z), jnp.asarray(dens), jnp.asarray(rgb),
+                              jnp.asarray(nrm), Kc)
     ins = [T(a).requires_grad_(True) for a in (dens, rgb, nrm)]
     outs_t, idx_t = _topk_torch(T(z), *ins, Kc)
-    grads_t = torch.autograd.grad(outs_t, ins, [T(c) for c in cots])
-    np.testing.assert_array_equal(idx_t.numpy(), idx_j)
+    grads_t = torch.autograd.grad(outs_t[:4], ins, [T(c) for c in cots])
+    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
     assert list(idx_t[0].numpy()) == [1, 2, 0, 3, 4, 5, 6, 7]
-    for a, b in zip(outs_t, outs_j):
+    for a, b in zip(outs_t, full_j):
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), atol=1e-5)
     for a, b in zip(grads_t, grads_j):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5, rtol=1e-5)

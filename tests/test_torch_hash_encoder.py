@@ -156,3 +156,47 @@ def test_cuda_wrapper_rejects_other_devices():
     x = torch.zeros((4, 3), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         the.hash_encode(spec, torch.zeros((spec.total_entries, 4), device="meta"), x)
+
+
+@pytest.mark.parametrize("name", ["mixed_c4", "hashed_c2", "dense_c8"])
+def test_fixed_point_bound_covers_every_contribution(name):
+    """The kernels' backward sums the table gradient in 64-bit fixed point
+    with a per-level exponent taken from a bound on any one contribution
+    (csrc/hash_encoder.cu): max|g_feat| + 1.5 scale_l / (2 size) times the
+    largest sum_d |g_dfeat[., d]| of the level. One point's table gradient
+    (plain version, autograd) is its 8 corner contributions; a row holds
+    as many of them as the point has corners there, and none may exceed
+    the bound. Points include cell fractions of exactly 0.5, where the
+    smoothstep's derivative 6 f (1 - f) peaks at 1.5."""
+    spec = the.make_spec(**SPECS[name])
+    _, _, table, x, g_feat, g_dfeat = _inputs(name, n=40, seed=5)
+    size, L, C = 1.3, spec.num_levels, spec.level_dim
+    # the centres of 8 cells of level 1: a fraction of 0.5 on every axis
+    cells = np.arange(24).reshape(8, 3) % 3 + 1.5
+    x[:8] = (cells / spec.scales[1] * 2.0 * size - size).astype(np.float32)
+    t = _port(table).clone().requires_grad_(True)
+    gf = torch.from_numpy(g_feat).reshape(-1, L, C)
+    gd = torch.from_numpy(g_dfeat).reshape(-1, L, C, 3)
+    bound = [float(gf[:, lvl].abs().max())
+             + 1.5 * spec.scales[lvl] / (2.0 * size)
+             * float(gd[:, lvl].abs().sum(-1).max()) for lvl in range(L)]
+    bits = torch.tensor([[(k >> d) & 1 for d in range(3)] for k in range(8)])
+    peak = 0.0
+    for n in range(x.shape[0]):
+        xn = torch.from_numpy(x[n:n + 1])
+        feats, dfeat = the.hash_encode_plain(spec, t, xn, size, jacobian=True)
+        (g,) = torch.autograd.grad((feats * torch.from_numpy(g_feat[n:n + 1])).sum()
+                                   + (dfeat * torch.from_numpy(g_dfeat[n:n + 1])).sum(), t)
+        u = (xn.double() + size) / (2.0 * size)
+        if ((u < 0) | (u > 1)).any():
+            assert not g.any()
+            continue
+        for lvl in range(L):
+            corner = torch.floor(u * spec.scales[lvl]).long()[None] + bits[:, None, :]
+            rows = the._level_rows(spec, lvl, corner)[:, 0]
+            uniq, counts = torch.unique(rows, return_counts=True)
+            per_row = g[uniq].abs().amax(dim=1) / counts
+            assert float(per_row.max()) <= bound[lvl] * (1 + 1e-6), (n, lvl)
+            peak = max(peak, float(per_row.max()) / bound[lvl])
+    # the bound is reached within a factor of a few, not loose by orders
+    assert peak > 0.05

@@ -1,31 +1,46 @@
 #!/usr/bin/env python3
-"""The hand-written K1/K2, K3 and K5 kernels of an earlier checkout against
-this checkout's, on one CUDA card, in one process.
+"""The hand-written K1/K2, K3, K4 and K5 kernels of an earlier checkout
+against this checkout's, on one CUDA card, in one process.
 
   git archive <commit> | tar -x -C build/other
   python3 tools/hash_kernel_ab.py --other build/other [--out build/hash_kernel_ab.json]
 
-The earlier checkout's csrc/hash_encoder.cu and csrc/sampler.cu are built
-with nvcc into build/parent/ beside this checkout's library
-(build/kernels/); both must have this checkout's C interface for the
-entry points timed here ([T, C] tables, grad_x as [N, 3]). Both libraries
-run on the same operands, at chip_smoke.py's shapes:
+The earlier checkout's csrc/hash_encoder.cu, csrc/sampler.cu and
+csrc/composite.cu are built with nvcc into build/parent/ beside this
+checkout's library (build/kernels/); the hash and sampler entry points
+must have this checkout's C interface ([T, C] tables, grad_x as [N, 3]),
+the hash backward and the composite entries the ones before this
+checkout's (EARLIER_SIGNATURES: the hash backward accumulating into a
+zeroed table gradient with float atomics, the weights pass writing the
+weights and local top-k indices only, the composite backward taking the
+cotangent on the weights as a dense [R, S]). Both
+libraries run on the same operands, at chip_smoke.py's shapes:
 
   * K1/K2 forward and backward: chip_smoke.HASH_CASES, ray-ordered and
     uniform points;
   * K3 on both SDF grids: chip_smoke.BF16_ORDERS (a density-cache build
     chunk, a render chunk's ray-ordered prepass, uniform points);
   * K5 at chip_smoke.SAMPLER_RAYS rays and K5 given densities at
-    chip_smoke.GIVEN_RAYS.
+    chip_smoke.GIVEN_RAYS;
+  * K4 with colour top-16 at chip_smoke.TOPK_RAYS rays x 98 samples: the
+    weights pass forward (with torch.topk of the weights as the library's
+    pick alone in the same turns; also on chip_smoke's surface-like
+    densities at 8192 rays), its backward (the earlier kernel given the
+    dense cotangent that PyTorch scattered from the top-k values and the
+    weight sum, this one the top-k cotangents and picks themselves), the
+    top-k colour composite forward and backward; and the plain composite's
+    backward with colour at the demo's 4096 x 98.
 
 Each case first holds the two kernels' outputs against each other (values
 within 1e-5 of the largest, gradients within 1e-5 relative L2); the
 samplers are compared by chip_smoke.sampler_agreement, each against the
 other and against this checkout's plain version, and only this checkout's
 kernel must agree with it (an earlier kernel may sum in another order, and
-the inverse CDF is discontinuous). Then each launch is timed alone in turns:
-earlier, this, this, earlier (10 launches each, CUDA events, a gradient
-table zeroed outside the timed window).
+the inverse CDF is discontinuous). The top-k picks of the two checkouts
+are counted by the rays where they differ, and each must equal this checkout's plain version's through the plain weights. Then
+each launch is timed alone in turns: earlier, this, this, earlier (more
+sides: forth and back; 10 launches each, CUDA events, a gradient table
+zeroed outside the timed window).
 """
 
 from __future__ import annotations
@@ -43,7 +58,21 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 
 ENTRIES = ("nsl_hash_encode_fwd", "nsl_hash_encode_bwd", "nsl_hash_encode_bf16_fwd",
-           "nsl_importance_sample", "nsl_importance_sample_given")
+           "nsl_importance_sample", "nsl_importance_sample_given", "nsl_weights_topk_fwd",
+           "nsl_composite_bwd", "nsl_topk_rgb_fwd", "nsl_topk_rgb_bwd")
+_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# the entries as they were before the table gradient was summed in fixed
+# point (hash backward) and before the weights pass wrote its top-k values
+EARLIER_SIGNATURES = {
+    # x, table, meta, scale, g_feat, g_dfeat, g_table (zeroed, accumulated
+    # into), g_x, N, L, C, size, stream
+    "nsl_hash_encode_bwd": [_P] * 8 + [_I64, _I, _I, ctypes.c_float, _P],
+    # z, density, normals, weights, depth_out, normal_out, topk_idx, R, S, Kc, stream
+    "nsl_weights_topk_fwd": [_P] * 7 + [_I64, _I, _I, _P],
+    # z, density, rgb, normals, g_weights, g_rgb_out, g_depth, g_normal_out,
+    # g_density, g_rgb, g_normals, R, S, stream
+    "nsl_composite_bwd": [_P] * 11 + [_I64, _I, _P],
+}
 
 
 def build_other(other: str) -> ctypes.CDLL:
@@ -53,13 +82,14 @@ def build_other(other: str) -> ctypes.CDLL:
     lib = os.path.join(out_dir, "libparent_kernels.so")
     src = os.path.join(os.path.abspath(other), "nicer_slam_tpu_torch", "csrc")
     cmd = [_cuda.nvcc_path(), *_cuda.ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
-           "-fPIC", "-shared", "-o", lib, os.path.join(src, "hash_encoder.cu"),
-           os.path.join(src, "sampler.cu")]
+           "-fPIC", "-shared", "-o", lib,
+           *(os.path.join(src, f) for f in ("hash_encoder.cu", "sampler.cu", "composite.cu"))]
     subprocess.run(cmd, check=True)
     dll = ctypes.CDLL(lib)
     for name in ENTRIES:
         fn = getattr(dll, name)
-        fn.argtypes, fn.restype = _cuda._SIGNATURES[name], ctypes.c_int
+        fn.argtypes = EARLIER_SIGNATURES.get(name, _cuda._SIGNATURES[name])
+        fn.restype = ctypes.c_int
     return dll
 
 
@@ -76,10 +106,11 @@ def caller(lib):
 
 
 def turns(fns, before=None) -> dict:
-    """{side: [ms, ms]} of each launch timed alone, in turns earlier, this,
-    this, earlier."""
-    t = {"earlier": [], "this": []}
-    for side in ("earlier", "this", "this", "earlier"):
+    """{side: [ms, ms]} of each launch timed alone, in turns forth and back
+    over the sides (earlier, this, this, earlier)."""
+    sides = list(fns)
+    t = {side: [] for side in sides}
+    for side in sides + sides[::-1]:
         t[side].append(chip_smoke.cuda_time(fns[side], before=before))
     return t
 
@@ -119,12 +150,17 @@ def hash_cases(dev, calls, rows_out):
                     scl.data_ptr(), o["feats"].data_ptr(), _cuda.ptr(o["dfeat"]),
                     N, L, C, 1.0)
 
+            scratch = torch.empty(T * C + L, dtype=torch.int64, device=dev)
+
             def bwd(side):
                 o = out[side]
-                return lambda: calls[side](
-                    "nsl_hash_encode_bwd", x.data_ptr(), table.data_ptr(), meta.data_ptr(),
-                    scl.data_ptr(), gf.data_ptr(), _cuda.ptr(gd),
-                    o["g_table"].data_ptr(), o["g_x"].data_ptr(), N, L, C, 1.0)
+                head = (x.data_ptr(), table.data_ptr(), meta.data_ptr(), scl.data_ptr(),
+                        gf.data_ptr(), _cuda.ptr(gd), o["g_table"].data_ptr(),
+                        o["g_x"].data_ptr())
+                if side == "this":   # writes g_table, summed in fixed point
+                    return lambda: calls[side]("nsl_hash_encode_bwd", *head,
+                                               scratch.data_ptr(), N, L, C, 1.0, T)
+                return lambda: calls[side]("nsl_hash_encode_bwd", *head, N, L, C, 1.0)
 
             for side in calls:
                 fwd(side)(), bwd(side)()
@@ -137,7 +173,7 @@ def hash_cases(dev, calls, rows_out):
             rel = [chip_smoke.rel_l2(a["g_table"], b["g_table"]),
                    chip_smoke.rel_l2(a["g_x"], b["g_x"])]
             ok = max(errs) <= chip_smoke.VAL_RTOL and max(rel) <= chip_smoke.GRAD_REL_L2
-            zero = lambda: [o["g_table"].zero_() for o in out.values()]  # noqa: E731
+            zero = lambda: out["earlier"]["g_table"].zero_()  # noqa: E731
             tf = turns({s: fwd(s) for s in calls})
             tb = turns({s: bwd(s) for s in calls}, before=zero)
             b_fwd = chip_smoke.bound(*chip_smoke.hash_cost(spec, N, rows, jac, False))[0]
@@ -147,7 +183,7 @@ def hash_cases(dev, calls, rows_out):
                     case=f"{'K1' if jac else 'K2'} {kdir} {grid}/{kind}/{order}", points=N,
                     ok=ok, agreement=dict(value_err=max(errs), grad_rel_l2=max(rel)),
                     times_ms=t, bound_ms=bnd))
-            del x, gf, gd, out
+            del x, gf, gd, out, scratch
             torch.cuda.empty_cache()
         del table
         torch.cuda.empty_cache()
@@ -250,6 +286,157 @@ def sampler_cases(dev, calls, rows_out):
         del outs, pz, pe, z_pre
 
 
+def composite_cases(dev, calls, rows_out, S: int = 98, Kc: int = 16):
+    import torch
+    from nicer_slam_tpu_torch.ops import volume_rendering as vr
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    early, this = calls["earlier"], calls["this"]
+    f32 = dict(dtype=torch.float32, device=dev)
+    cases = [(R, "random") for R in chip_smoke.TOPK_RAYS] + [(chip_smoke.TOPK_RAYS[-1],
+                                                                "surface")]
+    for R, kind in cases:
+        tag = f"{R} rays" + ("" if kind == "random" else " surface")
+        z = torch.sort(torch.rand((R, S), generator=g, device=dev) * 3.0, dim=1)[0]
+        dens = (torch.rand((R, S), generator=g, device=dev) * 20.0 if kind == "random"
+                else chip_smoke.surface_densities(g, dev, z))
+        nrm = torch.randn((R, S, 3), generator=g, device=dev)
+        plain = vr.weights_topk_plain(z, dens, nrm, Kc)
+        # ---- the weights pass
+        new = [torch.empty_like(t) for t in plain]
+        old = [torch.empty((R, S), **f32), torch.empty((R, 1), **f32),
+               torch.empty((R, 3), **f32), torch.empty((R, Kc), dtype=torch.int64, device=dev)]
+
+        fns = {"earlier": lambda: early("nsl_weights_topk_fwd", z.data_ptr(), dens.data_ptr(),
+                                        nrm.data_ptr(), *(t.data_ptr() for t in old), R, S, Kc),
+               "this": lambda: this("nsl_weights_topk_fwd", z.data_ptr(), dens.data_ptr(),
+                                    nrm.data_ptr(), *(t.data_ptr() for t in new), R, S, Kc),
+               "torch.topk": lambda: torch.topk(plain[0], Kc, dim=1)}
+        for fn in fns.values():
+            fn()
+        torch.cuda.synchronize()
+        rays = torch.arange(R, device=dev)[:, None] * S
+        old_picks = old[3] + rays
+        errs = [chip_smoke.max_abs(a, b) / float(b.abs().max())
+                for a, b in zip(new[:3], old[:3])]
+        through_plain = [chip_smoke.max_abs(plain[0].reshape(-1)[p.reshape(-1)], plain[3].reshape(-1))
+                         / float(plain[3].abs().max())
+                         for p in (new[5], old_picks)]
+        agree = dict(value_err_vs_earlier=max(errs),
+                     picks_through_plain_err=dict(zip(("this", "earlier"), through_plain)),
+                     rays_other_picks_than_earlier=int((new[5] != old_picks).any(1).sum()),
+                     rays_other_picks_than_plain=int((new[5] != plain[5]).any(1).sum()))
+        rows_out.append(dict(
+            case=f"K4 weights_topk.fwd {tag}", points=R * S,
+            ok=max(errs) <= chip_smoke.VAL_RTOL and max(through_plain) <= chip_smoke.VAL_RTOL,
+            agreement=agree, times_ms=turns(fns),
+            bound_ms=chip_smoke.bound(chip_smoke.nbytes(z, dens, nrm, *new),
+                                      R * S * (30 + Kc))[0]))
+        # ---- its backward: the earlier kernel takes the dense cotangent
+        # PyTorch made of the top-k values' and the weight sum's
+        picks = new[5]
+        gdep, gn = torch.randn((R, 1), generator=g, device=dev), torch.randn((R, 3), generator=g,
+                                                                             device=dev)
+        gtw, gws = torch.randn((R, Kc), generator=g, device=dev), torch.randn((R, 1), generator=g,
+                                                                              device=dev)
+        dense = (gws.expand(R, S).reshape(-1).index_add(0, picks.reshape(-1), gtw.reshape(-1))
+                 .reshape(R, S).contiguous())
+        outs = {s_: (torch.empty((R, S), **f32), torch.empty((R, S, 3), **f32)) for s_ in calls}
+        fns = {"earlier": lambda: early(
+                   "nsl_composite_bwd", z.data_ptr(), dens.data_ptr(), None, nrm.data_ptr(),
+                   dense.data_ptr(), None, gdep.data_ptr(), gn.data_ptr(),
+                   outs["earlier"][0].data_ptr(), None, outs["earlier"][1].data_ptr(), R, S),
+               "this": lambda: this(
+                   "nsl_composite_bwd", z.data_ptr(), dens.data_ptr(), None, nrm.data_ptr(),
+                   picks.data_ptr(), None, None, gdep.data_ptr(), gn.data_ptr(), gtw.data_ptr(),
+                   gws.data_ptr(), outs["this"][0].data_ptr(), None,
+                   outs["this"][1].data_ptr(), R, S, Kc)}
+        for fn in fns.values():
+            fn()
+        torch.cuda.synchronize()
+        ref = vr.weights_topk_bwd_plain(z, dens, nrm, picks, None, gdep, gn, gtw, gws)
+        rel = {s_: max(chip_smoke.rel_l2(a, b) for a, b in zip(outs[s_], ref)) for s_ in calls}
+        rows_out.append(dict(
+            case=f"K4 weights_topk.bwd {tag}", points=R * S,
+            ok=rel["this"] <= chip_smoke.GRAD_REL_L2,
+            agreement=dict(grad_rel_l2_vs_plain=rel), times_ms=turns(fns),
+            bound_ms=chip_smoke.bound(chip_smoke.nbytes(z, dens, nrm, gdep, gn, picks, gtw, gws,
+                                                        *outs["this"]), R * S * 50)[0]))
+        if kind == "surface":
+            continue
+        # ---- the top-k colour composite
+        topk_w, wsum = plain[3].contiguous(), plain[4].contiguous()
+        rgb = torch.rand((R, Kc, 3), generator=g, device=dev)
+        go = torch.randn((R, 3), generator=g, device=dev)
+        fo = {s_: torch.empty((R, 3), **f32) for s_ in calls}
+        bo = {s_: (torch.empty((R, Kc), **f32), torch.empty((R, 1), **f32),
+                   torch.empty((R, Kc, 3), **f32)) for s_ in calls}
+
+        def rgb_fwd(side):
+            return lambda: calls[side]("nsl_topk_rgb_fwd", topk_w.data_ptr(), wsum.data_ptr(),
+                                       rgb.data_ptr(), fo[side].data_ptr(), R, Kc)
+
+        def rgb_bwd(side):
+            return lambda: calls[side]("nsl_topk_rgb_bwd", topk_w.data_ptr(), wsum.data_ptr(),
+                                       rgb.data_ptr(), go.data_ptr(),
+                                       *(t.data_ptr() for t in bo[side]), R, Kc)
+
+        for side in calls:
+            rgb_fwd(side)(), rgb_bwd(side)()
+        torch.cuda.synchronize()
+        ins = [t.clone().requires_grad_(True) for t in (topk_w, wsum, rgb)]
+        pf = vr.topk_rgb_plain(*ins)
+        pb = torch.autograd.grad((pf * go).sum(), ins)
+        for kdir, got, want, fn, nb, ops in (
+                ("fwd", {s_: [fo[s_]] for s_ in calls}, [pf.detach()], rgb_fwd,
+                 chip_smoke.nbytes(topk_w, wsum, rgb, fo["this"]), R * Kc * 8),
+                ("bwd", bo, list(pb), rgb_bwd,
+                 chip_smoke.nbytes(topk_w, wsum, rgb, go, *bo["this"]), R * Kc * 12)):
+            err = {s_: max(chip_smoke.max_abs(a, b) / float(b.abs().max())
+                           for a, b in zip(got[s_], want)) for s_ in calls}
+            rows_out.append(dict(
+                case=f"K4 topk_rgb.{kdir} {R} rays", points=R * Kc,
+                ok=err["this"] <= chip_smoke.VAL_RTOL, agreement=dict(value_err_vs_plain=err),
+                times_ms=turns({s_: fn(s_) for s_ in calls}),
+                bound_ms=chip_smoke.bound(nb, ops)[0]))
+        del z, dens, nrm, plain, new, old, dense, outs, ref, fo, bo, ins, pf, pb
+        torch.cuda.empty_cache()
+    # ---- the launch floor: one fill of a single float, timed the same way
+    one = torch.zeros(1, device=dev)
+    rows_out.append(dict(case="launch floor (fill of 1 float)", points=1, ok=True,
+                         agreement={}, times_ms=turns({"earlier": one.zero_, "this": one.zero_}),
+                         bound_ms=0.0))
+    # ---- the plain composite's backward with colour, at the demo's shape
+    R = 4096
+    z = torch.sort(torch.rand((R, S), generator=g, device=dev) * 3.0, dim=1)[0]
+    dens = torch.rand((R, S), generator=g, device=dev) * 20.0
+    rgb = torch.rand((R, S, 3), generator=g, device=dev)
+    nrm = torch.randn((R, S, 3), generator=g, device=dev)
+    gouts = [torch.randn(s_, generator=g, device=dev) for s_ in ((R, S), (R, 3), (R, 1), (R, 3))]
+    outs = {s_: [torch.empty((R, S), **f32), torch.empty((R, S, 3), **f32),
+                 torch.empty((R, S, 3), **f32)] for s_ in calls}
+    gw, grgb, gdep, gn = (t.data_ptr() for t in gouts)
+    fns = {"earlier": lambda: early(
+               "nsl_composite_bwd", z.data_ptr(), dens.data_ptr(), rgb.data_ptr(), nrm.data_ptr(),
+               gw, grgb, gdep, gn, *(t.data_ptr() for t in outs["earlier"]), R, S),
+           "this": lambda: this(
+               "nsl_composite_bwd", z.data_ptr(), dens.data_ptr(), rgb.data_ptr(), nrm.data_ptr(),
+               None, gw, grgb, gdep, gn, None, None, *(t.data_ptr() for t in outs["this"]),
+               R, S, 0)}
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    ins = [t.clone().requires_grad_(True) for t in (dens, rgb, nrm)]
+    ref = torch.autograd.grad(vr.composite_plain(z, *ins), ins, gouts)
+    rel = {s_: max(chip_smoke.rel_l2(a, b) for a, b in zip(outs[s_], ref)) for s_ in calls}
+    rows_out.append(dict(
+        case=f"K4 composite.bwd {R} rays", points=R * S, ok=rel["this"] <= chip_smoke.GRAD_REL_L2,
+        agreement=dict(grad_rel_l2_vs_plain=rel), times_ms=turns(fns),
+        bound_ms=chip_smoke.bound(chip_smoke.nbytes(z, dens, rgb, nrm, *gouts, *outs["this"]),
+                                  R * S * 60)[0]))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", required=True, help="root of the earlier checkout")
@@ -266,15 +453,16 @@ def main(argv=None) -> int:
     print(f"card: {card}", flush=True)
     calls = {"earlier": caller(build_other(args.other)), "this": caller(_cuda.library())}
     rows_out = []
-    for cases in (bf16_cases, sampler_cases, hash_cases):
+    for cases in (composite_cases, bf16_cases, sampler_cases, hash_cases):
         done = len(rows_out)
         cases(dev, calls, rows_out)
         for row in rows_out[done:]:
             ms = {s: mean(v) for s, v in row["times_ms"].items()}
             b = row["bound_ms"]
+            more = "".join(f" {s} {v:.4f}" for s, v in ms.items() if s not in calls)
             print(f"{row['case']:36s} earlier {ms['earlier']:.4f} this {ms['this']:.4f} ms "
                   f"(x{ms['earlier'] / ms['this']:.2f}; bound {b:.4f}, share "
-                  f"{b / ms['earlier']:.1%} -> {b / ms['this']:.1%}) agree {row['ok']} "
+                  f"{b / ms['earlier']:.1%} -> {b / ms['this']:.1%}){more} agree {row['ok']} "
                   f"{json.dumps(row['agreement'])}", flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

@@ -13,7 +13,11 @@ Reports per run the runner's phase times: ms per mapping and per tracking
 iteration, ms per density-cache build, s/frame (the loop over the 11
 frames, card synchronised at both ends), and after the loop the vis hook
 once (vis s: a full frame rendered with the exact prepass, the panels and
-the mesh) and, before it, that render alone (render s).
+the mesh) and, before it, that render alone (render s). Last, untimed,
+the device work of one more tracking call and one mapping iteration
+(without BA) under torch.profiler: the device operations (kernels, and
+memory copies and sets) per tracking iteration and per mapping iteration
+(0 where the profiler records no device activity).
 """
 
 from __future__ import annotations
@@ -62,16 +66,47 @@ render = time.perf_counter() - t
 t = time.perf_counter()
 vis_hook(r, r.n_images - 1)
 torch.cuda.synchronize()
+vis = time.perf_counter() - t
+# device operations of one tracking call and one mapping iteration
+ops = {}
+def profiled(name, fn, per):
+    def wrapped(*a, **k):
+        if name in ops:
+            return fn(*a, **k)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        kern = [e for e in ev if not e.name.startswith(("Memcpy", "Memset"))]
+        ops[name] = dict(device_ops=len(ev) / per, kernels=len(kern) / per)
+        return out
+    return wrapped
+runner_mod.track_frame = profiled("track", runner_mod.track_frame, r.num_cam_iters)
+runner_mod.map_step = profiled("map", runner_mod.map_step, 1)
+try:  # after every timed phase: a profiler fault loses only these counts
+    r.track(r.n_images - 1)
+    r.num_mapping_iters = 1
+    r.map(r.n_images - 1)
+except Exception as exc:
+    print(f"profiler counts failed: {exc!r}", file=sys.stderr)
+nan = dict(kernels=float("nan"), device_ops=float("nan"))
+ops = {k: ops.get(k, nan) for k in ("track", "map")}
 print("RESULT " + json.dumps(dict(
     s_per_frame=loop / r.n_images, ms_per_map_iter=s["mapping"]["mean_ms"],
     ms_per_track_iter=1000 * s["tracking"]["total_s"] / (s["tracking"]["count"] * r.num_cam_iters),
     ms_per_cache_build=s.get("cache", {}).get("mean_ms", float("nan")),
-    render_s=render, vis_s=time.perf_counter() - t,
+    render_s=render, vis_s=vis,
+    kernels_per_track_iter=ops["track"]["kernels"],
+    kernels_per_map_iter=ops["map"]["kernels"],
+    device_ops_per_track_iter=ops["track"]["device_ops"],
+    device_ops_per_map_iter=ops["map"]["device_ops"],
     phases_s={k: v["total_s"] for k, v in s.items()})))
 """
 
 METRICS = ("ms_per_map_iter", "ms_per_track_iter", "ms_per_cache_build", "s_per_frame",
-           "render_s", "vis_s")
+           "render_s", "vis_s", "kernels_per_track_iter", "kernels_per_map_iter",
+           "device_ops_per_track_iter", "device_ops_per_map_iter")
 
 
 def one_run(tree: str, kind: str, data_dir: str, tag: str) -> dict:
