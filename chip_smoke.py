@@ -13,14 +13,17 @@ Phases, in order (any failure exits non-zero without the final line):
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the card, with errors, tolerances, CUDA-event times of each launch
      alone (on preallocated operands; the K1/K2 backward's time includes
-     zeroing its fixed-point accumulator) and of the plain version, and the kernel's bound
+     its maxima pass and the sweep that converts and re-zeroes its
+     fixed-point accumulator) and of the plain version, and the kernel's bound
      (the bytes it must move over the card's memory rate, or its
      operations over the float32 rate, whichever is larger): K1 and K2 at
      the flagship path's shapes on ray-ordered and on uniform points
      (802,816 SDF points through the fine and coarse grids; the full
      133M-entry colour grid at the 131,072 top-16 points and at the demo's
-     4096 x 98), K4 at the demo slice's shapes, K7 at the flagship
-     configuration's (8192 mapping rays x 98 samples), K4 with colour
+     4096 x 98), K4 at the demo slice's shapes, K7 at a flagship mapping
+     iteration's 8192 x 98 samples (unordered, as earlier kernels were
+     timed, and ray-ordered), a tracking iteration's 1024 x 98 and a
+     density-cache chunk (the counter bit for bit), K4 with colour
      top-16 at its tracking and mapping rays (1024 and 8192 x 98; the
      weights pass also on surface-like densities, where ties at exact
      zeros decide the last picks; torch.topk timed beside it as the
@@ -31,7 +34,8 @@ Phases, in order (any failure exits non-zero without the final line):
      K5 at 1024 (tracking), 4096 and 8192 (mapping) rays and K5 given
      densities at a render chunk. The plain versions of K1/K2 run once;
      the K1/K2 backward runs twice more and its table gradient must come
-     out the same bit for bit.
+     out the same bit for bit, with its kept fixed-point accumulator zero
+     after every launch.
   4. demo: the demo configuration (confs/runconf_demo_1.conf, every network
      at full width) through the port's exp_runner: tracking on every frame,
      mapping + BA at frames 0, 5 and 10, global_window_start = 10 (200 by
@@ -43,17 +47,21 @@ Phases, in order (any failure exits non-zero without the final line):
      100/100 iterations, colour top-16, warp loss, GT depth) the same way,
      with the JAX package's camera free-space guard on (see PATHS).
      Launch counters are reset just before and read just after each run.
-  6. report: per run, translation error against GT per frame, the loss
+  6. repeat: the demo configuration twice more in this process, 6 frames
+     each (mapping at frames 0 and 5), same seed and scan, through the
+     runner's loop; every per-frame pose, every mapping call's loss terms
+     and every final model and voxel tensor must be the same bit for bit.
+  7. report: per run, translation error against GT per frame, the loss
      terms of each mapping call's last iteration, launch counts, s/frame,
      ms per track and map iteration, the runner's phase times, peak memory;
      the final model checkpoint is read back and held against the model;
      vis/ must hold rendering_*.png and surface_*.ply. Then one JSON line
      with every kernel, the nvidia-smi line, and the result line.
 
-Float32 matmuls run without TF32 (set explicitly below). The runner makes
-its runs repeatable (slam/runner.py use_deterministic_cuda); cuBLAS's
-deterministic workspace is set below before the first cuBLAS call, as
-torch requires. Scratch data goes to build/smoke/ inside the checkout.
+Float32 matmuls run without TF32 (set explicitly below). Runs repeat bit
+for bit without any process-wide torch setting: every sum on the paths
+has a fixed order (phase 6 checks it). Scratch data goes to build/smoke/
+inside the checkout.
 """
 
 from __future__ import annotations
@@ -346,7 +354,12 @@ def check_hash_kernels(dev, chk: Checks):
             def bwd():
                 he.hash_encode_bwd_launch(spec, table, x, 1.0, jac, gf, gd, g_table, g_x)
 
+            # the fixed-point accumulator that the wrapper keeps: its first
+            # T·C words must be zero after every launch
+            acc = he.fixed_point_scratch(spec, dev)[:spec.total_entries * C]
+            zero_after = []
             bwd()
+            zero_after.append(not bool(acc.any()))
             xx, tt = x.clone().requires_grad_(True), table.clone().requires_grad_(True)
 
             def plain_bwd():
@@ -359,18 +372,24 @@ def check_hash_kernels(dev, chk: Checks):
             err = max(max_abs(g_x, pgx), max_abs(g_table, pgt))
             # the table gradient is summed in fixed point: run to run the same
             first = g_table.clone()
-            bwd()
-            bwd()
-            same = torch.equal(first, g_table)
+            same = True
+            for _ in range(2):
+                bwd()
+                zero_after.append(not bool(acc.any()))
+                same &= torch.equal(first, g_table)
             del first
             ms = cuda_time(bwd)
+            zero_after.append(not bool(acc.any()))
             chk.record(f"{kname}.bwd{tag}", src,
                        replaces if jac else "nicer_slam_tpu/ops/hash_encoder.py:613",
-                       err, ex <= GRAD_REL_L2 and et <= GRAD_REL_L2 and same, ms, pms,
+                       err, ex <= GRAD_REL_L2 and et <= GRAD_REL_L2 and same
+                       and all(zero_after), ms, pms,
                        *hash_cost(spec, N, rows, jac, True),
                        f"(rel L2: grad_x {ex:.2e}, grad_table {et:.2e}; {N} points, "
-                       f"{rows} rows; the same over 3 runs: {same})")
-            del xx, tt, pgx, pgt, g_table, g_x, gf, gd, feats, dfeat, x
+                       f"{rows} rows; the same over 3 launches: {same}; accumulator "
+                       f"zero after each of 3 launches and after the timed ones: "
+                       f"{zero_after})")
+            del xx, tt, pgx, pgt, g_table, g_x, gf, gd, feats, dfeat, x, acc
             torch.cuda.empty_cache()
         del table
         torch.cuda.empty_cache()
@@ -652,49 +671,73 @@ def check_bf16_kernels(dev, chk: Checks):
         torch.cuda.empty_cache()
 
 
-def check_voxel_kernels(dev, chk: Checks, R: int = 8192, S: int = 98):
-    """K7 at the flagship configuration's shapes."""
+# K7's points: a flagship mapping iteration's 8192 x 98 samples, as the
+# earlier kernel was timed (70 % on a thin shell around the surface they
+# crowd to, the rest anywhere, a few outside; in no order) and ray-ordered
+# as the path hands them over; a tracking iteration's 1024 x 98
+# ray-ordered samples; a density-cache build chunk (131,072 grid points in
+# the build's order)
+VOXEL_CASES = (("shell", 8192 * 98), ("ray", 8192 * 98), ("ray", 1024 * 98),
+               ("cache", 131072))
+
+
+def voxel_points(g, dev, kind: str, n: int):
+    import torch
+    if kind == "ray":
+        return ray_points(g, dev, n // 98, 98)
+    if kind == "cache":
+        return bf16_points(g, dev, "cache")
+    u = torch.randn((n, 3), generator=g, device=dev)
+    shell = u / u.norm(dim=-1, keepdim=True) * (
+        0.6 + 0.02 * torch.randn((n, 1), generator=g, device=dev))
+    anywhere = torch.rand((n, 3), generator=g, device=dev) * 2.1 - 1.05
+    pick = torch.rand((n, 1), generator=g, device=dev) < 0.7
+    return torch.where(pick, shell, anywhere).contiguous()
+
+
+def check_voxel_kernels(dev, chk: Checks):
+    """K7's scatter and β read at VOXEL_CASES: the counter bit for bit
+    (and the input counter left as it was), β within VAL_RTOL."""
     import torch
     from nicer_slam_tpu_torch.ops import density as dens_ops
 
     g = torch.Generator(device=dev)
     g.manual_seed(1)
-    N = R * S
     cu = "nicer_slam_tpu_torch/csrc/"
-
-    # ---- K7: 802,816 points per mapping iteration, most on a thin shell
-    # (the surface the samples crowd to), the rest anywhere, a few outside
-    u = torch.randn((N, 3), generator=g, device=dev)
-    shell = u / u.norm(dim=-1, keepdim=True) * (
-        0.6 + 0.02 * torch.randn((N, 1), generator=g, device=dev))
-    anywhere = torch.rand((N, 3), generator=g, device=dev) * 2.1 - 1.05
-    pick = torch.rand((N, 1), generator=g, device=dev) < 0.7
-    x = torch.where(pick, shell, anywhere).contiguous()
-    vox0 = torch.randint(0, 200, (64, 64, 64), generator=g, device=dev).to(torch.float32)
-    kv = dens_ops.update_voxels(vox0, x)
-    pv = dens_ops.update_voxels_plain(vox0, x)
-    exact = bool(torch.equal(kv, pv))
-    ms = cuda_time(lambda: dens_ops.update_voxels(vox0, x))
-    pms = cuda_time(lambda: dens_ops.update_voxels_plain(vox0, x))
-    # the library call: one accumulating index_put_ of ones at the points'
-    # voxels (indices computed outside the timed call)
-    vidx, boundary = dens_ops._voxel_index(x, 64)
-    flat = ((vidx[:, 0] * 64 + vidx[:, 1]) * 64 + vidx[:, 2])[~boundary]
-    ones, counter = torch.ones_like(flat, dtype=torch.float32), vox0.clone().view(-1)
-    lib_ms = cuda_time(lambda: counter.index_put_((flat,), ones, accumulate=True))
-    # x read, the counter copied and scattered into (read and written once)
-    chk.record("voxels.scatter", cu + "voxels.cu", "nicer_slam_tpu/ops/density.py:61",
-               max_abs(kv, pv), exact, ms, pms, nbytes(x, vox0, kv), N * 12,
-               f"(counter bit for bit: {exact}; {N} points, largest count {float(pv.max()):g})",
-               library_ms=lib_ms)
-    del vidx, boundary, flat, ones, counter
-    kb = dens_ops.grid_predefined_beta(kv, x)
-    pb = dens_ops.grid_predefined_beta_plain(kv, x)
-    ms = cuda_time(lambda: dens_ops.grid_predefined_beta(kv, x))
-    pms = cuda_time(lambda: dens_ops.grid_predefined_beta_plain(kv, x))
-    chk.values("voxels.beta", cu + "voxels.cu", "nicer_slam_tpu/ops/density.py:46",
-               [kb], [pb], ms, pms, ("beta",), nbytes(x, kv, kb), N * 20)
-    del u, shell, anywhere, pick, kv, pv, kb, pb
+    for kind, n in VOXEL_CASES:
+        x = voxel_points(g, dev, kind, n)
+        N = x.shape[0]
+        tag = f"[{kind} {N}]"
+        vox0 = torch.randint(0, 200, (64, 64, 64), generator=g, device=dev).to(torch.float32)
+        before = vox0.clone()
+        kv = dens_ops.update_voxels(vox0, x)
+        pv = dens_ops.update_voxels_plain(vox0, x)
+        exact, kept = bool(torch.equal(kv, pv)), bool(torch.equal(vox0, before))
+        ms = cuda_time(lambda: dens_ops.update_voxels(vox0, x))
+        pms = cuda_time(lambda: dens_ops.update_voxels_plain(vox0, x))
+        # the library call: one accumulating index_put_ of ones at the points'
+        # voxels (indices computed outside the timed call)
+        vidx, boundary = dens_ops._voxel_index(x, 64)
+        flat = ((vidx[:, 0] * 64 + vidx[:, 1]) * 64 + vidx[:, 2])[~boundary]
+        ones, counter = torch.ones_like(flat, dtype=torch.float32), vox0.clone().view(-1)
+        lib_ms = cuda_time(lambda: counter.index_put_((flat,), ones, accumulate=True))
+        touched = int(torch.unique(flat).numel())
+        # x read, the counter copied and scattered into (read and written once)
+        chk.record(f"voxels.scatter{tag}", cu + "voxels.cu",
+                   "nicer_slam_tpu/ops/density.py:61", max_abs(kv, pv), exact and kept, ms,
+                   pms, nbytes(x, vox0, kv), N * 12,
+                   f"(counter bit for bit: {exact}; input unchanged: {kept}; {N} points, "
+                   f"{flat.numel()} inside, {touched} voxels, largest count "
+                   f"{float(pv.max()):g})", library_ms=lib_ms)
+        kb = dens_ops.grid_predefined_beta(kv, x)
+        pb = dens_ops.grid_predefined_beta_plain(kv, x)
+        ms = cuda_time(lambda: dens_ops.grid_predefined_beta(kv, x))
+        pms = cuda_time(lambda: dens_ops.grid_predefined_beta_plain(kv, x))
+        # x read, the counter by the voxels these points read, beta written
+        chk.values(f"voxels.beta{tag}", cu + "voxels.cu", "nicer_slam_tpu/ops/density.py:46",
+                   [kb], [pb], ms, pms, (f"beta, {touched} voxels read",),
+                   nbytes(x, kb) + 4 * touched, N * 20)
+        del x, vox0, before, kv, pv, vidx, boundary, flat, ones, counter, kb, pb
 
 
 # rays of the colour top-k launches on the flagship path: tracking (1000
@@ -844,11 +887,11 @@ def wait_scene(procs, kind: str) -> str:
     return scene_dir(kind)
 
 
-def write_conf(kind: str, data_dir: str) -> str:
+def write_conf(kind: str, data_dir: str, n_frames: int = N_FRAMES) -> str:
     p = PATHS[kind]
     text = open(p["conf"]).read()
     edits = [(f"data_dir = {p['data_dir']}", f'data_dir = "{data_dir}"'),
-             (f"n_images = {p['n_images']}", f"n_images = {N_FRAMES}"),
+             (f"n_images = {p['n_images']}", f"n_images = {n_frames}"),
              ("mapping_every_frame = 5\n", "mapping_every_frame = 5\n"
               f"        global_window_start = {GLOBAL_WINDOW_START}\n"),
              ("resolution = 512", f"resolution = {MESH_RESOLUTION}")] + p["edits"]
@@ -858,7 +901,7 @@ def write_conf(kind: str, data_dir: str) -> str:
         text = text.replace(old, new)
     if f"img_res = [\n        {p['H']}\n        {p['W']}\n    ]" not in text:
         raise RuntimeError(f"{kind} conf: unexpected img_res")
-    path = os.path.join(SMOKE_DIR, f"{kind}_smoke.conf")
+    path = os.path.join(SMOKE_DIR, f"{kind}_{n_frames}_smoke.conf")
     with open(path, "w") as f:
         f.write(text)
     return path
@@ -932,6 +975,70 @@ def run_slam(dev, kind: str, data_dir: str):
                 counts=counts, stats=stats, vis=vis)
 
 
+# the repeat phase: the demo path's first frames (mapping at 0 and 5), twice
+REPEAT_FRAMES = 6
+
+
+def repeat_once(dev, data_dir: str, tag: str) -> dict:
+    """The demo configuration for REPEAT_FRAMES frames through the
+    runner's own loop (no checkpoint writes, no vis hook): the per-frame
+    poses, the last loss terms of each mapping call, and the final model
+    and voxel tensors (on the card)."""
+    import numpy as np
+    from nicer_slam_tpu_torch.slam import runner as runner_mod
+
+    r = runner_mod.SLAMRunner(conf=write_conf("demo", data_dir, REPEAT_FRAMES),
+                              root_dir=SMOKE_DIR, exps_folder_name=f"exps_repeat_{tag}",
+                              quiet=True, device=str(dev))
+    terms = {}
+    for f in range(r.n_images):
+        r._stage_frame(f)
+        r.track(f)
+        if f % r.mapping_every_frame == 0:
+            terms[f] = {k: v.detach().clone() for k, v in r.map(f).items()}
+    state = {k: v.detach().clone() for k, v in r.model.state_dict().items()}
+    state["voxels"] = r.voxels.detach().clone()
+    return dict(poses={f: np.array(r.est_pose_all[f]) for f in range(r.n_images)},
+                terms=terms, state=state)
+
+
+def same_bits(a, b) -> bool:
+    """Two tensors or arrays equal bit for bit (NaNs included)."""
+    import numpy as np
+    import torch
+    if isinstance(a, torch.Tensor):
+        a, b = a.detach().cpu().numpy(), b.detach().cpu().numpy()
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def check_repeat(dev, data_dir: str, failures) -> None:
+    """Runs repeat_once twice in this process; every pose, loss term,
+    model tensor and the voxel counter must come out the same bit for
+    bit."""
+    import torch
+    runs = []
+    for i in range(2):
+        t = time.perf_counter()
+        runs.append(repeat_once(dev, data_dir, str(i)))
+        log(f"  run {i}: {time.perf_counter() - t:.1f} s")
+        torch.cuda.empty_cache()
+    a, b = runs
+    diff = [f"pose {f}" for f in a["poses"] if not same_bits(a["poses"][f], b["poses"][f])]
+    diff += [f"frame-{f} {k}" for f in a["terms"] for k in a["terms"][f]
+             if not same_bits(a["terms"][f][k], b["terms"][f][k])]
+    diff += [k for k in a["state"] if not same_bits(a["state"][k], b["state"][k])]
+    n = len(a["poses"]) + sum(map(len, a["terms"].values())) + len(a["state"])
+    for f, terms in a["terms"].items():
+        log(f"  frame-{f} mapping call, run 0: "
+            + " ".join(f"{k}={float(v):.9g}" for k, v in terms.items()))
+    log(f"  {n - len(diff)} of {n} compared values the same bit for bit "
+        f"({len(a['poses'])} poses, {sum(map(len, a['terms'].values()))} loss terms, "
+        f"{len(a['state'])} model and voxel tensors)" + (f"; differ: {diff}" if diff else ""))
+    if diff:
+        failures.append(f"repeat: two runs of the demo path differ at {diff}")
+
+
 def report(kind: str, r, failures) -> None:
     import torch
     from nicer_slam_tpu_torch.utils.ply import read_ply
@@ -977,23 +1084,21 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a card",
               file=sys.stderr)
         return 2
-    # before the first cuBLAS call: the runs of phases 4-5 are deterministic
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from nicer_slam_tpu_torch.ops import _cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = card_line()
-    log(f"[1/6] card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    log(f"[1/7] card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     procs = start_scenes()
     try:
         t = time.perf_counter()
         path = _cuda.build()
         _cuda.library()
-        log(f"[2/6] build: {os.path.relpath(path, ROOT)} in {time.perf_counter() - t:.1f} s")
+        log(f"[2/7] build: {os.path.relpath(path, ROOT)} in {time.perf_counter() - t:.1f} s")
 
-        log(f"[3/6] kernels vs plain versions (tolerance: values {VAL_RTOL:g}·max|ref| "
+        log(f"[3/7] kernels vs plain versions (tolerance: values {VAL_RTOL:g}·max|ref| "
             f"per output, atomic gradients rel L2 {GRAD_REL_L2:g}, sampler {Z_ATOL:g} "
             f"on every ray, the voxel counter bit for bit); each kernel's launch "
             f"alone, mean of 10 after 2; the plain versions of K1/K2 once; bounds at "
@@ -1019,19 +1124,23 @@ def main() -> int:
             t = time.perf_counter()
             data_dir = wait_scene(procs, kind)
             p = PATHS[kind]
-            log(f"[{step}/6] SLAM main path: {kind} configuration, {N_FRAMES} frames, "
+            log(f"[{step}/7] SLAM main path: {kind} configuration, {N_FRAMES} frames, "
                 f"{p['H']}x{p['W']}, global_window_start {GLOBAL_WINDOW_START} "
                 f"(waited {time.perf_counter() - t:.1f} s for the scan)")
             runs[kind] = run_slam(dev, kind, data_dir)
             torch.cuda.empty_cache()
+        log(f"[6/7] repeat: the demo configuration twice in this process, "
+            f"{REPEAT_FRAMES} frames each (mapping at frames 0 and 5), same seed and scan")
+        repeat_failures = []
+        check_repeat(dev, wait_scene(procs, "demo"), repeat_failures)
     finally:
         for proc in procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
 
-    log("[6/6] report (card: " + card + ")")
-    failures = list(chk.failures)
+    log("[7/7] report (card: " + card + ")")
+    failures = list(chk.failures) + repeat_failures
     for kind, r in runs.items():
         log(f" {kind}:")
         report(kind, r, failures)

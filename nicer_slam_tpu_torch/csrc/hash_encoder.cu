@@ -49,8 +49,11 @@
 // other maps and poses (PERF.md §7) where the JAX package's scatter is
 // deterministic. Integer adds give the same sum in any order, so the
 // backward adds each contribution as a 64-bit integer, v 2^k_l rounded to
-// nearest, into a scratch [T, C] int64 accumulator, and a last pass writes
-// g_table = acc 2^-k_l. k_l is per level, from a bound on the size of any
+// nearest, into a [T, C] int64 accumulator that is zero on entry, and a
+// last pass over the table writes g_table = acc 2^-k_l and sets the
+// accumulator back to 0, so the caller keeps it from call to call and no
+// pass zeroes it up front (for the colour grid, 2.1 GB a launch). k_l is
+// per level, from a bound on the size of any
 // contribution there: |v| <= max|g_feat| + 1.5 dscale_l max_n sum_d
 // |g_dfeat[n, ., d]| (|w| <= 1, |dw/dx_d| <= 1.5 dscale_l), the maxima
 // taken by a first pass over the cotangents; with at most 8 N
@@ -299,20 +302,28 @@ __global__ void level_max_kernel(const float* __restrict__ g_feat,
   }
 }
 
-// g_table[row, c] = acc[row, c] 2^-k_l over the rows of level l = blockIdx.y
-__global__ void fixed_to_float_kernel(const long long* __restrict__ acc,
-                                      float* __restrict__ g_table,
-                                      const int* __restrict__ meta,
-                                      const float* __restrict__ scl,
-                                      const unsigned* __restrict__ maxes, int L, int C,
-                                      int count_bits) {
+// The last pass of a backward with a table gradient: g_table = acc 2^-k_l
+// for every row of level l = blockIdx.y (NaN for a non-finite level), and
+// acc set back to 0 where it was not, so the accumulator is zero for the
+// next call. A pass over the points that converted and re-zeroed only the
+// touched rows was slower at every shape the paths give (PERF.md §6): the
+// colour grid's touched rows lie at random, a 32-byte sector each, and
+// the SDF grids' tables are small.
+__global__ void fixed_sweep_kernel(long long* __restrict__ acc, float* __restrict__ g_table,
+                                   const int* __restrict__ meta,
+                                   const float* __restrict__ scl,
+                                   const unsigned* __restrict__ maxes, int L, int C,
+                                   int count_bits) {
   const int l = blockIdx.y;
   const int64_t off = (int64_t)meta[4 * l] * C, n = (int64_t)meta[4 * l + 1] * C;
   const int k = fixed_exp(maxes, l, L, scl[2 * l + 1], count_bits);
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x)
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const long long v = acc[off + i];
     g_table[off + i] = k == kNotFinite ? __int_as_float(0x7fc00000)
-                                       : ldexpf(__ll2float_rn(acc[off + i]), -k);
+                                       : ldexpf(__ll2float_rn(v), -k);
+    if (v != 0) acc[off + i] = 0;
+  }
 }
 
 // ---- one [T, C] bf16 row (K3): one 4-, 8- or 16-byte load, widened ----
@@ -657,9 +668,9 @@ int launch_bf16_fwd(const float* x, const uint16_t* table, const int* meta,
                                              size, s);
 }
 
-// with a table gradient: zero the accumulator and the maxima, take the
-// maxima, scatter in fixed point, convert; acc is [T C + L] int64 (the
-// last L words hold the 2 L maxima)
+// with a table gradient: zero the maxima, take them, scatter in fixed
+// point, convert and re-zero; acc is [T C + L] int64 (the last L words
+// hold the 2 L maxima), its first T C words zero on entry and on exit
 template <int C>
 int launch_bwd(const float* x, const float* table, const int* meta,
                const float* scl, const float* g_feat, const float* g_dfeat,
@@ -671,7 +682,7 @@ int launch_bwd(const float* x, const float* table, const int* meta,
   if (g_table != nullptr) {
     maxes = reinterpret_cast<unsigned*>(acc + T * C);
     while ((int64_t(1) << count_bits) < 8 * N) ++count_bits;
-    cudaError_t e = cudaMemsetAsync(acc, 0, (size_t)(T * C + L) * sizeof(long long), s);
+    cudaError_t e = cudaMemsetAsync(maxes, 0, (size_t)L * sizeof(long long), s);
     if (e != cudaSuccess) return (int)e;
     const int rows = LC >= 256 ? 1 : 256 / LC;
     const int64_t want = (N + rows - 1) / rows;
@@ -691,8 +702,8 @@ int launch_bwd(const float* x, const float* table, const int* meta,
                       g_feat, g_dfeat, acc, (const unsigned*)maxes, g_x, N, L, size,
                       count_bits);
   if (rc != 0 || g_table == nullptr) return rc;
-  fixed_to_float_kernel<<<dim3(264, L), 256, 0, s>>>(acc, g_table, meta, scl, maxes, L, C,
-                                                     count_bits);
+  fixed_sweep_kernel<<<dim3(264, L), 256, 0, s>>>(acc, g_table, meta, scl, maxes, L, C,
+                                                   count_bits);
   return (int)cudaGetLastError();
 }
 
@@ -722,7 +733,8 @@ int nsl_hash_encode_fwd(const void* x, const void* table, const void* meta,
 
 // g_dfeat == NULL selects K2. g_table [T, C] (written) and g_x ([N, 3],
 // written) may each be NULL (not needed); with g_table, scratch is
-// [T C + L] int64 (its contents on entry do not matter).
+// [T C + L] int64 whose first T C words are zero on entry, and are zero
+// again on a successful return (the caller keeps it for the next call).
 int nsl_hash_encode_bwd(const void* x, const void* table, const void* meta,
                         const void* scl, const void* g_feat,
                         const void* g_dfeat, void* g_table, void* g_x, void* scratch,

@@ -8,14 +8,34 @@
 //           beta = A exp(-B 1e-4 count D) + C.
 // The counter is float32 [res^3], flat index (i_0 res + i_1) res + i_2.
 //
-// What bounds it on the card: one 4-byte atomic add (scatter) or gather
-// (read) per point into a 1 MB counter that stays in L2; 800k points per
-// mapping iteration. It is bound by atomic throughput on the few hot
-// voxels near the surface, not by memory bandwidth. The design is one
-// thread per point with a plain atomicAdd: float adds of 1.0 are exact
-// below 2^24, so the counter equals the plain version's bit for bit,
-// whatever order the atomics land in (the plain index_put with accumulate
-// is a sort by index and a segmented sum on the card).
+// What bounds it on the card: per point, 12 bytes of x in, and one 4-byte
+// atomic add (scatter) or gather and 4-byte store (read) on a 1 MB
+// counter that stays in L2; 800k points per flagship mapping iteration,
+// 100k per tracking iteration, 131k per density-cache chunk. Each launch
+// is a few microseconds above the ~5 us launch floor. The design, one
+// thread per point:
+//   * scatter: the path's points are ray-ordered samples, sorted along
+//     each ray, so neighbouring lanes often fall in the same voxel, and
+//     the voxels near the surface are hot. Where any lane shares its left
+//     neighbour's voxel, the lanes of the warp on one voxel are found with
+//     __match_any_sync and one of them adds the group's size as one float
+//     atomic; a warp with no such pair (unordered points) skips the match.
+//     Adds of small integers are exact while the count stays below 2^24,
+//     so the counter equals the plain version's bit for bit, whatever
+//     order the atomics land in (the plain index_put with accumulate is a
+//     sort by index and a segmented sum on the card).
+//   * the index: (x + 1) * 0.5 in place of (x + 1) / 2, the same bits (a
+//     halving is exact either way) without a division.
+//   * x, an array of float3, is read with three 4-byte loads per thread:
+//     a warp's loads cover one 384-byte run, which L1 serves after the
+//     first. Staging it in shared memory through 16-byte loads (a block's
+//     run as one coalesced copy, one or more points per thread), and
+//     reading the counter through L2 only, were each slower at every shape
+//     in a variant timing on the card, so neither is kept.
+// The scatter writes into a copy of the counter that the wrapper makes
+// (the function does not mutate its input): folding that copy into the
+// kernel would need a grid-wide barrier between a block's copy and any
+// other block's first add.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -25,17 +45,18 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// flat counter index of a point, or -1 for a boundary point (any |x| > 0.99)
-__device__ __forceinline__ int64_t voxel_index(const float* __restrict__ x,
-                                               int64_t n, int res) {
-  int64_t flat = 0;
+// flat counter index of point n, or -1 for a boundary point (any
+// |x| > 0.99)
+__device__ __forceinline__ int voxel_index(const float* __restrict__ x, int64_t n,
+                                           int res) {
+  int flat = 0;
   bool boundary = false;
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    float v = x[n * 3 + d];
+    float v = __ldg(x + n * 3 + d);
     boundary |= fabsf(v) > 0.99f;
-    // the plain version's order: ((x + 1) / 2) * res, then truncation
-    float u = __fdiv_rn(__fadd_rn(v, 1.0f), 2.0f);
+    // the plain version's ((x + 1) / 2) * res, then truncation
+    float u = __fmul_rn(__fadd_rn(v, 1.0f), 0.5f);
     int i = (int)__fmul_rn(u, (float)res);
     i = min(max(i, 0), res - 1);
     flat = flat * res + i;
@@ -46,23 +67,31 @@ __device__ __forceinline__ int64_t voxel_index(const float* __restrict__ x,
 __global__ void voxel_scatter_kernel(const float* __restrict__ x,
                                      float* __restrict__ counter, int64_t N,
                                      int res) {
-  int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  int64_t i = voxel_index(x, n, res);
-  if (i >= 0) atomicAdd(counter + i, 1.0f);
+  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int i = n < N ? voxel_index(x, n, res) : -1;
+  const int left = __shfl_up_sync(0xffffffffu, i, 1);
+  const bool pair = i >= 0 && lane > 0 && left == i;
+  if (__any_sync(0xffffffffu, pair)) {
+    // the lanes on this voxel; the lowest adds for all of them
+    const unsigned peers = __match_any_sync(0xffffffffu, i);
+    if (i >= 0 && lane == __ffs(peers) - 1) atomicAdd(counter + i, (float)__popc(peers));
+  } else if (i >= 0) {
+    atomicAdd(counter + i, 1.0f);
+  }
 }
 
 __global__ void voxel_beta_kernel(const float* __restrict__ x,
                                   const float* __restrict__ counter,
                                   float* __restrict__ beta, int64_t N, int res,
                                   float neg_b_1e4, float d, float a, float c) {
-  int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
-  int64_t i = voxel_index(x, n, res);
-  float count = i >= 0 ? __ldg(counter + i) : 0.0f;
+  const int i = voxel_index(x, n, res);
+  const float count = i >= 0 ? __ldg(counter + i) : 0.0f;
   // (-B 1e-4) count D, exp, A e + C: each rounded as the plain version
   // rounds it (no fused multiply-add)
-  float e = expf(__fmul_rn(__fmul_rn(neg_b_1e4, count), d));
+  const float e = expf(__fmul_rn(__fmul_rn(neg_b_1e4, count), d));
   beta[n] = __fadd_rn(__fmul_rn(a, e), c);
 }
 
@@ -75,7 +104,7 @@ inline unsigned blocks_for(int64_t n) {
 extern "C" {
 
 // counter += one visit per non-boundary point (in place: the wrapper hands
-// in a fresh copy)
+// in a fresh copy); res^3 < 2^31 (the wrapper checks)
 int nsl_voxel_scatter(const void* x, void* counter, int64_t N, int res,
                       void* stream) {
   if (N == 0) return 0;

@@ -134,9 +134,10 @@ def camera_trajectory(n_frames: int,
         pos = np.array([0.35 * np.sin(a), 0.12 * np.sin(2 * a) + 0.05,
                         0.35 * np.cos(a) - 0.1])
         pos = _clear_camera_position(pos)
-        assert scene_sdf(pos) >= 0.9 * CAM_CLEARANCE, (
-            f"camera frame {i} could not be cleared from geometry "
-            f"(sdf={float(scene_sdf(pos)):.4f})")
+        # a check that holds under python -O too (an assert would not)
+        if not scene_sdf(pos) >= 0.9 * CAM_CLEARANCE:
+            raise RuntimeError(f"camera frame {i} could not be cleared from geometry "
+                               f"(sdf={float(scene_sdf(pos)):.4f})")
         target = np.array([0.45 * np.sin(a + 1.1), 0.0,
                            0.45 * np.cos(a + 1.1)])
         fwd = target - pos

@@ -68,7 +68,14 @@ def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def _segment_sum(v: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    return torch.zeros(n, dtype=v.dtype, device=v.device).index_add(0, seg, v)
+    """Sum of ``v`` [R] per segment id ``seg`` [R] in [0, n): a one-hot
+    select and a sum over the rows, whose order is fixed, where index_add's
+    float atomics on the card would land in any order and change the last
+    bits from run to run. n is the window's slot count (at most ~15), so
+    the [R, n] select is small; a value outside its segment never enters
+    another's sum (select, not multiply)."""
+    onehot = seg[:, None] == torch.arange(n, device=seg.device)
+    return torch.where(onehot, v[:, None], 0.0).sum(0)
 
 
 def ssi_depth_loss(pred, target, mask, seg_ids, num_segments, alpha: float = 0.5):

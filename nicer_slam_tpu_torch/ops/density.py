@@ -7,11 +7,13 @@ kernel K7.
     count 0.
 
 K7 is the counter's scatter (``update_voxels``) and its β read
-(``grid_predefined_beta``): one thread per point, an atomic add of 1.0 or
-a gather (csrc/voxels.cu). Adds of 1.0 are exact below 2^24, so the
-kernel's counter equals the plain version's bit for bit. ``update_voxels``
-returns a new tensor, as the reference's functional update does; the 64³
-copy is 1 MB. Neither takes a gradient: the counter is a visit count.
+(``grid_predefined_beta``) (csrc/voxels.cu), one thread per point: where
+ray-ordered points put neighbouring lanes of a warp in one voxel, the
+scatter merges those lanes into one float atomic of the group's size; the
+read is a gather. Adds of small integers are exact below 2^24, so the
+kernel's counter equals the plain version's bit for bit. ``update_voxels`` returns
+a new tensor, as the reference's functional update does; the 64³ copy is
+1 MB. Neither takes a gradient: the counter is a visit count.
 """
 
 from __future__ import annotations
@@ -78,6 +80,8 @@ def update_voxels_plain(voxels: torch.Tensor, x: torch.Tensor,
 def _operands(voxels: torch.Tensor, x: torch.Tensor, voxel_res: int, name: str):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
+    if voxel_res ** 3 >= 2 ** 31:
+        raise ValueError(f"{name}: voxel_res {voxel_res} exceeds the kernel's 32-bit index")
     x = x.detach().contiguous()
     _cuda.check(x, "x", torch.float32, (x.shape[0], 3))
     _cuda.check(voxels, "voxels", torch.float32, (voxel_res,) * 3, device=x.device)

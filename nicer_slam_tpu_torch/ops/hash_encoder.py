@@ -24,8 +24,10 @@ which it launches for a CUDA tensor. The TPU package's row gathers, cell-block t
 scatters, uint32 channel-pair packing and ICI modes are TPU workarounds and have no
 counterpart here: on the card the backward is an atomic scatter in 64-bit
 fixed point (integer adds land in any order with the same sum, so the
-table gradient is the same from run to run, as XLA's scatter is), and a
-corner is one vector load of a ``[T, C]`` row.
+table gradient is the same from run to run, as XLA's scatter is), into an
+accumulator kept per (device, size) that each call leaves zero
+(``fixed_point_scratch``), and a corner is one vector load of a
+``[T, C]`` row.
 
 On the card K1/K2 are bound by bytes: the Jacobian and cotangent tiles
 they stream and the random corner rows they gather and scatter. A block
@@ -48,7 +50,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -223,6 +225,26 @@ def hash_encode_fwd_launch(spec: HashGridSpec, table: torch.Tensor, x: torch.Ten
                  N, L, C, float(size))
 
 
+# (device, words) -> the backward's fixed-point accumulator, zero between calls
+_SCRATCH: Dict[Tuple[str, int], torch.Tensor] = {}
+
+
+def fixed_point_scratch(spec: HashGridSpec, device) -> torch.Tensor:
+    """The K1/K2 backward's fixed-point accumulator of a grid's size:
+    ``[T·C + L]`` int64, kept per (device, size) and zeroed once, when it
+    is allocated. Each backward launch with a table gradient leaves its
+    first T·C words zero (its last pass converts each row's sum and sets
+    the row back to 0); the last L words hold that launch's cotangent
+    maxima and are zeroed at the start of the next. The launches that
+    share it run one after another, on one stream, as the paths run."""
+    key = (str(torch.device(device)),
+           spec.total_entries * spec.level_dim + spec.num_levels)
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        buf = _SCRATCH[key] = torch.zeros(key[1], dtype=torch.int64, device=device)
+    return buf
+
+
 def hash_encode_bwd_launch(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor,
                            size: float, jacobian: bool, g_feat: torch.Tensor,
                            g_dfeat: torch.Tensor | None, g_table: torch.Tensor | None,
@@ -239,15 +261,20 @@ def hash_encode_bwd_launch(spec: HashGridSpec, table: torch.Tensor, x: torch.Ten
     scratch = None
     if g_table is not None:
         _cuda.check(g_table, "g_table", torch.float32, tuple(table.shape), device=x.device)
-        # the fixed-point accumulator and the per-level maxima
-        scratch = torch.empty(T * C + L, dtype=torch.int64, device=x.device)
+        scratch = fixed_point_scratch(spec, x.device)
     if g_x is not None:
         _cuda.check(g_x, "g_x", torch.float32, (N, 3), device=x.device)
-    _cuda.launch("hash_encode_with_grad.bwd" if jacobian else "hash_encode.bwd",
-                 "nsl_hash_encode_bwd", N, x.data_ptr(), table.data_ptr(),
-                 meta.data_ptr(), scl.data_ptr(), g_feat.data_ptr(), _cuda.ptr(g_dfeat),
-                 _cuda.ptr(g_table), _cuda.ptr(g_x), _cuda.ptr(scratch), N, L, C,
-                 float(size), T)
+    try:
+        _cuda.launch("hash_encode_with_grad.bwd" if jacobian else "hash_encode.bwd",
+                     "nsl_hash_encode_bwd", N, x.data_ptr(), table.data_ptr(),
+                     meta.data_ptr(), scl.data_ptr(), g_feat.data_ptr(),
+                     _cuda.ptr(g_dfeat), _cuda.ptr(g_table), _cuda.ptr(g_x),
+                     _cuda.ptr(scratch), N, L, C, float(size), T)
+    except RuntimeError:
+        # a launch that failed may have left sums behind: the next call
+        # starts from fresh zero accumulators
+        _SCRATCH.clear()
+        raise
 
 
 class _HashEncodeCUDA(torch.autograd.Function):

@@ -56,19 +56,6 @@ def get_class(path: str):
     return getattr(mod, parts[-1])
 
 
-def use_deterministic_cuda() -> None:
-    """Make a run on the card repeatable, as the JAX package's XLA run is:
-    torch's deterministic algorithms (its index_add and the backward of its
-    gathers sum in a fixed order; an op with no such algorithm raises),
-    without filling fresh memory. The K1/K2 kernels sum the table gradient
-    in fixed point for the same reason, and the other kernels add nothing
-    in a varying order. cuBLAS is held to its deterministic workspace,
-    which torch requires of it before the process's first cuBLAS call."""
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    torch.use_deterministic_algorithms(True)
-    torch.utils.deterministic.fill_uninitialized_memory = False
-
-
 class SLAMRunner:
     def __init__(self, conf: str, expname: str = "", exps_folder_name: str = "exps",
                  is_continue: bool = False, timestamp: str = "latest",
@@ -76,8 +63,6 @@ class SLAMRunner:
                  scan_id: int = -1, root_dir: str = ".", seed: int = 0,
                  quiet: bool = False, device="cuda"):
         self.device = torch.device(device)
-        if self.device.type == "cuda":
-            use_deterministic_cuda()
         self.conf_path = conf
         self.conf = config_mod.parse_file(conf)
         c = self.conf

@@ -85,6 +85,86 @@ def test_voxel_counter_matches_jax_bit_for_bit():
     assert np.all(b_t[500:520] == b_t[500])                   # boundary: count 0
 
 
+def _scatter_as_the_kernel(vox: np.ndarray, x: np.ndarray, res: int,
+                           rng: np.random.Generator) -> np.ndarray:
+    """numpy emulation of the K7 scatter kernel's arithmetic: a warp holds
+    32 consecutive points (one per thread); where two neighbouring lanes
+    share a voxel, the lanes on one voxel add their count as one float32
+    add, otherwise each lane adds 1; the adds land in a random order."""
+    idx = np.clip(((x + np.float32(1.0)) / np.float32(2.0) * np.float32(res))
+                  .astype(np.int64), 0, res - 1)
+    flat = (idx[:, 0] * res + idx[:, 1]) * res + idx[:, 2]
+    flat[(np.abs(x) > np.float32(0.99)).any(1)] = -1
+    adds = []
+    for w in range(0, len(flat), 32):
+        warp = flat[w:w + 32]
+        if ((warp[1:] == warp[:-1]) & (warp[1:] >= 0)).any():
+            ids, counts = np.unique(warp, return_counts=True)
+            adds += [(i, c) for i, c in zip(ids, counts) if i >= 0]
+        else:
+            adds += [(i, 1) for i in warp if i >= 0]
+    out = vox.reshape(-1).copy()
+    for k in rng.permutation(len(adds)):
+        i, c = adds[k]
+        out[i] = np.float32(out[i] + np.float32(c))
+    return out.reshape(vox.shape)
+
+
+def _voxel_case(name: str, rng: np.random.Generator) -> np.ndarray:
+    """Points of one K7 case: 'edges' puts coordinates at exactly ±0.99
+    (counted) and ±1.0 (boundary: not counted, β of count 0); 'run' holds
+    a run of 40 consecutive points in one voxel (more than a warp) and
+    runs of 33 and 31 across warp edges; 'rays' is ray-ordered samples."""
+    if name == "edges":
+        x = rng.uniform(-0.9, 0.9, (300, 3)).astype(np.float32)
+        for d in range(3):
+            for k, v in enumerate((0.99, -0.99, 1.0, -1.0)):
+                x[d * 40 + 10 * k:d * 40 + 10 * k + 10, d] = v
+        return x
+    if name == "run":
+        x = rng.uniform(-1.0, 1.0, (200, 3)).astype(np.float32)
+        x[5:45] = np.float32([0.31, -0.2, 0.05]) + rng.uniform(0, 0.01, (40, 3))
+        x[60:93] = np.float32([-0.5, 0.5, 0.7]) + rng.uniform(0, 0.01, (33, 3))
+        x[130:161] = np.float32([0.8, 0.8, -0.8]) + rng.uniform(0, 0.01, (31, 3))
+        return x.astype(np.float32)
+    o = rng.uniform(-0.3, 0.3, (24, 1, 3))
+    d = rng.normal(size=(24, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    z = np.sort(rng.uniform(0.0, 1.6, (24, 50, 1)), axis=1)
+    return (o + z * d).reshape(-1, 3).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["edges", "run", "rays"])
+def test_voxel_counter_cases_match_jax(name):
+    """The plain scatter and an emulation of the kernel's warp-merged adds
+    give JAX's counter bit for bit on points at ±0.99 and ±1.0, runs of
+    more than 32 points in one voxel and ray-ordered samples; the input
+    counter is left unchanged; the β read rtol 1e-6 (exp in float32), and
+    boundary points read count 0."""
+    rng = np.random.default_rng(["edges", "run", "rays"].index(name))
+    res = 16
+    x = _voxel_case(name, rng)
+    vox = rng.integers(0, 9, (res,) * 3).astype(np.float32)
+    vox_t = T(vox.copy())
+    v_t = tdens.update_voxels(vox_t, T(x), res)
+    v_j = np.asarray(jdens.update_voxels(jnp.asarray(vox), jnp.asarray(x), res))
+    np.testing.assert_array_equal(v_t.numpy(), v_j)
+    np.testing.assert_array_equal(_scatter_as_the_kernel(vox, x, res, rng), v_j)
+    np.testing.assert_array_equal(vox_t.numpy(), vox)
+    assert (v_j - vox).sum() == (np.abs(x) <= np.float32(0.99)).all(1).sum()
+    b_t = tdens.grid_predefined_beta(v_t, T(x), res).numpy()
+    b_j = np.asarray(jdens.grid_predefined_beta(jnp.asarray(v_j), jnp.asarray(x), res))
+    np.testing.assert_allclose(b_t, b_j, rtol=1e-6)
+    outside = (np.abs(x) > np.float32(0.99)).any(1)
+    if name == "edges":
+        assert outside.sum() == 60 and (~outside).sum() == 240
+        assert (v_j - vox).max() > 0
+    if name == "run":
+        assert (v_j - vox).max() >= 40
+    zero = tdens.grid_predefined_beta(T(np.zeros_like(vox)), T(x[:1]), res).numpy()
+    np.testing.assert_array_equal(b_t[outside], np.broadcast_to(zero, b_t[outside].shape))
+
+
 # ---------------------------------------------------------------------------
 # K3
 # ---------------------------------------------------------------------------

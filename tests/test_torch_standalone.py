@@ -150,6 +150,19 @@ def _read_any(path):
         return np.load(f)
 
 
+def test_generator_raises_on_a_camera_inside_the_clearance(monkeypatch):
+    """The port's generator refuses a camera pose closer to the geometry
+    than the clearance with an explicit raise, which ``python -O`` keeps:
+    with the clearing step switched off, the raw orbit's frame at 0.6 rad
+    lies inside sphere 1 (sdf < 0)."""
+    assert tsyn.scene_sdf(np.array([0.35 * np.sin(0.6), 0.12 * np.sin(1.2) + 0.05,
+                                    0.35 * np.cos(0.6) - 0.1])) < 0
+    assert len(tsyn.camera_trajectory(2, rad_per_frame=0.6)) == 2
+    monkeypatch.setattr(tsyn, "_clear_camera_position", lambda pos: pos)
+    with pytest.raises(RuntimeError, match="camera frame 1 could not be cleared"):
+        tsyn.camera_trajectory(2, rad_per_frame=0.6)
+
+
 def test_generator_writes_what_the_jax_package_writes(tmp_path):
     """2 frames at 24×32 with flow: every file, decoded, is equal (the PNG
     encoders may differ, the pixels may not)."""

@@ -1,23 +1,22 @@
 #!/usr/bin/env python3
-"""The hand-written K1/K2, K3, K4 and K5 kernels of an earlier checkout
+"""The hand-written K1/K2, K3, K4, K5 and K7 kernels of an earlier checkout
 against this checkout's, on one CUDA card, in one process.
 
   git archive <commit> | tar -x -C build/other
   python3 tools/hash_kernel_ab.py --other build/other [--out build/hash_kernel_ab.json]
 
-The earlier checkout's csrc/hash_encoder.cu, csrc/sampler.cu and
-csrc/composite.cu are built with nvcc into build/parent/ beside this
-checkout's library (build/kernels/); the hash and sampler entry points
-must have this checkout's C interface ([T, C] tables, grad_x as [N, 3]),
-the hash backward and the composite entries the ones before this
-checkout's (EARLIER_SIGNATURES: the hash backward accumulating into a
-zeroed table gradient with float atomics, the weights pass writing the
-weights and local top-k indices only, the composite backward taking the
-cotangent on the weights as a dense [R, S]). Both
+The earlier checkout's csrc/hash_encoder.cu, csrc/sampler.cu,
+csrc/composite.cu and csrc/voxels.cu are built with nvcc into build/parent/
+beside this checkout's library (build/kernels/); every entry point must
+have this checkout's C interface (the hash backward writing its table
+gradient through a [T C + L] int64 scratch, the weights pass writing its
+top-k values and picks). Both
 libraries run on the same operands, at chip_smoke.py's shapes:
 
   * K1/K2 forward and backward: chip_smoke.HASH_CASES, ray-ordered and
-    uniform points;
+    uniform points. This checkout's backward gets the accumulator that its
+    wrapper keeps (zero on entry, and checked zero after every launch),
+    the earlier one a scratch of its own;
   * K3 on both SDF grids: chip_smoke.BF16_ORDERS (a density-cache build
     chunk, a render chunk's ray-ordered prepass, uniform points);
   * K5 at chip_smoke.SAMPLER_RAYS rays and K5 given densities at
@@ -25,22 +24,23 @@ libraries run on the same operands, at chip_smoke.py's shapes:
   * K4 with colour top-16 at chip_smoke.TOPK_RAYS rays x 98 samples: the
     weights pass forward (with torch.topk of the weights as the library's
     pick alone in the same turns; also on chip_smoke's surface-like
-    densities at 8192 rays), its backward (the earlier kernel given the
-    dense cotangent that PyTorch scattered from the top-k values and the
-    weight sum, this one the top-k cotangents and picks themselves), the
-    top-k colour composite forward and backward; and the plain composite's
-    backward with colour at the demo's 4096 x 98.
+    densities at 8192 rays), its backward, the top-k colour composite
+    forward and backward; and the plain composite's backward with colour
+    at the demo's 4096 x 98;
+  * K7 at chip_smoke.VOXEL_CASES: the scatter (the 1 MB counter copied,
+    as update_voxels does, then the launch) and the beta read.
 
 Each case first holds the two kernels' outputs against each other (values
-within 1e-5 of the largest, gradients within 1e-5 relative L2); the
+within 1e-5 of the largest, gradients within 1e-5 relative L2; the K1/K2
+table gradients and the K7 counters must be equal bit for bit); the
 samplers are compared by chip_smoke.sampler_agreement, each against the
 other and against this checkout's plain version, and only this checkout's
 kernel must agree with it (an earlier kernel may sum in another order, and
 the inverse CDF is discontinuous). The top-k picks of the two checkouts
-are counted by the rays where they differ, and each must equal this checkout's plain version's through the plain weights. Then
-each launch is timed alone in turns: earlier, this, this, earlier (more
-sides: forth and back; 10 launches each, CUDA events, a gradient table
-zeroed outside the timed window).
+are counted by the rays where they differ, and each must equal this
+checkout's plain version's through the plain weights. Then each launch is
+timed alone in turns: earlier, this, this, earlier (more sides: forth and
+back; 10 launches each, CUDA events).
 """
 
 from __future__ import annotations
@@ -59,20 +59,9 @@ import chip_smoke  # noqa: E402
 
 ENTRIES = ("nsl_hash_encode_fwd", "nsl_hash_encode_bwd", "nsl_hash_encode_bf16_fwd",
            "nsl_importance_sample", "nsl_importance_sample_given", "nsl_weights_topk_fwd",
-           "nsl_composite_bwd", "nsl_topk_rgb_fwd", "nsl_topk_rgb_bwd")
-_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-# the entries as they were before the table gradient was summed in fixed
-# point (hash backward) and before the weights pass wrote its top-k values
-EARLIER_SIGNATURES = {
-    # x, table, meta, scale, g_feat, g_dfeat, g_table (zeroed, accumulated
-    # into), g_x, N, L, C, size, stream
-    "nsl_hash_encode_bwd": [_P] * 8 + [_I64, _I, _I, ctypes.c_float, _P],
-    # z, density, normals, weights, depth_out, normal_out, topk_idx, R, S, Kc, stream
-    "nsl_weights_topk_fwd": [_P] * 7 + [_I64, _I, _I, _P],
-    # z, density, rgb, normals, g_weights, g_rgb_out, g_depth, g_normal_out,
-    # g_density, g_rgb, g_normals, R, S, stream
-    "nsl_composite_bwd": [_P] * 11 + [_I64, _I, _P],
-}
+           "nsl_composite_bwd", "nsl_topk_rgb_fwd", "nsl_topk_rgb_bwd", "nsl_voxel_scatter",
+           "nsl_voxel_beta")
+SOURCES = ("hash_encoder.cu", "sampler.cu", "composite.cu", "voxels.cu")
 
 
 def build_other(other: str) -> ctypes.CDLL:
@@ -83,12 +72,12 @@ def build_other(other: str) -> ctypes.CDLL:
     src = os.path.join(os.path.abspath(other), "nicer_slam_tpu_torch", "csrc")
     cmd = [_cuda.nvcc_path(), *_cuda.ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
            "-fPIC", "-shared", "-o", lib,
-           *(os.path.join(src, f) for f in ("hash_encoder.cu", "sampler.cu", "composite.cu"))]
+           *(os.path.join(src, f) for f in SOURCES)]
     subprocess.run(cmd, check=True)
     dll = ctypes.CDLL(lib)
     for name in ENTRIES:
         fn = getattr(dll, name)
-        fn.argtypes = EARLIER_SIGNATURES.get(name, _cuda._SIGNATURES[name])
+        fn.argtypes = _cuda._SIGNATURES[name]
         fn.restype = ctypes.c_int
     return dll
 
@@ -105,13 +94,13 @@ def caller(lib):
     return call
 
 
-def turns(fns, before=None) -> dict:
+def turns(fns) -> dict:
     """{side: [ms, ms]} of each launch timed alone, in turns forth and back
     over the sides (earlier, this, this, earlier)."""
     sides = list(fns)
     t = {side: [] for side in sides}
     for side in sides + sides[::-1]:
-        t[side].append(chip_smoke.cuda_time(fns[side], before=before))
+        t[side].append(chip_smoke.cuda_time(fns[side]))
     return t
 
 
@@ -132,6 +121,11 @@ def hash_cases(dev, calls, rows_out):
         L, C, T = spec.num_levels, spec.level_dim, spec.total_entries
         table = torch.rand((T, C), generator=g, device=dev) * 2 - 1
         meta, scl = he._level_tables(spec, 1.0, str(dev))
+        # this side: the accumulator its wrapper keeps; the earlier side
+        # zeroes its own on every call
+        scratch = {"this": he.fixed_point_scratch(spec, dev),
+                   "earlier": torch.empty(T * C + L, dtype=torch.int64, device=dev)}
+        acc = scratch["this"][:T * C]
         for order in ("ray", "uniform"):
             x = chip_smoke.hash_points(g, dev, kind, order)
             N = x.shape[0]
@@ -140,7 +134,7 @@ def hash_cases(dev, calls, rows_out):
             gd = torch.randn((N, L * C, 3), generator=g, device=dev) if jac else None
             out = {s: dict(feats=torch.empty((N, L * C), device=dev),
                            dfeat=torch.empty((N, L * C, 3), device=dev) if jac else None,
-                           g_table=torch.zeros_like(table),
+                           g_table=torch.empty_like(table),
                            g_x=torch.empty((N, 3), device=dev)) for s in calls}
 
             def fwd(side):
@@ -150,21 +144,17 @@ def hash_cases(dev, calls, rows_out):
                     scl.data_ptr(), o["feats"].data_ptr(), _cuda.ptr(o["dfeat"]),
                     N, L, C, 1.0)
 
-            scratch = torch.empty(T * C + L, dtype=torch.int64, device=dev)
-
             def bwd(side):
                 o = out[side]
-                head = (x.data_ptr(), table.data_ptr(), meta.data_ptr(), scl.data_ptr(),
-                        gf.data_ptr(), _cuda.ptr(gd), o["g_table"].data_ptr(),
-                        o["g_x"].data_ptr())
-                if side == "this":   # writes g_table, summed in fixed point
-                    return lambda: calls[side]("nsl_hash_encode_bwd", *head,
-                                               scratch.data_ptr(), N, L, C, 1.0, T)
-                return lambda: calls[side]("nsl_hash_encode_bwd", *head, N, L, C, 1.0)
+                return lambda: calls[side](
+                    "nsl_hash_encode_bwd", x.data_ptr(), table.data_ptr(), meta.data_ptr(),
+                    scl.data_ptr(), gf.data_ptr(), _cuda.ptr(gd), o["g_table"].data_ptr(),
+                    o["g_x"].data_ptr(), scratch[side].data_ptr(), N, L, C, 1.0, T)
 
             for side in calls:
                 fwd(side)(), bwd(side)()
             torch.cuda.synchronize()
+            zero_after = [not bool(acc.any())]
             a, b = out["this"], out["earlier"]
             errs = [chip_smoke.max_abs(a["feats"], b["feats"]) / float(b["feats"].abs().max())]
             if jac:
@@ -172,20 +162,25 @@ def hash_cases(dev, calls, rows_out):
                             / float(b["dfeat"].abs().max()))
             rel = [chip_smoke.rel_l2(a["g_table"], b["g_table"]),
                    chip_smoke.rel_l2(a["g_x"], b["g_x"])]
-            ok = max(errs) <= chip_smoke.VAL_RTOL and max(rel) <= chip_smoke.GRAD_REL_L2
-            zero = lambda: out["earlier"]["g_table"].zero_()  # noqa: E731
+            same = bool(torch.equal(a["g_table"], b["g_table"]))
             tf = turns({s: fwd(s) for s in calls})
-            tb = turns({s: bwd(s) for s in calls}, before=zero)
+            tb = turns({s: bwd(s) for s in calls})
+            zero_after.append(not bool(acc.any()))
+            same &= bool(torch.equal(a["g_table"], b["g_table"]))
+            ok = (max(errs) <= chip_smoke.VAL_RTOL and max(rel) <= chip_smoke.GRAD_REL_L2
+                  and same and all(zero_after))
             b_fwd = chip_smoke.bound(*chip_smoke.hash_cost(spec, N, rows, jac, False))[0]
             b_bwd = chip_smoke.bound(*chip_smoke.hash_cost(spec, N, rows, jac, True))[0]
             for kdir, t, bnd in (("fwd", tf, b_fwd), ("bwd", tb, b_bwd)):
                 rows_out.append(dict(
                     case=f"{'K1' if jac else 'K2'} {kdir} {grid}/{kind}/{order}", points=N,
-                    ok=ok, agreement=dict(value_err=max(errs), grad_rel_l2=max(rel)),
+                    ok=ok, agreement=dict(value_err=max(errs), grad_rel_l2=max(rel),
+                                          table_grad_bit_equal=same,
+                                          accumulator_zero_after=zero_after),
                     times_ms=t, bound_ms=bnd))
-            del x, gf, gd, out, scratch
+            del x, gf, gd, out
             torch.cuda.empty_cache()
-        del table
+        del table, scratch, acc
         torch.cuda.empty_cache()
 
 
@@ -292,7 +287,6 @@ def composite_cases(dev, calls, rows_out, S: int = 98, Kc: int = 16):
 
     g = torch.Generator(device=dev)
     g.manual_seed(2)
-    early, this = calls["earlier"], calls["this"]
     f32 = dict(dtype=torch.float32, device=dev)
     cases = [(R, "random") for R in chip_smoke.TOPK_RAYS] + [(chip_smoke.TOPK_RAYS[-1],
                                                                 "surface")]
@@ -304,28 +298,27 @@ def composite_cases(dev, calls, rows_out, S: int = 98, Kc: int = 16):
         nrm = torch.randn((R, S, 3), generator=g, device=dev)
         plain = vr.weights_topk_plain(z, dens, nrm, Kc)
         # ---- the weights pass
-        new = [torch.empty_like(t) for t in plain]
-        old = [torch.empty((R, S), **f32), torch.empty((R, 1), **f32),
-               torch.empty((R, 3), **f32), torch.empty((R, Kc), dtype=torch.int64, device=dev)]
+        outs = {s_: [torch.empty_like(t) for t in plain] for s_ in calls}
 
-        fns = {"earlier": lambda: early("nsl_weights_topk_fwd", z.data_ptr(), dens.data_ptr(),
-                                        nrm.data_ptr(), *(t.data_ptr() for t in old), R, S, Kc),
-               "this": lambda: this("nsl_weights_topk_fwd", z.data_ptr(), dens.data_ptr(),
-                                    nrm.data_ptr(), *(t.data_ptr() for t in new), R, S, Kc),
+        def wfwd(side):
+            return lambda: calls[side]("nsl_weights_topk_fwd", z.data_ptr(), dens.data_ptr(),
+                                       nrm.data_ptr(), *(t.data_ptr() for t in outs[side]),
+                                       R, S, Kc)
+
+        fns = {**{s_: wfwd(s_) for s_ in calls},
                "torch.topk": lambda: torch.topk(plain[0], Kc, dim=1)}
         for fn in fns.values():
             fn()
         torch.cuda.synchronize()
-        rays = torch.arange(R, device=dev)[:, None] * S
-        old_picks = old[3] + rays
+        new, old = outs["this"], outs["earlier"]
         errs = [chip_smoke.max_abs(a, b) / float(b.abs().max())
-                for a, b in zip(new[:3], old[:3])]
-        through_plain = [chip_smoke.max_abs(plain[0].reshape(-1)[p.reshape(-1)], plain[3].reshape(-1))
-                         / float(plain[3].abs().max())
-                         for p in (new[5], old_picks)]
+                for a, b in zip(new[:5], old[:5])]
+        through_plain = [chip_smoke.max_abs(plain[0].reshape(-1)[p.reshape(-1)],
+                                            plain[3].reshape(-1)) / float(plain[3].abs().max())
+                         for p in (new[5], old[5])]
         agree = dict(value_err_vs_earlier=max(errs),
                      picks_through_plain_err=dict(zip(("this", "earlier"), through_plain)),
-                     rays_other_picks_than_earlier=int((new[5] != old_picks).any(1).sum()),
+                     rays_other_picks_than_earlier=int((new[5] != old[5]).any(1).sum()),
                      rays_other_picks_than_plain=int((new[5] != plain[5]).any(1).sum()))
         rows_out.append(dict(
             case=f"K4 weights_topk.fwd {tag}", points=R * S,
@@ -333,36 +326,33 @@ def composite_cases(dev, calls, rows_out, S: int = 98, Kc: int = 16):
             agreement=agree, times_ms=turns(fns),
             bound_ms=chip_smoke.bound(chip_smoke.nbytes(z, dens, nrm, *new),
                                       R * S * (30 + Kc))[0]))
-        # ---- its backward: the earlier kernel takes the dense cotangent
-        # PyTorch made of the top-k values' and the weight sum's
+        # ---- its backward, with the top-k cotangents and the picks
         picks = new[5]
-        gdep, gn = torch.randn((R, 1), generator=g, device=dev), torch.randn((R, 3), generator=g,
-                                                                             device=dev)
-        gtw, gws = torch.randn((R, Kc), generator=g, device=dev), torch.randn((R, 1), generator=g,
-                                                                              device=dev)
-        dense = (gws.expand(R, S).reshape(-1).index_add(0, picks.reshape(-1), gtw.reshape(-1))
-                 .reshape(R, S).contiguous())
-        outs = {s_: (torch.empty((R, S), **f32), torch.empty((R, S, 3), **f32)) for s_ in calls}
-        fns = {"earlier": lambda: early(
-                   "nsl_composite_bwd", z.data_ptr(), dens.data_ptr(), None, nrm.data_ptr(),
-                   dense.data_ptr(), None, gdep.data_ptr(), gn.data_ptr(),
-                   outs["earlier"][0].data_ptr(), None, outs["earlier"][1].data_ptr(), R, S),
-               "this": lambda: this(
-                   "nsl_composite_bwd", z.data_ptr(), dens.data_ptr(), None, nrm.data_ptr(),
-                   picks.data_ptr(), None, None, gdep.data_ptr(), gn.data_ptr(), gtw.data_ptr(),
-                   gws.data_ptr(), outs["this"][0].data_ptr(), None,
-                   outs["this"][1].data_ptr(), R, S, Kc)}
-        for fn in fns.values():
-            fn()
+        gdep, gn = (torch.randn((R, 1), generator=g, device=dev),
+                    torch.randn((R, 3), generator=g, device=dev))
+        gtw, gws = (torch.randn((R, Kc), generator=g, device=dev),
+                    torch.randn((R, 1), generator=g, device=dev))
+        bouts = {s_: (torch.empty((R, S), **f32), torch.empty((R, S, 3), **f32)) for s_ in calls}
+
+        def wbwd(side):
+            return lambda: calls[side](
+                "nsl_composite_bwd", z.data_ptr(), dens.data_ptr(), None, nrm.data_ptr(),
+                picks.data_ptr(), None, None, gdep.data_ptr(), gn.data_ptr(), gtw.data_ptr(),
+                gws.data_ptr(), bouts[side][0].data_ptr(), None, bouts[side][1].data_ptr(),
+                R, S, Kc)
+
+        for side in calls:
+            wbwd(side)()
         torch.cuda.synchronize()
         ref = vr.weights_topk_bwd_plain(z, dens, nrm, picks, None, gdep, gn, gtw, gws)
-        rel = {s_: max(chip_smoke.rel_l2(a, b) for a, b in zip(outs[s_], ref)) for s_ in calls}
+        rel = {s_: max(chip_smoke.rel_l2(a, b) for a, b in zip(bouts[s_], ref)) for s_ in calls}
         rows_out.append(dict(
             case=f"K4 weights_topk.bwd {tag}", points=R * S,
             ok=rel["this"] <= chip_smoke.GRAD_REL_L2,
-            agreement=dict(grad_rel_l2_vs_plain=rel), times_ms=turns(fns),
+            agreement=dict(grad_rel_l2_vs_plain=rel), times_ms=turns({s_: wbwd(s_)
+                                                                     for s_ in calls}),
             bound_ms=chip_smoke.bound(chip_smoke.nbytes(z, dens, nrm, gdep, gn, picks, gtw, gws,
-                                                        *outs["this"]), R * S * 50)[0]))
+                                                        *bouts["this"]), R * S * 50)[0]))
         if kind == "surface":
             continue
         # ---- the top-k colour composite
@@ -400,7 +390,7 @@ def composite_cases(dev, calls, rows_out, S: int = 98, Kc: int = 16):
                 ok=err["this"] <= chip_smoke.VAL_RTOL, agreement=dict(value_err_vs_plain=err),
                 times_ms=turns({s_: fn(s_) for s_ in calls}),
                 bound_ms=chip_smoke.bound(nb, ops)[0]))
-        del z, dens, nrm, plain, new, old, dense, outs, ref, fo, bo, ins, pf, pb
+        del z, dens, nrm, plain, outs, bouts, ref, fo, bo, ins, pf, pb
         torch.cuda.empty_cache()
     # ---- the launch floor: one fill of a single float, timed the same way
     one = torch.zeros(1, device=dev)
@@ -417,24 +407,78 @@ def composite_cases(dev, calls, rows_out, S: int = 98, Kc: int = 16):
     outs = {s_: [torch.empty((R, S), **f32), torch.empty((R, S, 3), **f32),
                  torch.empty((R, S, 3), **f32)] for s_ in calls}
     gw, grgb, gdep, gn = (t.data_ptr() for t in gouts)
-    fns = {"earlier": lambda: early(
-               "nsl_composite_bwd", z.data_ptr(), dens.data_ptr(), rgb.data_ptr(), nrm.data_ptr(),
-               gw, grgb, gdep, gn, *(t.data_ptr() for t in outs["earlier"]), R, S),
-           "this": lambda: this(
-               "nsl_composite_bwd", z.data_ptr(), dens.data_ptr(), rgb.data_ptr(), nrm.data_ptr(),
-               None, gw, grgb, gdep, gn, None, None, *(t.data_ptr() for t in outs["this"]),
-               R, S, 0)}
-    for fn in fns.values():
-        fn()
+
+    def cbwd(side):
+        return lambda: calls[side](
+            "nsl_composite_bwd", z.data_ptr(), dens.data_ptr(), rgb.data_ptr(), nrm.data_ptr(),
+            None, gw, grgb, gdep, gn, None, None, *(t.data_ptr() for t in outs[side]), R, S, 0)
+
+    for side in calls:
+        cbwd(side)()
     torch.cuda.synchronize()
     ins = [t.clone().requires_grad_(True) for t in (dens, rgb, nrm)]
     ref = torch.autograd.grad(vr.composite_plain(z, *ins), ins, gouts)
     rel = {s_: max(chip_smoke.rel_l2(a, b) for a, b in zip(outs[s_], ref)) for s_ in calls}
     rows_out.append(dict(
         case=f"K4 composite.bwd {R} rays", points=R * S, ok=rel["this"] <= chip_smoke.GRAD_REL_L2,
-        agreement=dict(grad_rel_l2_vs_plain=rel), times_ms=turns(fns),
+        agreement=dict(grad_rel_l2_vs_plain=rel), times_ms=turns({s_: cbwd(s_) for s_ in calls}),
         bound_ms=chip_smoke.bound(chip_smoke.nbytes(z, dens, rgb, nrm, *gouts, *outs["this"]),
                                   R * S * 60)[0]))
+
+
+def voxel_cases(dev, calls, rows_out):
+    import torch
+    from nicer_slam_tpu_torch.ops import density as dens_ops
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    neg_b = float(torch.tensor(-dens_ops.BETA_B * 1e-4, dtype=torch.float32))
+    for kind, n in chip_smoke.VOXEL_CASES:
+        x = chip_smoke.voxel_points(g, dev, kind, n)
+        N = x.shape[0]
+        vox0 = torch.randint(0, 200, (64, 64, 64), generator=g, device=dev).to(torch.float32)
+        counters = {s_: vox0.clone() for s_ in calls}
+        betas = {s_: torch.empty((N, 1), device=dev) for s_ in calls}
+
+        def scatter(side):
+            # update_voxels' work: the counter copied, then the launch
+            def fn():
+                counters[side] = vox0.clone()
+                calls[side]("nsl_voxel_scatter", x.data_ptr(), counters[side].data_ptr(), N, 64)
+            return fn
+
+        def beta(side):
+            return lambda: calls[side](
+                "nsl_voxel_beta", x.data_ptr(), counters["this"].data_ptr(),
+                betas[side].data_ptr(), N, 64, neg_b, dens_ops.BETA_D, dens_ops.BETA_A,
+                dens_ops.BETA_C)
+
+        for side in calls:
+            scatter(side)()
+        for side in calls:
+            beta(side)()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(counters["this"], counters["earlier"]))
+        plain = dens_ops.update_voxels_plain(vox0, x)
+        exact = bool(torch.equal(counters["this"], plain))
+        err = (chip_smoke.max_abs(betas["this"], betas["earlier"])
+               / float(betas["earlier"].abs().max()))
+        vidx, boundary = dens_ops._voxel_index(x, 64)
+        touched = int(torch.unique(((vidx[:, 0] * 64 + vidx[:, 1]) * 64
+                                    + vidx[:, 2])[~boundary]).numel())
+        rows_out.append(dict(
+            case=f"K7 scatter {kind} {N}", points=N, ok=same and exact,
+            agreement=dict(counter_bit_equal_earlier=same, counter_bit_equal_plain=exact),
+            times_ms=turns({s_: scatter(s_) for s_ in calls}),
+            bound_ms=chip_smoke.bound(chip_smoke.nbytes(x, vox0, plain), N * 12)[0]))
+        rows_out.append(dict(
+            case=f"K7 beta {kind} {N}", points=N, ok=err <= chip_smoke.VAL_RTOL,
+            agreement=dict(value_err=err,
+                           bit_equal=bool(torch.equal(betas["this"], betas["earlier"]))),
+            times_ms=turns({s_: beta(s_) for s_ in calls}),
+            bound_ms=chip_smoke.bound(chip_smoke.nbytes(x, betas["this"]) + 4 * touched,
+                                      N * 20)[0]))
+        del x, vox0, counters, betas, plain, vidx, boundary
 
 
 def main(argv=None) -> int:
@@ -453,7 +497,7 @@ def main(argv=None) -> int:
     print(f"card: {card}", flush=True)
     calls = {"earlier": caller(build_other(args.other)), "this": caller(_cuda.library())}
     rows_out = []
-    for cases in (composite_cases, bf16_cases, sampler_cases, hash_cases):
+    for cases in (composite_cases, bf16_cases, sampler_cases, voxel_cases, hash_cases):
         done = len(rows_out)
         cases(dev, calls, rows_out)
         for row in rows_out[done:]:

@@ -11,7 +11,8 @@ checkout and from this one, each run in a process of its own, in turns:
 other, this, this, other. Both read the scans this checkout generates.
 Reports per run the runner's phase times: ms per mapping and per tracking
 iteration, ms per density-cache build, s/frame (the loop over the 11
-frames, card synchronised at both ends), and after the loop the vis hook
+frames, card synchronised at both ends), the peak device memory of the
+set-up and the loop, and after the loop the vis hook
 once (vis s: a full frame rendered with the exact prepass, the panels and
 the mesh) and, before it, that render alone (render s). Last, untimed,
 the device work of one more tracking call and one mapping iteration
@@ -44,6 +45,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 kind, data_dir, tag = sys.argv[1:4]
 os.makedirs(chip_smoke.SMOKE_DIR, exist_ok=True)
+torch.cuda.reset_peak_memory_stats()
 r = runner_mod.SLAMRunner(conf=chip_smoke.write_conf(kind, data_dir),
                           root_dir=chip_smoke.SMOKE_DIR, exps_folder_name="exps_ab_" + tag,
                           quiet=True, device="cuda")
@@ -57,6 +59,7 @@ for f in range(r.n_images):
         r.map(f)
 torch.cuda.synchronize()
 loop = time.perf_counter() - t
+peak = torch.cuda.max_memory_allocated() / 2 ** 30
 s = r.timer.summary()
 from nicer_slam_tpu_torch.utils.plots import vis_hook
 t = time.perf_counter()
@@ -96,7 +99,7 @@ print("RESULT " + json.dumps(dict(
     s_per_frame=loop / r.n_images, ms_per_map_iter=s["mapping"]["mean_ms"],
     ms_per_track_iter=1000 * s["tracking"]["total_s"] / (s["tracking"]["count"] * r.num_cam_iters),
     ms_per_cache_build=s.get("cache", {}).get("mean_ms", float("nan")),
-    render_s=render, vis_s=vis,
+    render_s=render, vis_s=vis, peak_mem_GiB=peak,
     kernels_per_track_iter=ops["track"]["kernels"],
     kernels_per_map_iter=ops["map"]["kernels"],
     device_ops_per_track_iter=ops["track"]["device_ops"],
@@ -105,7 +108,7 @@ print("RESULT " + json.dumps(dict(
 """
 
 METRICS = ("ms_per_map_iter", "ms_per_track_iter", "ms_per_cache_build", "s_per_frame",
-           "render_s", "vis_s", "kernels_per_track_iter", "kernels_per_map_iter",
+           "render_s", "vis_s", "peak_mem_GiB", "kernels_per_track_iter", "kernels_per_map_iter",
            "device_ops_per_track_iter", "device_ops_per_map_iter")
 
 

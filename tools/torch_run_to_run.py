@@ -7,9 +7,10 @@ Runs chip_smoke.py's SLAM configurations (the same synthetic scans, confs
 and cuts) twice each in this process, without the vis hook, and
 records the loss of every mapping iteration, the best tracking loss of
 every frame and the translation error of every frame. The runs share code,
-inputs, weights and random draws, and the runner makes them deterministic
-(slam/runner.py use_deterministic_cuda; the K1/K2 backward sums its table
-gradient in fixed point), so every iteration should be bit-identical; any
+inputs, weights and random draws, and every sum on the paths has a fixed
+order (the K1/K2 backward sums its table gradient in fixed point, the
+segment sums of the depth loss run over a one-hot mask), so every
+iteration should be bit-identical; any
 float sum in an order that changes from run to run would show as a gap that
 starts at float32 rounding and grows as far as the optimisation amplifies
 it, and a launch that read memory it does not own would show at once.
