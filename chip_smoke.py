@@ -20,7 +20,10 @@ Phases, in order (any failure exits non-zero without the final line):
      the flagship path's shapes on ray-ordered and on uniform points
      (802,816 SDF points through the fine and coarse grids; the full
      133M-entry colour grid at the 131,072 top-16 points and at the demo's
-     4096 x 98), K4 at the demo slice's shapes, K7 at a flagship mapping
+     4096 x 98) and at a tracking iteration's 100,352 ray-ordered points
+     (the backward without a table gradient, as tracking runs it), K4's
+     plain composite at the demo's 4096 x 98, a render chunk's 2580 x 98
+     and 64 x 200, K7 at a flagship mapping
      iteration's 8192 x 98 samples (unordered, as earlier kernels were
      timed, and ray-ordered), a tracking iteration's 1024 x 98 and a
      density-cache chunk (the counter bit for bit), K4 with colour
@@ -31,8 +34,12 @@ Phases, in order (any failure exits non-zero without the final line):
      it (64 rays x 200 samples, top-40 and top-12), K3 on both SDF grids at a density-cache build
      chunk (131,072 grid points), the ray-ordered exact prepass of a
      2580-ray render chunk (1,651,200 points) and as many uniform points,
-     K5 at 1024 (tracking), 4096 and 8192 (mapping) rays and K5 given
-     densities at a render chunk. The plain versions of K1/K2 run once;
+     K5 at 1024 (tracking), 4096 and 8192 (mapping) rays, K5 given
+     densities at a render chunk, and K6 (sdf_density) building the 128³
+     density cache and the exact prepass of a 2580-ray render chunk
+     (1,651,200 points; each one launch and no other kernel, within
+     2e-5 of the largest density, both versions also measured against
+     float64). The plain versions of K1/K2 run once;
      the K1/K2 backward runs twice more and its table gradient must come
      out the same bit for bit, with its kept fixed-point accumulator zero
      after every launch.
@@ -102,12 +109,14 @@ PATHS = {
 MESH_RESOLUTION = 256
 # kernels whose launches are checked on each run (every launch counter is
 # reported for both)
+# (K3's work on the paths runs inside sdf_density; the standalone K3 kernel
+# is still held against its plain version in phase 3)
 PATH_KERNELS = {
     "demo": ("hash_encode_with_grad.fwd", "hash_encode_with_grad.bwd", "hash_encode.fwd",
-             "hash_encode.bwd", "hash_encode_bf16", "composite.fwd", "composite.bwd",
+             "hash_encode.bwd", "sdf_density", "composite.fwd", "composite.bwd",
              "importance_sample", "importance_sample_given", "voxels.scatter", "voxels.beta"),
     "flagship": ("hash_encode_with_grad.fwd", "hash_encode_with_grad.bwd", "hash_encode.fwd",
-                 "hash_encode.bwd", "hash_encode_bf16", "weights_topk.fwd", "weights_topk.bwd",
+                 "hash_encode.bwd", "sdf_density", "weights_topk.fwd", "weights_topk.bwd",
                  "topk_rgb.fwd", "topk_rgb.bwd", "importance_sample",
                  "importance_sample_given", "voxels.scatter", "voxels.beta"),
 }
@@ -116,6 +125,12 @@ PATH_KERNELS = {
 # run): ||kernel - plain||_2 <= GRAD_REL_L2 * ||plain||_2
 VAL_RTOL = 1e-5
 GRAD_REL_L2 = 1e-5
+# K6 (sdf_density): max|kernel - plain| <= SDF_DENSITY_RTOL * max|plain|,
+# the CPU parity test's bound: the Laplace density's slope at the surface,
+# 1/(2 beta^2), is ~35 times its largest value 1/beta (beta ~ 0.0144 at a
+# zero count), so a few ulp of SDF rounding in either version's float32
+# sums show as ~1e-5 of the largest density
+SDF_DENSITY_RTOL = 2e-5
 # importance sampler: every ray's z_vals and z_eik within Z_ATOL (float32
 # scans in another order move a sample by a few ulps of z <= 3.5)
 Z_ATOL = 1e-4
@@ -280,16 +295,18 @@ def touched_rows(spec, x) -> int:
     return int(mark.sum())
 
 
-def hash_cost(spec, n, rows, jac, bwd):
+def hash_cost(spec, n, rows, jac, bwd, table_grad=True):
     """(bytes, operations) of one K1/K2 launch over n points that touch
     ``rows`` table rows: each input read once, each output written once
-    (the table rows read, and in the backward their gradient written);
-    operations are 2 per multiply-add of the corner sums."""
+    (the table rows read, and in the backward with ``table_grad`` their
+    gradient written); operations are 2 per multiply-add of the corner
+    sums (the backward's grad_x half of them without the table gradient)."""
     L, C = spec.num_levels, spec.level_dim
     per_pt = 3 + L * C * (1 + 3 * jac)           # x and feats (+ dfeat)
     table = rows * C
     if bwd:                                       # + g_x; table read, g_table written
-        words, madds = n * (per_pt + 3) + 2 * table, C * (1 + 3 * jac) * 4
+        words = n * (per_pt + 3) + (2 if table_grad else 1) * table
+        madds = C * (1 + 3 * jac) * (4 if table_grad else 2)
     else:
         words, madds = n * per_pt + table, C * (1 + 3 * jac)
     return 4 * words, 2 * madds * 8 * L * n
@@ -393,6 +410,78 @@ def check_hash_kernels(dev, chk: Checks):
             torch.cuda.empty_cache()
         del table
         torch.cuda.empty_cache()
+
+
+# a tracking iteration's 1024 rays x 98 samples, ray-ordered: K1 on both
+# SDF grids and K2 on the colour grid (the demo colours every sample), the
+# backward as tracking runs it (the map is fixed: no table gradient, grad_x
+# only)
+TRACK_RAYS = 1024
+TRACK_GRIDS = (("fine", True), ("coarse", True), ("color", False))
+
+
+def check_hash_tracking(dev, chk: Checks):
+    """K1 and K2 forward and backward at the tracking shape, each launch
+    timed alone; the backward against the plain version's grad_x."""
+    import torch
+    from nicer_slam_tpu_torch.ops import hash_encoder as he
+
+    specs = hash_specs()
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    src = "nicer_slam_tpu_torch/csrc/hash_encoder.cu"
+    for grid, jac in TRACK_GRIDS:
+        spec = specs[grid]
+        L, C = spec.num_levels, spec.level_dim
+        table = torch.rand((spec.total_entries, C), generator=g, device=dev) * 2 - 1
+        x = ray_points(g, dev, TRACK_RAYS, 98)
+        N, rows = x.shape[0], touched_rows(spec, x)
+        tag = f"[{grid}/track/ray]"
+        kname = "hash_encode_with_grad" if jac else "hash_encode"
+        replaces = "nicer_slam_tpu/ops/hash_encoder.py:" + ("266" if jac else "177")
+        feats = torch.empty((N, L * C), device=dev)
+        dfeat = torch.empty((N, L * C, 3), device=dev) if jac else None
+
+        def fwd():
+            he.hash_encode_fwd_launch(spec, table, x, 1.0, feats, dfeat)
+
+        fwd()
+        po, pms = timed_once(lambda: he.hash_encode_plain(spec, table, x, 1.0, jac))
+        po = list(po) if jac else [po]
+        chk.values(f"{kname}.fwd{tag}", src, replaces, [feats, dfeat] if jac else [feats],
+                   po, cuda_time(fwd), pms, ("feats", "dfeat"),
+                   *hash_cost(spec, N, rows, jac, False))
+        gf = torch.randn((N, L * C), generator=g, device=dev)
+        gd = torch.randn((N, L * C, 3), generator=g, device=dev) if jac else None
+        g_x = torch.empty((N, 3), device=dev)
+
+        def bwd():
+            he.hash_encode_bwd_launch(spec, table, x, 1.0, jac, gf, gd, None, g_x)
+
+        bwd()
+        xx = x.clone().requires_grad_(True)
+
+        def plain_bwd():
+            out = he.hash_encode_plain(spec, table, xx, 1.0, jac)
+            loss = (out[0] * gf).sum() + (out[1] * gd).sum() if jac else (out * gf).sum()
+            return torch.autograd.grad(loss, [xx])[0]
+
+        pgx, pms = timed_once(plain_bwd)
+        ex = rel_l2(g_x, pgx)
+        chk.record(f"{kname}.bwd{tag}", src,
+                   replaces if jac else "nicer_slam_tpu/ops/hash_encoder.py:613",
+                   max_abs(g_x, pgx), ex <= GRAD_REL_L2, cuda_time(bwd), pms,
+                   *hash_cost(spec, N, rows, jac, True, table_grad=False),
+                   f"(rel L2 grad_x {ex:.2e}; {N} points, {rows} rows; no table gradient)")
+        del po, xx, pgx, table, feats, dfeat, gf, gd, g_x, x
+        torch.cuda.empty_cache()
+
+
+# the plain composite's shapes: the demo's mapping rays, a render chunk of
+# the vis call, and a general shape the paths do not give it (the backward
+# at 32 rounds, S > 128)
+COMPOSITE_SHAPES = ((4096, 98), (2580, 98), (64, 200))
+COMPOSITE_TAGS = ("", "[render chunk 2580x98]", "[general 64x200]")
 
 
 def check_demo_kernels(dev, chk: Checks, R: int = 4096, S: int = 98, tag: str = ""):
@@ -617,27 +706,155 @@ def hash_specs():
 SDF_GRIDS = ("coarse", "fine")
 
 
-def density_cache_cost(res: int = 128, voxel_res: int = 64):
-    """(bytes, operations) of one density-cache build (K6) of the flagship
-    configuration, the least the card must do: read both SDF grids' fp32
-    tables, the MLP weights and the voxel counter once, write the [res³]
-    cache once; per grid point the corner sums of both grids (2 operations
-    per multiply-add), both MLPs (2 per weight) and ~30 for the positional
+def sdf_density_cost(n: int, io_bytes: int, voxel_res: int = 64):
+    """(bytes, operations) of K6 over n points of the flagship
+    configuration, the least the card must do: read both SDF grids' bf16
+    tables, the packed weights and the voxel counter once, the points'
+    inputs and outputs (``io_bytes``) once; per point the corner sums of
+    both grids (2 operations per multiply-add), both MLPs with only the
+    SDF row of each last layer (2 per weight) and ~30 for the positional
     encoding and the density."""
     from nicer_slam_tpu_torch.config import parse_file
     from nicer_slam_tpu_torch.models import fields
     conf = parse_file(PATHS["flagship"]["conf"]).get_config("model")
     comb = fields.combine_config_from_conf(conf.get_config("implicit_network"),
                                            conf.get_int("feature_vector_size"))
-    n = res ** 3
-    words, per_pt = voxel_res ** 3 + n, 30
+    bytes_, per_pt = io_bytes + 4 * voxel_res ** 3, 30
     for cfg in (comb.coarse, comb.fine):
         spec, dims = cfg.hash_spec(), cfg.layer_dims
         weights = sum(dims[i] * (dims[i + 1] - (dims[0] if i + 1 in cfg.skip_in else 0))
-                      for i in range(len(dims) - 1))
-        words += spec.total_entries * spec.level_dim + weights
+                      for i in range(len(dims) - 2)) + dims[-2]
+        bytes_ += 2 * spec.total_entries * spec.level_dim + 4 * (weights + sum(dims[1:-1]) + 1)
         per_pt += 2 * spec.level_dim * 8 * spec.num_levels + 2 * weights
-    return 4 * words, per_pt * n
+    return bytes_, per_pt * n
+
+
+def density_cache_cost(res: int = 128, voxel_res: int = 64):
+    """(bytes, operations) of one density-cache build: K6 over the res³
+    grid (the res coordinates in, the cache out)."""
+    return sdf_density_cost(res ** 3, 4 * res + 4 * res ** 3, voxel_res)
+
+
+def sdf_net(dev):
+    """The flagship configuration's SDF networks on the card, seeded as the
+    runner seeds them (seed 0, the fine MLP from pretrain.npz), with both
+    tables drawn U(-0.05, 0.05) (features at a trained map's scale, where
+    the init's 1e-4 would leave them out of the sums), and a voxel counter
+    of counts 0-199."""
+    import numpy as np
+    import torch
+    from nicer_slam_tpu_torch.config import parse_file
+    from nicer_slam_tpu_torch.models import fields
+    conf = parse_file(PATHS["flagship"]["conf"]).get_config("model")
+    comb = fields.combine_config_from_conf(conf.get_config("implicit_network"),
+                                           conf.get_int("feature_vector_size"))
+    net = fields.CombineNet(comb, np.random.default_rng(0))
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad(), np.load(os.path.join(ROOT, "pretrain.npz")) as data:
+        for i, lin in enumerate(net.fine.lins):
+            for k, p in lin.named_parameters():
+                if f"fine_lin{i}_{k}" in data.files:
+                    p.copy_(torch.from_numpy(data[f"fine_lin{i}_{k}"]))
+        for sub in (net.coarse, net.fine):
+            sub.encoding.copy_(torch.rand(sub.encoding.shape, generator=g) * 0.1 - 0.05)
+    vox = torch.randint(0, 200, (64, 64, 64), generator=g).to(torch.float32)
+    return net.to(dev), vox.to(dev)
+
+
+def density_f64(net, pack, x, voxels):
+    """The density at x in float64 from the packed weights (the kernel's
+    layer order) and K3's features, beta from K7's plain read: the
+    reference that both versions' float32 rounding is measured against."""
+    import torch
+    from nicer_slam_tpu_torch.ops import density as dens_ops
+    from nicer_slam_tpu_torch.ops import sdf_density as sd
+    out, flat = [], sd.pack_sdf_weights(net)
+    for xc in x.split(131072):
+        sdf = sd.sdf_packed_reference(net, pack.tables, flat, xc, torch.float64)
+        beta = dens_ops.grid_predefined_beta_plain(voxels, xc)[:, 0].double()
+        out.append(dens_ops.laplace_density(sdf, beta))
+    return torch.cat(out)
+
+
+def device_ops(fn) -> int:
+    """Device operations (kernels, memory copies and sets) of one call of
+    fn under torch.profiler."""
+    import torch
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+SDF_RES = 128
+
+
+def check_sdf_density(dev, chk: Checks):
+    """K6 in both modes against its plain version (K3, the MLPs, K7's read
+    and the Laplace density, as the port ran them before the kernel): the
+    128³ density cache and the exact prepass of a 2580-ray render chunk
+    (640 unjittered z a ray); each call must launch sdf_density once and
+    no other kernel. Both versions are also measured against float64."""
+    import torch
+    from nicer_slam_tpu_torch.ops import _cuda
+    from nicer_slam_tpu_torch.ops import ray_sampling as rs
+    from nicer_slam_tpu_torch.ops import sdf_density as sd
+
+    net, vox = sdf_net(dev)
+    pack = sd.pack_sdf(net)
+    src = "nicer_slam_tpu_torch/csrc/sdf_density.cu"
+
+    def one_launch(fn):
+        _cuda.reset_launch_counts()
+        out = fn()
+        counts = {k: v for k, v in _cuda.launch_counts().items() if v}
+        _cuda.reset_launch_counts()
+        return out, counts == {"sdf_density": 1}, counts
+
+    def record(tag, rep, ko, po, exact, ms, pms, cost, single, counts, extra):
+        err, scale = max_abs(ko, po), float(po.abs().max())
+        ek = float((ko.double() - exact).abs().max()) / scale
+        ep = float((po.double() - exact).abs().max()) / scale
+        chk.record(f"sdf_density[{tag}]", src, rep, err,
+                   err <= SDF_DENSITY_RTOL * scale and single, ms, pms, *cost,
+                   f"(err {err / scale:.2e} of max {scale:.4g}, tolerance "
+                   f"{SDF_DENSITY_RTOL:g}; against float64: kernel {ek:.2e}, plain "
+                   f"{ep:.2e}; one launch and no other: {single} {counts}; {extra})")
+
+    # the density cache: 128³ grid points, and the device operations of one
+    # build (the pack of tables and weights, then the launch)
+    ko, single, counts = one_launch(lambda: sd.density_grid(net, pack, SDF_RES, vox))
+    po = sd.density_grid_plain(net, pack.tables, SDF_RES, vox)
+    xs = torch.linspace(-1.0, 1.0, SDF_RES, device=dev)
+    exact = density_f64(net, pack, sd.grid_points(xs, torch.arange(SDF_RES ** 3, device=dev)),
+                        vox)
+    ms = cuda_time(lambda: sd.density_grid(net, pack, SDF_RES, vox))
+    pms = cuda_time(lambda: sd.density_grid_plain(net, pack.tables, SDF_RES, vox), iters=3,
+                    warmup=1)
+    n_ops = device_ops(lambda: sd.density_grid(net, sd.pack_sdf(net), SDF_RES, vox))
+    build_ms = cuda_time(lambda: sd.density_grid(net, sd.pack_sdf(net), SDF_RES, vox))
+    record(f"grid {SDF_RES}^3", "nicer_slam_tpu/models/scene_model.py:108", ko, po, exact,
+           ms, pms, density_cache_cost(SDF_RES), single, counts,
+           f"a build with its pack: {n_ops} device operations, {build_ms:.3f} ms")
+    del ko, po, exact
+    # the exact prepass of a render chunk: 2580 rays x 640 z
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    scfg = rs.SamplerConfig(N_samples=64, N_samples_eval=640, N_samples_extra=32)
+    o, d = _sampler_rays(g, dev, GIVEN_RAYS)
+    z, _, _ = rs.uniform_z_vals(scfg, o, d, None)
+    ko, single, counts = one_launch(lambda: sd.density_rays(net, pack, o, d, z, vox))
+    po = sd.density_rays_plain(net, pack.tables, o, d, z, vox)
+    exact = density_f64(net, pack, sd.ray_points(o, d, z), vox).reshape(z.shape)
+    ms = cuda_time(lambda: sd.density_rays(net, pack, o, d, z, vox))
+    pms = cuda_time(lambda: sd.density_rays_plain(net, pack.tables, o, d, z, vox), iters=3,
+                    warmup=1)
+    record(f"rays {GIVEN_RAYS}x640", "nicer_slam_tpu/models/scene_model.py:246", ko, po,
+           exact, ms, pms, sdf_density_cost(z.numel(), nbytes(o, d, z, ko)), single, counts,
+           f"{z.numel()} points, {int((po > 1.0).sum())} with density above 1")
+    del ko, po, exact, net, vox, pack
+    torch.cuda.empty_cache()
 
 
 def check_bf16_kernels(dev, chk: Checks):
@@ -1066,6 +1283,14 @@ def report(kind: str, r, failures) -> None:
                                    and float(terms["warp_loss"]) > 0):
         failures.append(f"{kind}: warp_loss of the frame-{last} mapping call is "
                         f"{float(terms['warp_loss'])}, not finite and positive")
+    # the cache builds and the vis render's exact prepass run K6, not K3
+    counts, builds = r["counts"], r["stats"]["cache_builds"]
+    log(f"  sdf_density launches {counts['sdf_density']}: {builds + 1} cache builds (one "
+        f"at set-up) and {counts['sdf_density'] - builds - 1} render chunks; "
+        f"hash_encode_bf16 launches {counts['hash_encode_bf16']}")
+    if counts["hash_encode_bf16"] or counts["sdf_density"] < builds:
+        failures.append(f"{kind}: K3 launched on the main path, or fewer K6 launches than "
+                        f"cache builds")
     never = [k for k in PATH_KERNELS[kind] if r["counts"][k] == 0]
     if never:
         failures.append(f"{kind}: kernels never launched on the main path: {never}")
@@ -1106,17 +1331,14 @@ def main() -> int:
             f"TFLOP/s float32; card {card}")
         chk = Checks()
         check_hash_kernels(dev, chk)
-        check_demo_kernels(dev, chk)
-        # the backward at 32 rounds (S > 128), with colour
-        check_demo_kernels(dev, chk, 64, 200, "[general 64x200]")
+        for (R, S), tag in zip(COMPOSITE_SHAPES, COMPOSITE_TAGS):
+            check_demo_kernels(dev, chk, R, S, tag)
+        check_hash_tracking(dev, chk)
         check_voxel_kernels(dev, chk)
         check_topk_kernels(dev, chk)
         check_bf16_kernels(dev, chk)
         check_sampler_kernels(dev, chk)
-        b_bytes, b_ops = density_cache_cost()
-        log(f"  K6 density-cache build (128³, not one kernel): bound "
-            f"{bound(b_bytes, b_ops)[0]:.4f} ms ({bound(b_bytes, b_ops)[1]}, "
-            f"{b_bytes / 1e6:.1f} MB, {b_ops / 1e9:.2f} Gop)")
+        check_sdf_density(dev, chk)
         torch.cuda.empty_cache()
 
         runs = {}

@@ -17,16 +17,14 @@
 // 1024, and the top-k colour composite sits near the launch floor. Every
 // kernel uses no atomics (deterministic).
 //
-// composite_fwd_kernel (the plain composite's forward): each lane owns a
-// contiguous chunk of ceil(S/32) samples, the exclusive prefix of the free
-// energy is a warp shuffle scan over the lanes' chunk sums.
-//
-// The weights pass of the colour top-k path (scene_model.py:323-353,
-// training with 0 < color_topk < S) and the backward of both paths keep a
-// ray's samples interleaved over the lanes: lane l holds samples l + 32 j
-// for j < NR rounds (NR = 4 covers S <= 128, the paths' 98 samples; NR =
-// 32 the general path up to 1024), so z and sigma arrive as coalesced
-// 128-byte rows and e, T and w stay in registers for the whole kernel. The
+// Every per-ray kernel (the plain composite's forward, the weights pass of
+// the colour top-k path, scene_model.py:323-353, training with 0 <
+// color_topk < S, and the backward of both paths) keeps a ray's samples
+// interleaved over the lanes: lane l holds samples l + 32 j for j < NR
+// rounds (NR = 4 covers S <= 128, the paths' 98 samples; the plain
+// composite's forward takes NR = 8 and 16 up to 512, the others NR = 32 up
+// to 1024), so z and sigma arrive as coalesced 128-byte rows and e, T and
+// w stay in registers for the whole kernel. The
 // transmittance is an inclusive warp scan per round plus the earlier
 // rounds' carry; a ray's 3 S normal (and colour) floats are read and
 // written as coalesced rows too, each float meeting its sample's weight by
@@ -67,71 +65,11 @@
 namespace {
 
 using nsl::kFull;
-using nsl::warp_excl_prefix;
 using nsl::warp_incl_prefix;
 using nsl::warp_incl_suffix;
 using nsl::warp_sum;
 
 constexpr int kWarpsPerBlock = 4;
-
-__device__ __forceinline__ float free_energy(const float* z, const float* sg,
-                                             int s, int S) {
-  float dist = (s < S - 1) ? (z[s + 1] - z[s]) : 1e10f;
-  return dist * sg[s];
-}
-
-__global__ void composite_fwd_kernel(const float* __restrict__ z,
-                                     const float* __restrict__ sigma,
-                                     const float* __restrict__ rgb,
-                                     const float* __restrict__ nrm,
-                                     float* __restrict__ weights,
-                                     float* __restrict__ rgb_out,
-                                     float* __restrict__ depth_out,
-                                     float* __restrict__ normal_out,
-                                     int64_t R, int S) {
-  int64_t ray = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  int lane = threadIdx.x & 31;
-  if (ray >= R) return;  // uniform per warp
-  const float* zr = z + ray * S;
-  const float* sr = sigma + ray * S;
-  const float* cr = rgb + ray * S * 3;
-  const float* nr = nrm + ray * S * 3;
-  int chunk = (S + 31) / 32;
-  int s0 = min(S, lane * chunk), s1 = min(S, s0 + chunk);
-
-  float loc = 0.0f;
-  for (int s = s0; s < s1; ++s) loc += free_energy(zr, sr, s, S);
-  float run = warp_excl_prefix(loc, lane);
-
-  float a_r = 0.f, a_g = 0.f, a_b = 0.f, a_nx = 0.f, a_ny = 0.f, a_nz = 0.f;
-  float a_w = 0.f, a_wz = 0.f;
-  for (int s = s0; s < s1; ++s) {
-    float e = free_energy(zr, sr, s, S);
-    float w = (1.0f - expf(-e)) * expf(-run);
-    run += e;
-    weights[ray * S + s] = w;
-    a_r += w * cr[3 * s];
-    a_g += w * cr[3 * s + 1];
-    a_b += w * cr[3 * s + 2];
-    a_nx += w * nr[3 * s];
-    a_ny += w * nr[3 * s + 1];
-    a_nz += w * nr[3 * s + 2];
-    a_w += w;
-    a_wz += w * zr[s];
-  }
-  a_r = warp_sum(a_r); a_g = warp_sum(a_g); a_b = warp_sum(a_b);
-  a_nx = warp_sum(a_nx); a_ny = warp_sum(a_ny); a_nz = warp_sum(a_nz);
-  a_w = warp_sum(a_w); a_wz = warp_sum(a_wz);
-  if (lane == 0) {
-    rgb_out[ray * 3] = a_r;
-    rgb_out[ray * 3 + 1] = a_g;
-    rgb_out[ray * 3 + 2] = a_b;
-    normal_out[ray * 3] = a_nx;
-    normal_out[ray * 3 + 1] = a_ny;
-    normal_out[ray * 3 + 2] = a_nz;
-    depth_out[ray] = a_wz / (a_w + 1e-8f);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The interleaved layout: lane l holds samples l + 32 j, j < NR
@@ -189,6 +127,73 @@ __device__ __forceinline__ void weights_of(const float e[NR], int lane,
 // component c of the f-th float of a round's 96 (f = lane + 32 m): (lane + 2 m) % 3
 __device__ __forceinline__ float pick3(const float v[3], int c) {
   return c == 0 ? v[0] : (c == 1 ? v[1] : v[2]);
+}
+
+// The plain composite's forward: the weights, then sum w rgb, sum w n and
+// the depth sum w z / (sum w + 1e-8), the ray's 3 S colour and normal
+// floats read as coalesced rows, each float meeting its sample's weight by
+// a shuffle. Against the earlier design (each lane a contiguous chunk of
+// ceil(S/32) samples, strided loads), in turns on an H100 80GB HBM3 at 700
+// W (tools/hash_kernel_ab.py, PERF.md §6): 0.0101 -> 0.0092 ms at the
+// demo's 4096 x 98, 0.0084 -> 0.0082 at a render chunk's 2580 x 98, and
+// 0.0075 -> 0.0090 at 64 x 200 (64 warps, 8 dependent scan rounds each),
+// a shape no path gives it; the launch floor is ~0.005 ms.
+template <int NR>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+    composite_fwd_kernel(const float* __restrict__ z,
+                         const float* __restrict__ sigma,
+                         const float* __restrict__ rgb,
+                         const float* __restrict__ nrm,
+                         float* __restrict__ weights,
+                         float* __restrict__ rgb_out,
+                         float* __restrict__ depth_out,
+                         float* __restrict__ normal_out, int64_t R, int S) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t ray = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
+  if (ray >= R) return;  // uniform per warp
+  float zz[NR], dist[NR], e[NR], T[NR], ex[NR], w[NR];
+  load_ray<NR>(z + ray * S, sigma + ray * S, S, lane, zz, dist, e);
+  weights_of<NR>(e, lane, T, ex, w);
+
+  float a_w = 0.f, a_wz = 0.f, a_c[3] = {0.f, 0.f, 0.f}, a_n[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    const int s = lane + 32 * j;
+    if (s < S) weights[ray * S + s] = w[j];
+    a_w += w[j];
+    a_wz += w[j] * zz[j];
+  }
+  // the f-th float of round j belongs to sample 32 j + f / 3, whose weight
+  // lane f / 3 holds
+  const float* cr = rgb + ray * 3 * S;
+  const float* nr = nrm + ray * 3 * S;
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      const int f = lane + 32 * m, i = 96 * j + f, c = (lane + 2 * m) % 3;
+      const float wv = __shfl_sync(kFull, w[j], f / 3);
+      const bool in = i < 3 * S;
+      const float vc = in ? cr[i] * wv : 0.0f;
+      const float vn = in ? nr[i] * wv : 0.0f;
+      a_c[0] += c == 0 ? vc : 0.0f;
+      a_c[1] += c == 1 ? vc : 0.0f;
+      a_c[2] += c == 2 ? vc : 0.0f;
+      a_n[0] += c == 0 ? vn : 0.0f;
+      a_n[1] += c == 1 ? vn : 0.0f;
+      a_n[2] += c == 2 ? vn : 0.0f;
+    }
+  }
+  a_w = warp_sum(a_w);
+  a_wz = warp_sum(a_wz);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    a_c[c] = warp_sum(a_c[c]);
+    a_n[c] = warp_sum(a_n[c]);
+  }
+  if (lane < 3) rgb_out[ray * 3 + lane] = pick3(a_c, lane);
+  if (lane >= 3 && lane < 6) normal_out[ray * 3 + lane - 3] = pick3(a_n, lane - 3);
+  if (lane == 6) depth_out[ray] = a_wz / (a_w + 1e-8f);
 }
 
 // the pick's sort key: ascending (~weight bits, index) is descending
@@ -623,11 +628,18 @@ int nsl_composite_fwd(const void* z, const void* sigma, const void* rgb,
                       void* stream) {
   if (R == 0) return 0;
   if (S < 1 || S > 32 * 16) return (int)cudaErrorInvalidValue;
-  composite_fwd_kernel<<<ray_blocks(R), 32 * kWarpsPerBlock, 0,
-                         (cudaStream_t)stream>>>(
-      (const float*)z, (const float*)sigma, (const float*)rgb,
-      (const float*)nrm, (float*)weights, (float*)rgb_out, (float*)depth_out,
-      (float*)normal_out, R, S);
+  const dim3 grid(ray_blocks(R));
+  const cudaStream_t st = (cudaStream_t)stream;
+#define NSL_FWD_ARGS                                                        \
+  (const float*)z, (const float*)sigma, (const float*)rgb, (const float*)nrm, \
+      (float*)weights, (float*)rgb_out, (float*)depth_out, (float*)normal_out, R, S
+  if (S <= 32 * 4)
+    composite_fwd_kernel<4><<<grid, 32 * kWarpsPerBlock, 0, st>>>(NSL_FWD_ARGS);
+  else if (S <= 32 * 8)
+    composite_fwd_kernel<8><<<grid, 32 * kWarpsPerBlock, 0, st>>>(NSL_FWD_ARGS);
+  else
+    composite_fwd_kernel<16><<<grid, 32 * kWarpsPerBlock, 0, st>>>(NSL_FWD_ARGS);
+#undef NSL_FWD_ARGS
   return (int)cudaGetLastError();
 }
 

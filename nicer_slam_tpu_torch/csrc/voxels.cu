@@ -41,27 +41,19 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "voxel_grid.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 
-// flat counter index of point n, or -1 for a boundary point (any
-// |x| > 0.99)
+// flat counter index of point n, or -1 for a boundary point
 __device__ __forceinline__ int voxel_index(const float* __restrict__ x, int64_t n,
                                            int res) {
-  int flat = 0;
-  bool boundary = false;
+  float v[3];
 #pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    float v = __ldg(x + n * 3 + d);
-    boundary |= fabsf(v) > 0.99f;
-    // the plain version's ((x + 1) / 2) * res, then truncation
-    float u = __fmul_rn(__fadd_rn(v, 1.0f), 0.5f);
-    int i = (int)__fmul_rn(u, (float)res);
-    i = min(max(i, 0), res - 1);
-    flat = flat * res + i;
-  }
-  return boundary ? -1 : flat;
+  for (int d = 0; d < 3; ++d) v[d] = __ldg(x + n * 3 + d);
+  return nsl::voxel_flat(v, res);
 }
 
 __global__ void voxel_scatter_kernel(const float* __restrict__ x,
@@ -89,10 +81,7 @@ __global__ void voxel_beta_kernel(const float* __restrict__ x,
   if (n >= N) return;
   const int i = voxel_index(x, n, res);
   const float count = i >= 0 ? __ldg(counter + i) : 0.0f;
-  // (-B 1e-4) count D, exp, A e + C: each rounded as the plain version
-  // rounds it (no fused multiply-add)
-  const float e = expf(__fmul_rn(__fmul_rn(neg_b_1e4, count), d));
-  beta[n] = __fadd_rn(__fmul_rn(a, e), c);
+  beta[n] = nsl::voxel_beta(count, neg_b_1e4, d, a, c);
 }
 
 inline unsigned blocks_for(int64_t n) {

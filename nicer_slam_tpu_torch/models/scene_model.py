@@ -3,8 +3,8 @@ nicer_slam_tpu/models/scene_model.py).
 
 Rays live in one flat ``[R]`` batch with a per-ray keyframe-slot id. The
 path: rays -> importance sampler (K5, reading the cached ``[res³]`` prepass
-density; an eval render without a cache takes the exact prepass, the SDF
-network through K3 at every prepass sample) -> coarse+fine SDF with
+density that K6 builds; an eval render without a cache takes the exact
+prepass, K6 at every prepass sample) -> coarse+fine SDF with
 analytic normals (K1) -> Laplace density with the voxel-counter β (K7) ->
 per-ray composite (K4; in training with ``color_topk`` the weights pass
 picks the top-k samples and the color network, K2 on the color grid, runs
@@ -28,6 +28,7 @@ import torch.nn as nn
 from ..config import Config
 
 from ..ops import density as density_ops
+from ..ops import sdf_density
 from ..ops.ray_sampling import (SamplerConfig, importance_sample,
                                  importance_sample_given, uniform_z_vals)
 from ..ops.safe_math import safe_norm
@@ -109,58 +110,52 @@ def init_voxels(cfg: SceneConfig, device=None) -> torch.Tensor:
     return torch.zeros((cfg.voxel_res,) * 3, dtype=torch.float32, device=device)
 
 
+def _learned_beta(cfg: SceneConfig, model: SceneModel) -> Optional[torch.Tensor]:
+    """volsdf_laplace's learned β; None for the voxel counter's β."""
+    if cfg.density_method == "volsdf_laplace":
+        return density_ops.learned_beta(model.density["beta"])
+    return None
+
+
 def _density(cfg: SceneConfig, model: SceneModel, voxels, sdf_flat, pts_flat,
              beta_scale=None):
-    if cfg.density_method == "volsdf_laplace":
-        beta = density_ops.learned_beta(model.density["beta"])
-        if beta_scale is not None:
-            beta = beta * beta_scale
-        return density_ops.laplace_density(sdf_flat, beta)
-    beta = density_ops.grid_predefined_beta(voxels, pts_flat, cfg.voxel_res)
-    if beta_scale is not None:
-        beta = beta * beta_scale
-    return density_ops.laplace_density(sdf_flat[:, None], beta)[:, 0]
+    return sdf_density.density_from_sdf(sdf_flat, pts_flat, voxels,
+                                        _learned_beta(cfg, model), beta_scale,
+                                        cfg.voxel_res)
 
 
 @torch.no_grad()
 def build_density_cache(cfg: SceneConfig, model: SceneModel,
-                        voxels: torch.Tensor, n_chunks: int = 16) -> torch.Tensor:
+                        voxels: torch.Tensor) -> torch.Tensor:
     """Prepass density volume [res³] on the uniform linspace(-1, 1, res)
     grid, flat index (x·res + y)·res + z: the SDF from the bf16-packed
-    coarse and fine tables (K3), as the JAX package builds it, plus the
-    voxel-counter β (K7). The sampler (K5) reads it trilinearly; the runner
-    refreshes it. The JAX package's [res³, 8] cell-blocked layout holds the
-    same values: its reads clip the cell to res - 2, so they never wrap."""
-    res = cfg.sampler.prepass_cache_res
-    dev = voxels.device
-    xs = torch.linspace(-1.0, 1.0, res, dtype=torch.float32, device=dev)
-    grid = torch.stack(torch.meshgrid(xs, xs, xs, indexing="ij"), -1).reshape(-1, 3)
-    packed = fields.pack_combine_tables(model.implicit)
-    out = []
-    for pts in grid.chunk(n_chunks):
-        pts = pts.contiguous()
-        sdf = fields.combine_sdf_packed(model.implicit, packed, pts, "fine")
-        out.append(_density(cfg, model, voxels, sdf, pts))
-    return torch.cat(out)
+    coarse and fine tables, as the JAX package builds it, and the
+    voxel-counter β, in one K6 launch on the card
+    (``sdf_density.density_grid``). The sampler (K5) reads it trilinearly;
+    the runner refreshes it. The JAX package's [res³, 8] cell-blocked
+    layout holds the same values: its reads clip the cell to res - 2, so
+    they never wrap."""
+    return sdf_density.density_grid(model.implicit, sdf_density.pack_sdf(model.implicit),
+                                    cfg.sampler.prepass_cache_res, voxels,
+                                    _learned_beta(cfg, model), voxel_res=cfg.voxel_res)
 
 
 @torch.no_grad()
 def _exact_prepass(cfg: SceneConfig, model: SceneModel, voxels: torch.Tensor,
-                   packed_tables: Dict[str, torch.Tensor], cam_loc: torch.Tensor,
+                   sdf_pack: sdf_density.SdfPack, cam_loc: torch.Tensor,
                    ray_dirs: torch.Tensor, perm: torch.Tensor, eik_idx: torch.Tensor,
                    beta_scale=None):
     """The exact prepass of an eval render (scene_model.py:246-287 with
-    ray_sampling.py:112-163, training=False): the SDF network from the
-    bf16-packed tables (K3) and the voxel β (K7) at the 640 unjittered z of
-    every ray, then K5 on those densities."""
+    ray_sampling.py:112-163, training=False): the density at the 640
+    unjittered z of every ray in one K6 launch (``sdf_density.density_rays``:
+    the SDF network from the bf16-packed tables and the voxel β), then K5
+    on those densities."""
     sc = cfg.sampler
-    R = cam_loc.shape[0]
     z, _, _ = uniform_z_vals(sc, cam_loc, ray_dirs, None)
-    pts = (cam_loc[:, None, :] + z[..., None] * ray_dirs[:, None, :]).reshape(-1, 3)
-    sdf = fields.combine_sdf_packed(model.implicit, packed_tables, pts, "fine")
-    density = _density(cfg, model, voxels, sdf, pts, beta_scale)
-    return importance_sample_given(sc, z, density.reshape(R, sc.N_samples_eval),
-                                   perm, eik_idx)
+    density = sdf_density.density_rays(model.implicit, sdf_pack, cam_loc, ray_dirs, z,
+                                       voxels, _learned_beta(cfg, model), beta_scale,
+                                       cfg.voxel_res)
+    return importance_sample_given(sc, z, density, perm, eik_idx)
 
 
 class RayBatch(NamedTuple):
@@ -211,20 +206,20 @@ def render_rays(cfg: SceneConfig, model: SceneModel, voxels: torch.Tensor,
                 is_mapping: bool = False, edges: Optional[FlowEdges] = None,
                 full_rgb: Optional[torch.Tensor] = None,
                 density_cache: Optional[torch.Tensor] = None,
-                packed_tables: Optional[Dict[str, torch.Tensor]] = None,
+                sdf_pack: Optional[sdf_density.SdfPack] = None,
                 beta_scale: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Forward pass over a flat ray batch. With ``is_mapping`` the output
     also holds the updated voxel counter (``voxels``) and the eikonal
     gradients (``grad_theta``, ``grad_theta_nei``). Without a
     ``density_cache`` the prepass is exact (eval renders only) and reads
-    ``packed_tables``, the caller's ``fields.pack_combine_tables`` of the
-    model, packed once for all the chunks of a render."""
+    ``sdf_pack``, the caller's ``sdf_density.pack_sdf`` of the model,
+    packed once for all the chunks of a render."""
     if density_cache is None and training:
         raise NotImplementedError(
             "training with the exact prepass is not ported: pass the density cache")
-    if density_cache is None and packed_tables is None:
-        raise ValueError("the exact prepass reads packed_tables "
-                         "(fields.pack_combine_tables of the model)")
+    if density_cache is None and sdf_pack is None:
+        raise ValueError("the exact prepass reads sdf_pack "
+                         "(sdf_density.pack_sdf of the model)")
     R = batch.uv.shape[0]
     K = batch.intrinsics[batch.kf_slot]
     c2w = batch.poses[batch.kf_slot]
@@ -237,7 +232,7 @@ def render_rays(cfg: SceneConfig, model: SceneModel, voxels: torch.Tensor,
         perm = torch.as_tensor(np.linspace(0, ne - 1, cfg.sampler.N_samples_extra)
                                .astype(np.int64), device=ray_dirs.device)
     if density_cache is None:
-        z_vals, z_eik = _exact_prepass(cfg, model, voxels, packed_tables, cam_loc.detach(),
+        z_vals, z_eik = _exact_prepass(cfg, model, voxels, sdf_pack, cam_loc.detach(),
                                        ray_dirs.detach(), perm, draws.eik_idx, beta_scale)
     else:
         z_vals, z_eik = importance_sample(

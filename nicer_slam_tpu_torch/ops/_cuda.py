@@ -41,7 +41,7 @@ KERNELS = ("hash_encode_with_grad.fwd", "hash_encode_with_grad.bwd",
            "composite.fwd", "composite.bwd",
            "weights_topk.fwd", "weights_topk.bwd", "topk_rgb.fwd", "topk_rgb.bwd",
            "importance_sample", "importance_sample_given",
-           "voxels.scatter", "voxels.beta")
+           "voxels.scatter", "voxels.beta", "sdf_density")
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _P = ctypes.c_void_p
@@ -82,6 +82,10 @@ _SIGNATURES = {
     "nsl_voxel_scatter": [_P, _P, _I64, _I, _P],
     # x, counter, beta, N, res, -b·1e-4, d, a, c, stream
     "nsl_voxel_beta": [_P, _P, _P, _I64, _I, _F, _F, _F, _F, _P],
+    # weights, table_c, meta_c, scl_c, table_f, meta_f, scl_f, xs, res, o, d,
+    # z, S, counter, vres, -b·1e-4, d, a, c, beta, beta_scale, out, N, stream
+    "nsl_sdf_density": [_P] * 8 + [_I] + [_P] * 3 + [_I, _P, _I] + [_F] * 4 + [_P] * 3
+                       + [_I64, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -165,6 +169,16 @@ def launch(kernel: str, entry: str, work: int, *args) -> None:
         raise RuntimeError(f"{entry}: CUDA error {rc}")
     if work > 0:
         _launches[kernel] += 1
+
+
+def on_card(name: str, t: torch.Tensor) -> bool:
+    """False for a CPU tensor (the plain version runs), True for a CUDA one
+    (the kernel runs); raises for any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return True
 
 
 def ptr(t: Optional[torch.Tensor]):

@@ -26,6 +26,9 @@ BETA_A = 0.01207724805
 BETA_B = 0.0116544676
 BETA_C = 0.0023639156
 BETA_D = 5.37538
+# -B·1e-4 in float32, as the plain version's product with a float32 count
+# rounds it
+NEG_B_1E4 = float(torch.tensor(-BETA_B * 1e-4, dtype=torch.float32))
 
 
 def laplace_density(sdf: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
@@ -98,8 +101,7 @@ def grid_predefined_beta(voxels: torch.Tensor, x: torch.Tensor,
     beta = torch.empty((x.shape[0], 1), dtype=torch.float32, device=x.device)
     _cuda.launch("voxels.beta", "nsl_voxel_beta", x.shape[0], x.data_ptr(),
                  voxels.data_ptr(), beta.data_ptr(), x.shape[0], voxel_res,
-                 float(torch.tensor(-BETA_B * 1e-4, dtype=torch.float32)),
-                 BETA_D, BETA_A, BETA_C)
+                 NEG_B_1E4, BETA_D, BETA_A, BETA_C)
     return beta
 
 

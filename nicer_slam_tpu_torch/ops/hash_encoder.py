@@ -10,9 +10,11 @@ nicer_slam_tpu/ops/hash_encoder.py): kernels K1 and K2.
   * ``hash_encode`` (K2): features only; the color grid (16 levels × 2
     channels, 2^24-entry hashed levels) and the SDF grids' plain forward.
   * ``hash_encode_bf16`` (K3): features only, no gradient, from a table
-    rounded to bfloat16 (``pack_table_bf16``, ``[T, C]``); the SDF grids
-    in the density-cache build and the exact prepass of an eval render,
-    the JAX package's packed-bf16 inference encode.
+    rounded to bfloat16 (``pack_table_bf16``, ``[T, C]``), the JAX
+    package's packed-bf16 inference encode: the SDF grids in the plain
+    version of K6 (``ops/sdf_density``); on the card K6's kernel gathers
+    the same features itself, with K3's row loader and geometry
+    (``csrc/hash_grid.cuh``).
 
 Tables are ``[T, C]`` float32 (a corner's C channels are one row), the
 transpose of the JAX package's ``[C, T]``; ``slam/checkpoint.py``

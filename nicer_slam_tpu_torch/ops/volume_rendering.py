@@ -258,15 +258,6 @@ def _topk_rgb_bwd(topk_w, wsum, rgb, g_out):
     return g_w, g_wsum, g_rgb
 
 
-def _on_card(name: str, t: torch.Tensor) -> bool:
-    """False for a CPU tensor (plain version), True for CUDA; raises else."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {t.device}")
-    return True
-
-
 # the kernels' limits (csrc/composite.cu returns cudaErrorInvalidValue
 # outside them): the wrappers raise instead, with no fallback
 def check_weights_topk_shape(S: int, Kc: int) -> None:
@@ -292,7 +283,7 @@ def weights_topk(z_vals: torch.Tensor, density: torch.Tensor,
     normal_map [R,3], topk_w [R,Kc], wsum [R,1], picks [R,Kc] int64 flat
     indices ray·S + i); gradients reach density and normals through the
     first five. Plain version on CPU, kernel on CUDA."""
-    if not _on_card("weights_topk", z_vals):
+    if not _cuda.on_card("weights_topk", z_vals):
         return weights_topk_plain(z_vals, density, normals, Kc)
     R, S = z_vals.shape
     check_weights_topk_shape(S, Kc)
@@ -306,7 +297,7 @@ def topk_rgb(topk_w: torch.Tensor, wsum: torch.Tensor, rgb: torch.Tensor):
     """K4's top-k colour composite: topk_w [R,Kc], wsum [R,1],
     rgb [R,Kc,3] -> [R,3]; gradients to all three. Plain version on CPU,
     kernel on CUDA."""
-    if not _on_card("topk_rgb", topk_w):
+    if not _cuda.on_card("topk_rgb", topk_w):
         return topk_rgb_plain(topk_w, wsum, rgb)
     R, Kc = topk_w.shape
     check_topk_rgb_shape(Kc)
@@ -321,7 +312,7 @@ def composite(z_vals: torch.Tensor, density: torch.Tensor, rgb: torch.Tensor,
     """K4: z_vals [R,S] (no gradient), density [R,S], rgb [R,S,3],
     normals [R,S,3] -> (weights [R,S], rgb_values [R,3], depth [R,1],
     normal_map [R,3]). Plain version on CPU, kernel on CUDA."""
-    if not _on_card("composite", z_vals):
+    if not _cuda.on_card("composite", z_vals):
         return composite_plain(z_vals, density, rgb, normals)
     R, S = z_vals.shape
     check_composite_shape(S)

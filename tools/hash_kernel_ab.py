@@ -25,8 +25,9 @@ libraries run on the same operands, at chip_smoke.py's shapes:
     weights pass forward (with torch.topk of the weights as the library's
     pick alone in the same turns; also on chip_smoke's surface-like
     densities at 8192 rays), its backward, the top-k colour composite
-    forward and backward; and the plain composite's backward with colour
-    at the demo's 4096 x 98;
+    forward and backward; the plain composite's backward with colour at
+    the demo's 4096 x 98, and its forward at chip_smoke.COMPOSITE_SHAPES
+    (the demo's mapping rays, a render chunk, 64 x 200);
   * K7 at chip_smoke.VOXEL_CASES: the scatter (the 1 MB counter copied,
     as update_voxels does, then the launch) and the beta read.
 
@@ -59,7 +60,7 @@ import chip_smoke  # noqa: E402
 
 ENTRIES = ("nsl_hash_encode_fwd", "nsl_hash_encode_bwd", "nsl_hash_encode_bf16_fwd",
            "nsl_importance_sample", "nsl_importance_sample_given", "nsl_weights_topk_fwd",
-           "nsl_composite_bwd", "nsl_topk_rgb_fwd", "nsl_topk_rgb_bwd", "nsl_voxel_scatter",
+           "nsl_composite_fwd", "nsl_composite_bwd", "nsl_topk_rgb_fwd", "nsl_topk_rgb_bwd", "nsl_voxel_scatter",
            "nsl_voxel_beta")
 SOURCES = ("hash_encoder.cu", "sampler.cu", "composite.cu", "voxels.cu")
 
@@ -121,10 +122,12 @@ def hash_cases(dev, calls, rows_out):
         L, C, T = spec.num_levels, spec.level_dim, spec.total_entries
         table = torch.rand((T, C), generator=g, device=dev) * 2 - 1
         meta, scl = he._level_tables(spec, 1.0, str(dev))
-        # this side: the accumulator its wrapper keeps; the earlier side
-        # zeroes its own on every call
+        # this side: the accumulator its wrapper keeps; the earlier side a
+        # zeroed one of its own (since 84c8c39 the entry point needs its
+        # scratch zero on entry and leaves it zero; an earlier one zeroes
+        # it itself)
         scratch = {"this": he.fixed_point_scratch(spec, dev),
-                   "earlier": torch.empty(T * C + L, dtype=torch.int64, device=dev)}
+                   "earlier": torch.zeros(T * C + L, dtype=torch.int64, device=dev)}
         acc = scratch["this"][:T * C]
         for order in ("ray", "uniform"):
             x = chip_smoke.hash_points(g, dev, kind, order)
@@ -424,6 +427,32 @@ def composite_cases(dev, calls, rows_out, S: int = 98, Kc: int = 16):
         agreement=dict(grad_rel_l2_vs_plain=rel), times_ms=turns({s_: cbwd(s_) for s_ in calls}),
         bound_ms=chip_smoke.bound(chip_smoke.nbytes(z, dens, rgb, nrm, *gouts, *outs["this"]),
                                   R * S * 60)[0]))
+    # ---- the plain composite's forward
+    for R, S_ in chip_smoke.COMPOSITE_SHAPES:
+        z = torch.sort(torch.rand((R, S_), generator=g, device=dev) * 3.0, dim=1)[0]
+        dens = torch.rand((R, S_), generator=g, device=dev) * 20.0
+        rgb = torch.rand((R, S_, 3), generator=g, device=dev)
+        nrm = torch.randn((R, S_, 3), generator=g, device=dev)
+        outs = {s_: [torch.empty(sh, **f32) for sh in ((R, S_), (R, 3), (R, 1), (R, 3))]
+                for s_ in calls}
+
+        def cfwd(side, z=z, dens=dens, rgb=rgb, nrm=nrm, R=R, S_=S_):
+            return lambda: calls[side](
+                "nsl_composite_fwd", z.data_ptr(), dens.data_ptr(), rgb.data_ptr(),
+                nrm.data_ptr(), *(t.data_ptr() for t in outs[side]), R, S_)
+
+        for side in calls:
+            cfwd(side)()
+        torch.cuda.synchronize()
+        ref = vr.composite_plain(z, dens, rgb, nrm)
+        err = {s_: max(chip_smoke.max_abs(a, b) / float(b.abs().max())
+                       for a, b in zip(outs[s_], ref)) for s_ in calls}
+        rows_out.append(dict(
+            case=f"K4 composite.fwd {R}x{S_}", points=R * S_,
+            ok=err["this"] <= chip_smoke.VAL_RTOL, agreement=dict(rel_err_vs_plain=err),
+            times_ms=turns({s_: cfwd(s_) for s_ in calls}),
+            bound_ms=chip_smoke.bound(chip_smoke.nbytes(z, dens, rgb, nrm, *outs["this"]),
+                                      R * S_ * 30)[0]))
 
 
 def voxel_cases(dev, calls, rows_out):

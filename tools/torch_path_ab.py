@@ -14,11 +14,12 @@ iteration, ms per density-cache build, s/frame (the loop over the 11
 frames, card synchronised at both ends), the peak device memory of the
 set-up and the loop, and after the loop the vis hook
 once (vis s: a full frame rendered with the exact prepass, the panels and
-the mesh) and, before it, that render alone (render s). Last, untimed,
-the device work of one more tracking call and one mapping iteration
-(without BA) under torch.profiler: the device operations (kernels, and
-memory copies and sets) per tracking iteration and per mapping iteration
-(0 where the profiler records no device activity).
+the mesh) and, before it, that render alone (render s), with the peak
+device memory of the two (vis peak). Last, untimed, the device work of
+one more tracking call, one mapping iteration (without BA) and one
+density-cache build under torch.profiler: the device operations (kernels,
+and memory copies and sets) per tracking iteration, per mapping iteration
+and per build (0 where the profiler records no device activity).
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ loop = time.perf_counter() - t
 peak = torch.cuda.max_memory_allocated() / 2 ** 30
 s = r.timer.summary()
 from nicer_slam_tpu_torch.utils.plots import vis_hook
+torch.cuda.reset_peak_memory_stats()
 t = time.perf_counter()
 r.render_full_image(r.n_images - 1)
 torch.cuda.synchronize()
@@ -70,7 +72,9 @@ t = time.perf_counter()
 vis_hook(r, r.n_images - 1)
 torch.cuda.synchronize()
 vis = time.perf_counter() - t
-# device operations of one tracking call and one mapping iteration
+vis_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+# device operations of one tracking call, one mapping iteration and one
+# density-cache build
 ops = {}
 def profiled(name, fn, per):
     def wrapped(*a, **k):
@@ -91,25 +95,29 @@ try:  # after every timed phase: a profiler fault loses only these counts
     r.track(r.n_images - 1)
     r.num_mapping_iters = 1
     r.map(r.n_images - 1)
+    profiled("cache", r._refresh_cache, 1)()
 except Exception as exc:
     print(f"profiler counts failed: {exc!r}", file=sys.stderr)
 nan = dict(kernels=float("nan"), device_ops=float("nan"))
-ops = {k: ops.get(k, nan) for k in ("track", "map")}
+ops = {k: ops.get(k, nan) for k in ("track", "map", "cache")}
 print("RESULT " + json.dumps(dict(
     s_per_frame=loop / r.n_images, ms_per_map_iter=s["mapping"]["mean_ms"],
     ms_per_track_iter=1000 * s["tracking"]["total_s"] / (s["tracking"]["count"] * r.num_cam_iters),
     ms_per_cache_build=s.get("cache", {}).get("mean_ms", float("nan")),
-    render_s=render, vis_s=vis, peak_mem_GiB=peak,
+    render_s=render, vis_s=vis, peak_mem_GiB=peak, vis_peak_mem_GiB=vis_peak,
     kernels_per_track_iter=ops["track"]["kernels"],
     kernels_per_map_iter=ops["map"]["kernels"],
     device_ops_per_track_iter=ops["track"]["device_ops"],
     device_ops_per_map_iter=ops["map"]["device_ops"],
+    kernels_per_cache_build=ops["cache"]["kernels"],
+    device_ops_per_cache_build=ops["cache"]["device_ops"],
     phases_s={k: v["total_s"] for k, v in s.items()})))
 """
 
 METRICS = ("ms_per_map_iter", "ms_per_track_iter", "ms_per_cache_build", "s_per_frame",
-           "render_s", "vis_s", "peak_mem_GiB", "kernels_per_track_iter", "kernels_per_map_iter",
-           "device_ops_per_track_iter", "device_ops_per_map_iter")
+           "render_s", "vis_s", "peak_mem_GiB", "vis_peak_mem_GiB", "kernels_per_track_iter",
+           "kernels_per_map_iter", "kernels_per_cache_build", "device_ops_per_track_iter",
+           "device_ops_per_map_iter", "device_ops_per_cache_build")
 
 
 def one_run(tree: str, kind: str, data_dir: str, tag: str) -> dict:
