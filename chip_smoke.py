@@ -7,7 +7,8 @@ Phases, in order (any failure exits non-zero without the final line):
   1. card: require CUDA; print the card's name and power limit. Two
      synthetic scans start generating in the background (processes this
      script waits for): the demo scan (11 frames, 720x1280, flow) and the
-     flagship scan (11 frames, 680x1200, flow and GT depth).
+     flagship scan (11 frames, 680x1200, flow and GT depth, and 2 held-out
+     views for the extrapolation eval).
   2. build: compile csrc/*.cu for sm_90a (one nvcc per source, in
      parallel; plain C interface).
   3. kernels: each hand-written kernel against its plain PyTorch version on
@@ -54,11 +55,22 @@ Phases, in order (any failure exits non-zero without the final line):
      100/100 iterations, colour top-16, warp loss, GT depth) the same way,
      with the JAX package's camera free-space guard on (see PATHS).
      Launch counters are reset just before and read just after each run.
-  6. repeat: the demo configuration twice more in this process, 6 frames
+  6. eval: the port's checkpoint battery (evaluation/eval_checkpoint.py,
+     its CLI's main) on the flagship run's directory, on the card: eval_cam
+     (ATE, rotation drift), the mesh at 256³ against the analytic scene
+     mesh (accuracy, completion, completion ratio, normal consistency,
+     F-score), the rendered-depth bias probe, PSNR / SSIM / LPIPS at the
+     interpolated view 2 and the 2 extrapolated views. It fails if a
+     section holds an error or a non-finite value, if K6, K5 given, K4's
+     composite.fwd, K1 fwd or K2 fwd never launched in it, or if K3 did;
+     then render_full_image(2, pose=its estimate) must equal
+     render_full_image(2) bit for bit, and LPIPS on the card must agree
+     with its CPU value on that view within 1e-4.
+  7. repeat: the demo configuration twice more in this process, 6 frames
      each (mapping at frames 0 and 5), same seed and scan, through the
      runner's loop; every per-frame pose, every mapping call's loss terms
      and every final model and voxel tensor must be the same bit for bit.
-  7. report: per run, translation error against GT per frame, the loss
+  8. report: per run, translation error against GT per frame, the loss
      terms of each mapping call's last iteration, launch counts, s/frame,
      ms per track and map iteration, the runner's phase times, peak memory;
      the final model checkpoint is read back and held against the model;
@@ -100,7 +112,7 @@ PATHS = {
     # camera outside the surface.
     "flagship": dict(conf=os.path.join(ROOT, "confs", "replica", "runconf_replica_2.conf"),
                      H=680, W=1200, scan_id=2, data_dir='"../Datasets/processed/Replica"',
-                     n_images=2000,
+                     n_images=2000, eval_views=2,
                      edits=[("    flow_weight = 0.001\n",
                              "    flow_weight = 0.001\n    cam_freespace_w = 1.0\n")]),
 }
@@ -120,6 +132,15 @@ PATH_KERNELS = {
                  "topk_rgb.fwd", "topk_rgb.bwd", "importance_sample",
                  "importance_sample_given", "voxels.scatter", "voxels.beta"),
 }
+# kernels that the evaluation phase must launch (the eval renders: K6's
+# exact prepass, K5 given densities, K4's plain composite, K1's forward for
+# the normals and the mesh, K2's forward for the colours), and K3, which it
+# must not
+EVAL_KERNELS = ("sdf_density", "importance_sample_given", "composite.fwd",
+                "hash_encode_with_grad.fwd", "hash_encode.fwd")
+# LPIPS on the card against its CPU value on the same view (float32
+# convolutions in other orders, no TF32)
+LPIPS_ATOL = 1e-4
 # (tolerance) values: max|kernel - plain| <= VAL_RTOL * max|plain|, per
 # output; gradients written with float atomics (order changes from run to
 # run): ||kernel - plain||_2 <= GRAD_REL_L2 * ||plain||_2
@@ -1075,12 +1096,17 @@ def scene_dir(kind: str) -> str:
 
 
 def write_scene(kind: str) -> None:
-    """Generate one run's synthetic scan (run in a child process)."""
-    from nicer_slam_tpu_torch.datasets.synthetic import generate
+    """Generate one run's synthetic scan, and its held-out views where the
+    run is evaluated (run in a child process)."""
+    from nicer_slam_tpu_torch.datasets.synthetic import generate, generate_eval
     p, data_dir = PATHS[kind], scene_dir(kind)
     shutil.rmtree(data_dir, ignore_errors=True)
+    shutil.rmtree(data_dir + "_eval", ignore_errors=True)
     generate(data_dir, scan_id=p["scan_id"], n_frames=N_FRAMES, H=p["H"], W=p["W"],
              keyframe_every=10, with_flow=True)
+    if p.get("eval_views"):
+        generate_eval(data_dir, scan_id=p["scan_id"], n_views=p["eval_views"], H=p["H"],
+                      W=p["W"])
     open(os.path.join(data_dir, "complete"), "w").close()
 
 
@@ -1303,6 +1329,106 @@ def report(kind: str, r, failures) -> None:
         log(f"  mesh {plys[-1]}: {len(mesh['verts'])} vertices, {len(mesh['faces'])} faces")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the evaluation battery on the flagship run
+# ---------------------------------------------------------------------------
+
+def run_eval(dev, flagship: dict, data_dir: str) -> dict:
+    """The port's eval_checkpoint CLI on the flagship run's directory, on
+    the card, with the launch counters reset just before and read just
+    after; then, outside the counted phase, the pose= render check and
+    LPIPS on the card against the CPU at view 2."""
+    import torch
+    from nicer_slam_tpu_torch.evaluation import eval_checkpoint
+    from nicer_slam_tpu_torch.models.lpips import LPIPSMetric
+    from nicer_slam_tpu_torch.ops import _cuda
+
+    runner = flagship["runner"]
+    argv = ["--rundir", runner.rundir, "--mesh_res", str(MESH_RESOLUTION),
+            "--synthetic_gt_mesh", "--eval_data_dir", data_dir + "_eval",
+            "--n_eval_views", str(PATHS["flagship"]["eval_views"]), "--device", str(dev)]
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t = time.perf_counter()
+    res = eval_checkpoint.main(argv)
+    torch.cuda.synchronize()
+    phase_s = time.perf_counter() - t
+    counts = _cuda.launch_counts()
+
+    # the pose= path: view 2 at its estimated pose, against the default
+    renders, render_s = [], []
+    for kw in ({}, {"pose": runner.est_pose_all[2]}):
+        t = time.perf_counter()
+        renders.append(runner.render_full_image(2, **kw))
+        render_s.append(time.perf_counter() - t)
+    same_pose = all(same_bits(renders[0][k], renders[1][k]) for k in renders[0])
+    gt_rgb = runner.dataset.frame(2)["rgb"].reshape(runner.H, runner.W, 3)
+    lp = {where: LPIPSMetric(os.path.join(ROOT, "lpips_alex.npz"), device=d)
+          for where, d in (("card", dev), ("cpu", "cpu"))}
+    lp_vals = {where: m(renders[0]["rgb"], gt_rgb) for where, m in lp.items()}
+    return dict(res=res, counts=counts, phase_s=phase_s, render_s=render_s,
+                same_pose=same_pose, lpips=lp_vals,
+                lpips_metric=lp["cpu"].metric_name)
+
+
+def report_eval(e: dict, failures) -> None:
+    """Print the battery's quality numbers and times; append what failed."""
+    import numpy as np
+    from nicer_slam_tpu_torch.evaluation.eval_checkpoint import failed_sections
+
+    res, counts = e["res"], e["counts"]
+    cam = res.get("eval_cam", {})
+    rec = res.get("eval_rec", {})
+    it = res.get("eval_rendering_interpolate", {})
+    ex = res.get("eval_rendering_extrapolate", {})
+    rows = res["depth_bias"] if isinstance(res.get("depth_bias"), list) else []
+    g = lambda d, k: d.get(k, float("nan"))
+    log(f"  eval_cam: ATE RMSE {g(cam, 'ate_rmse'):.6g}, rotation drift "
+        f"{g(cam, 'rot_drift_deg'):.6g} deg (max {g(cam, 'rot_drift_max_deg'):.6g}), "
+        f"sim3 rot error {g(cam, 'rot_error_deg'):.6g} deg, {g(cam, 'n_frames'):g} frames")
+    log(f"  eval_rec (mesh {MESH_RESOLUTION}^3 vs the analytic scene mesh): accuracy "
+        f"{g(rec, 'accuracy'):.6g}, completion {g(rec, 'completion'):.6g}, completion ratio "
+        f"{g(rec, 'completion_ratio_5cm'):.6g}, normal consistency "
+        f"{g(rec, 'normal_consistency'):.6g}, F-score@0.01/0.015/0.02 "
+        f"{g(rec, 'fscore@0.01'):.6g}/{g(rec, 'fscore@0.015'):.6g}/{g(rec, 'fscore@0.02'):.6g}")
+    for row in rows:
+        log(f"  depth bias frame {row['frame']}: median ratio {row['depth_ratio_median']:.6g}, "
+            f"MAE {row['depth_mae']:.6g}")
+    for name, d in (("interpolate", it), ("extrapolate", ex)):
+        log(f"  {name} ({g(d, 'n_views'):g} views): PSNR {g(d, 'psnr'):.6g}, SSIM "
+            f"{g(d, 'ssim'):.6g}, {e['lpips_metric']} {g(d, 'lpips'):.6g}")
+    log(f"  eval phase {e['phase_s']:.2f} s (wall {res.get('wall_s')} s inside the battery); "
+        f"s per eval render (view 2, twice) " + " ".join(f"{s:.3f}" for s in e["render_s"]))
+    log("  launches: " + " ".join(f"{k}={v}" for k, v in counts.items()))
+    lp = e["lpips"]
+    d_lp = abs(lp["card"] - lp["cpu"])
+    log(f"  {e['lpips_metric']} at view 2: {lp} (|card - cpu| {d_lp:.3e}, tolerance "
+        f"{LPIPS_ATOL:g}); pose= render equal bit for bit: {e['same_pose']}")
+    bad = failed_sections(res)
+    need = ("eval_cam", "eval_rec", "depth_bias", "eval_rendering_interpolate",
+            "eval_rendering_extrapolate")
+    missing = [k for k in need if k not in res]
+    if bad or missing:
+        failures.append(f"eval: sections with an error {bad}, missing {missing}: "
+                        + json.dumps({k: res.get(k) for k in bad + ["eval_rendering_error"]
+                                      if k in res}))
+    values = [v for k in need if isinstance(res.get(k), dict) for v in res[k].values()]
+    values += [v for row in rows for v in row.values()]
+    if not values or not np.isfinite(values).all():
+        failures.append("eval: non-finite values in the battery's results")
+    if ex.get("n_views") != PATHS["flagship"]["eval_views"]:
+        failures.append(f"eval: {ex.get('n_views')} extrapolated views")
+    never = [k for k in EVAL_KERNELS if counts.get(k, 0) == 0]
+    if never or counts.get("hash_encode_bf16", 0):
+        failures.append(f"eval: kernels never launched {never}, or K3 launched "
+                        f"({counts.get('hash_encode_bf16', 0)})")
+    if not e["same_pose"]:
+        failures.append("eval: render_full_image(2, pose=its estimate) differs from "
+                        "render_full_image(2)")
+    if not d_lp <= LPIPS_ATOL:
+        failures.append(f"eval: LPIPS on the card {lp} differs from the CPU by {d_lp:.3e}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1315,15 +1441,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = card_line()
-    log(f"[1/7] card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    log(f"[1/8] card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     procs = start_scenes()
     try:
         t = time.perf_counter()
         path = _cuda.build()
         _cuda.library()
-        log(f"[2/7] build: {os.path.relpath(path, ROOT)} in {time.perf_counter() - t:.1f} s")
+        log(f"[2/8] build: {os.path.relpath(path, ROOT)} in {time.perf_counter() - t:.1f} s")
 
-        log(f"[3/7] kernels vs plain versions (tolerance: values {VAL_RTOL:g}·max|ref| "
+        log(f"[3/8] kernels vs plain versions (tolerance: values {VAL_RTOL:g}·max|ref| "
             f"per output, atomic gradients rel L2 {GRAD_REL_L2:g}, sampler {Z_ATOL:g} "
             f"on every ray, the voxel counter bit for bit); each kernel's launch "
             f"alone, mean of 10 after 2; the plain versions of K1/K2 once; bounds at "
@@ -1346,12 +1472,17 @@ def main() -> int:
             t = time.perf_counter()
             data_dir = wait_scene(procs, kind)
             p = PATHS[kind]
-            log(f"[{step}/7] SLAM main path: {kind} configuration, {N_FRAMES} frames, "
+            log(f"[{step}/8] SLAM main path: {kind} configuration, {N_FRAMES} frames, "
                 f"{p['H']}x{p['W']}, global_window_start {GLOBAL_WINDOW_START} "
                 f"(waited {time.perf_counter() - t:.1f} s for the scan)")
             runs[kind] = run_slam(dev, kind, data_dir)
             torch.cuda.empty_cache()
-        log(f"[6/7] repeat: the demo configuration twice in this process, "
+        log("[6/8] eval: the checkpoint battery on the flagship run (eval_cam, mesh "
+            f"{MESH_RESOLUTION}^3 vs the analytic scene, depth bias, interpolate view 2, "
+            f"{PATHS['flagship']['eval_views']} extrapolated views)")
+        ev = run_eval(dev, runs["flagship"], wait_scene(procs, "flagship"))
+        torch.cuda.empty_cache()
+        log(f"[7/8] repeat: the demo configuration twice in this process, "
             f"{REPEAT_FRAMES} frames each (mapping at frames 0 and 5), same seed and scan")
         repeat_failures = []
         check_repeat(dev, wait_scene(procs, "demo"), repeat_failures)
@@ -1361,16 +1492,19 @@ def main() -> int:
                 proc.kill()
                 proc.wait()
 
-    log("[7/7] report (card: " + card + ")")
+    log("[8/8] report (card: " + card + ")")
     failures = list(chk.failures) + repeat_failures
     for kind, r in runs.items():
         log(f" {kind}:")
         report(kind, r, failures)
+    log(" eval (the flagship run):")
+    report_eval(ev, failures)
 
     kernels = []
     for name, r in chk.results.items():
         base = name.split("[")[0]
         by_path = {kind: r_["counts"][base] for kind, r_ in runs.items()}
+        by_path["eval"] = ev["counts"][base]
         kernels.append(dict(r, launches=sum(by_path.values()), launches_by_path=by_path))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -79,7 +79,8 @@ class SLAMDataset:
 
         self.cam_file = os.path.join(self.instance_dir, "cameras.npz")
         cam = np.load(self.cam_file)
-        self.scene_scale = float(np.float32(cam["scale_mat_0"][0, 0]))
+        self.scale_mat = cam["scale_mat_0"].astype(np.float32)
+        self.scene_scale = float(self.scale_mat[0, 0])
 
         self.intrinsics_all: List[np.ndarray] = []
         self.gt_pose_all: List[np.ndarray] = []
@@ -186,3 +187,6 @@ class SLAMDataset:
         occ = cv2.imread(os.path.join(self.flow_dir, f"{i:04d}_{j:04d}_occ.png"))
         usable = occ[:, :, 0] == 0
         return np.asarray(flow, np.float32), usable
+
+    def get_scale_mat(self) -> np.ndarray:
+        return self.scale_mat

@@ -18,7 +18,7 @@ from __future__ import annotations
 import os
 import time
 from datetime import datetime
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -531,12 +531,17 @@ class SLAMRunner:
         self.log("phase timings: " + self.timer.report())
 
     # ------------------------------------------------------------------
-    def render_full_image(self, frame_idx: int) -> Dict[str, np.ndarray]:
-        """Render a full frame at its estimated pose (GT before it has one)
-        in chunks of ``split_n_pixels`` rays, with the exact prepass."""
+    def render_full_image(self, frame_idx: int, pose: Optional[np.ndarray] = None,
+                          chunk: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """Render a full frame with the frame's intrinsics at ``pose`` (by
+        default its estimated pose, GT before it has one) in chunks of
+        ``chunk`` rays (default ``split_n_pixels``), with the exact
+        prepass. The render draws nothing, so the JAX runner's ``key`` has
+        no counterpart here."""
         from .render import render_image
 
-        c2w = self.est_pose_all.get(frame_idx, self.dataset.gt_pose_all[frame_idx])
+        c2w = pose if pose is not None else self.est_pose_all.get(
+            frame_idx, self.dataset.gt_pose_all[frame_idx])
         return render_image(self.scene_cfg, self.model, self.voxels, np.asarray(c2w),
                             np.asarray(self.dataset.intrinsics_all[frame_idx]),
-                            frame_idx=frame_idx, chunk=self.split_n_pixels)
+                            frame_idx=frame_idx, chunk=chunk or self.split_n_pixels)

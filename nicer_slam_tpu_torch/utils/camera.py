@@ -103,6 +103,63 @@ def clamp_pose_to_anchor_np(pose: np.ndarray, anchor: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
+# Procrustes sim(3) alignment for evaluation (cam_util.py:73-115)
+# ---------------------------------------------------------------------------
+
+def procrustes_analysis_np(X0: np.ndarray, X1: np.ndarray):
+    """Similarity transform aligning X1 to X0 (both [N,3])."""
+    t0 = X0.mean(axis=0, keepdims=True)
+    t1 = X1.mean(axis=0, keepdims=True)
+    X0c, X1c = X0 - t0, X1 - t1
+    s0 = np.sqrt((X0c ** 2).sum(axis=-1).mean())
+    s1 = np.sqrt((X1c ** 2).sum(axis=-1).mean())
+    U, S, Vt = np.linalg.svd((X0c / s0).T @ (X1c / s1))
+    R = (U @ Vt).astype(np.float64)
+    if np.linalg.det(R) < 0:
+        R[2] *= -1
+    return dict(t0=t0[0], t1=t1[0], s0=s0, s1=s1, R=R.astype(np.float32))
+
+
+def invert_pose_np(pose: np.ndarray) -> np.ndarray:
+    """Invert [...,3,4] rigid pose(s)."""
+    R, t = pose[..., :3], pose[..., 3:]
+    R_inv = np.swapaxes(R, -1, -2)
+    t_inv = -(R_inv @ t)
+    return np.concatenate([R_inv, t_inv], axis=-1)
+
+
+def prealign_cameras_apply_another_np(pose: np.ndarray, pose_GT: np.ndarray,
+                                      apply_pose: np.ndarray):
+    """sim(3)-align ``pose`` onto ``pose_GT`` and apply it to ``apply_pose``.
+
+    All inputs are c2w [N,3,4] (the reference feeds c2w and immediately
+    inverts, cam_util.py:94-115). Returns (aligned c2w [N,3,4], sim3 dict).
+    """
+    pose_w2c = invert_pose_np(pose)
+    pose_GT_w2c = invert_pose_np(pose_GT)
+    apply_w2c = invert_pose_np(apply_pose)
+
+    def centers(p_w2c):
+        # camera center in world coords: invert again and take translation
+        inv = invert_pose_np(p_w2c)
+        return inv[..., :3, 3]
+
+    center_pred = centers(pose_w2c)
+    center_GT = centers(pose_GT_w2c)
+    center_apply = centers(apply_w2c)
+    try:
+        sim3 = procrustes_analysis_np(center_GT, center_pred)
+    except np.linalg.LinAlgError:
+        sim3 = dict(t0=np.zeros(3), t1=np.zeros(3), s0=1.0, s1=1.0,
+                    R=np.eye(3, dtype=np.float32))
+    center_aligned = (center_apply - sim3["t1"]) / sim3["s1"] @ sim3["R"].T * sim3["s0"] + sim3["t0"]
+    R_aligned = apply_w2c[..., :3] @ sim3["R"].T
+    t_aligned = (-R_aligned @ center_aligned[..., None])[..., 0]
+    aligned_w2c = np.concatenate([R_aligned, t_aligned[..., None]], axis=-1)
+    return invert_pose_np(aligned_w2c), sim3
+
+
+# ---------------------------------------------------------------------------
 # torch differentiable pose parameterization (general.py:52-100 semantics)
 # ---------------------------------------------------------------------------
 

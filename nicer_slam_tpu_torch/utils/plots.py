@@ -87,20 +87,22 @@ def vertex_colors(model, verts: np.ndarray, normals: np.ndarray, device,
     return colors
 
 
-def save_mesh(runner, frame_idx: int) -> Optional[str]:
-    """Extract and write the colored SDF mesh at the conf's plot.resolution;
+def save_mesh(runner, frame_idx: int, resolution: Optional[int] = None,
+              suffix: str = "") -> Optional[str]:
+    """Extract and write the colored SDF mesh at ``resolution`` (default
+    the conf's plot.resolution) to ``vis/surface_<frame><suffix>.ply``;
     returns its path, or None when the SDF has no zero crossing on the grid."""
     c = runner.conf
+    resolution = resolution or c.get_int("plot.resolution", 512)
     gb = c.get_list("plot.grid_boundary", [-1.0, 1.0])
     mesh = extract_mesh(mesh_sdf_fn(runner.model, runner.device),
-                        resolution=c.get_int("plot.resolution", 512),
-                        grid_boundary=tuple(gb))
+                        resolution=resolution, grid_boundary=tuple(gb))
     if mesh is None:
         runner.log("unable to get a surface, NO MESH!")
         return None
     verts, faces, normals = mesh
     colors = vertex_colors(runner.model, verts, normals, runner.device)
-    path = os.path.join(runner.plots_dir, f"surface_{frame_idx:04d}.ply")
+    path = os.path.join(runner.plots_dir, f"surface_{frame_idx:04d}{suffix}.ply")
     write_ply(path, verts, faces, normals=normals, colors=colors)
     return path
 
