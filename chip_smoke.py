@@ -8,7 +8,9 @@ Phases, in order (any failure exits non-zero without the final line):
      synthetic scans start generating in the background (processes this
      script waits for): the demo scan (11 frames, 720x1280, flow) and the
      flagship scan (11 frames, 680x1200, flow and GT depth, and 2 held-out
-     views for the extrapolation eval).
+     views for the extrapolation eval); and a raw Replica-layout capture of
+     the scene for phase 8 (21 frames, 680x1200 JPEGs and depth PNGs,
+     traj.txt, the analytic mesh).
   2. build: compile csrc/*.cu for sm_90a (one nvcc per source, in
      parallel; plain C interface).
   3. kernels: each hand-written kernel against its plain PyTorch version on
@@ -40,7 +42,8 @@ Phases, in order (any failure exits non-zero without the final line):
      density cache and the exact prepass of a 2580-ray render chunk
      (1,651,200 points; each one launch and no other kernel, within
      2e-5 of the largest density, both versions also measured against
-     float64). The plain versions of K1/K2 run once;
+     float64), and K9 (tsdf.integrate: one 680x1200 frame into a 256³
+     volume that already holds one, bit for bit). The plain versions of K1/K2 run once;
      the K1/K2 backward runs twice more and its table gradient must come
      out the same bit for bit, with its kept fixed-point accumulator zero
      after every launch.
@@ -70,12 +73,33 @@ Phases, in order (any failure exits non-zero without the final line):
      each (mapping at frames 0 and 5), same seed and scan, through the
      runner's loop; every per-frame pose, every mapping call's loss terms
      and every final model and voxel tensor must be the same bit for bit.
-  8. report: per run, translation error against GT per frame, the loss
+  8. preprocess: the capture through the port's preprocessing entry points
+     on the card: replica_2_volsdf.convert_scene with cues (the mono prior,
+     mono_prior.npz; held against the same module on the CPU within 1e-5
+     on one frame) and geometric flows, the converted scan's on-disk
+     contract checked; extract_flows(rgb_only=True), the classical flow,
+     over the same 6 keyframe pairs (end-point error against the geometric
+     flow), and on a 170x300 crop of frames 0 and 10 held against the same
+     function on the CPU within 1e-9 px; GMFlow and DPT (depth and normal) from seeded weights written
+     with to_flat and read back through the extraction CLIs' --ckpt /
+     --depth_ckpt / --normal_ckpt, on one pair and one frame; tsdf_fusion's
+     CLI at 256³ over the 21 GT depths through K9 (21 launches), its mesh
+     against the analytic scene mesh by calc_3d_metric without ICP; then
+     the demo networks and schedule at 680x1200 on the converted scan for
+     11 frames (global_window_start 10: the frame-10 mapping call reads the
+     converter's 0 <-> 10 flow pair and the card-made cues). Per-stage
+     seconds and each network's forward alone (CUDA events) are printed.
+     It fails on a non-finite output, a broken contract, K9 not launched
+     once per frame, the mono prior or the classical flow off the CPU by
+     more than its bound, or a frame-10 flow loss of 0.
+  9. report: per run, translation error against GT per frame, the loss
      terms of each mapping call's last iteration, launch counts, s/frame,
      ms per track and map iteration, the runner's phase times, peak memory;
      the final model checkpoint is read back and held against the model;
      vis/ must hold rendering_*.png and surface_*.ply. Then one JSON line
-     with every kernel, the nvidia-smi line, and the result line.
+     with every kernel (launches by path: demo, flagship, eval, and
+     preprocess, which counts phase 8's steps and its SLAM run), the
+     nvidia-smi line, and the result line.
 
 Float32 matmuls run without TF32 (set explicitly below). Runs repeat bit
 for bit without any process-wide torch setting: every sum on the paths
@@ -115,7 +139,36 @@ PATHS = {
                      n_images=2000, eval_views=2,
                      edits=[("    flow_weight = 0.001\n",
                              "    flow_weight = 0.001\n    cam_freespace_w = 1.0\n")]),
+    # the preprocess phase's run: the demo networks and schedule at 680x1200
+    # on the scan that the port's Replica converter wrote (data_dir is set to
+    # the converter's output by write_conf)
+    "preprocess": dict(conf=os.path.join(ROOT, "confs", "runconf_demo_1.conf"), H=680,
+                       W=1200, scan_id=1, data_dir='"../Datasets/processed/Demo"',
+                       n_images=200,
+                       edits=[("img_res = [\n        720\n        1280\n    ]",
+                               "img_res = [\n        680\n        1200\n    ]")]),
 }
+# the synthetic scans phase 1 writes in the background: the two SLAM scans
+# and the raw Replica-layout capture of the preprocess phase
+SCENES = ("demo", "flagship", "capture")
+# the raw capture: frames, world scale (cube units x 3, as
+# tests/test_preprocess_e2e.py), Replica's fixed camera (the converter's
+# default intrinsics at 1200 x 680), the analytic mesh's resolution
+CAPTURE_FRAMES = 21
+CAPTURE_SCALE = 3.0
+CAPTURE_SCENE = "synthroom"
+REPLICA_K = (600.0, 600.0, 599.5, 339.5)
+CAPTURE_MESH_RES = 128
+# the TSDF fusion of the capture's GT depth (and K9's check in phase 3), and
+# the points sampled on each mesh for calc_3d_metric
+TSDF_RES = 256
+TSDF_EVAL_POINTS = 50_000
+# the mono prior on the card against the same module on the CPU, one frame
+MONO_PRIOR_ATOL = 1e-5
+# the classical flow (float64) on the card against the CPU, on a crop of
+# one keyframe pair (the CPU test's bound against the JAX package's numpy)
+CLASSICAL_CROP = (170, 300)
+CLASSICAL_ATOL = 1e-9
 # plot.resolution of the vis hook's mesh in both runs (the confs' 512³
 # holds a 1.6 GB grid on the host for no more of a check)
 MESH_RESOLUTION = 256
@@ -132,6 +185,7 @@ PATH_KERNELS = {
                  "topk_rgb.fwd", "topk_rgb.bwd", "importance_sample",
                  "importance_sample_given", "voxels.scatter", "voxels.beta"),
 }
+PATH_KERNELS["preprocess"] = PATH_KERNELS["demo"] + ("tsdf.integrate",)
 # kernels that the evaluation phase must launch (the eval renders: K6's
 # exact prepass, K5 given densities, K4's plain composite, K1's forward for
 # the normals and the mesh, K2's forward for the colours), and K3, which it
@@ -878,6 +932,72 @@ def check_sdf_density(dev, chk: Checks):
     torch.cuda.empty_cache()
 
 
+def tsdf_frame(dev, H: int, W: int, yaw: float):
+    """A depth frame inside a room of half-size 3 (the ray to the walls of
+    the box [-3, 3]³ from a camera at (0.3, -0.2, 0.5)), its w2c and K, as
+    float32 tensors on the card; 20 rows without depth."""
+    import numpy as np
+    import torch
+    fx, fy, cx, cy = REPLICA_K
+    c, s = np.cos(yaw), np.sin(yaw)
+    c2w = np.eye(4)
+    c2w[:3, :3] = [[c, 0, s], [0, 1, 0], [-s, 0, c]]
+    c2w[:3, 3] = [0.3, -0.2, 0.5]
+    ys, xs = np.mgrid[0:H, 0:W]
+    d_cam = np.stack([(xs - cx) / fx, (ys - cy) / fy, np.ones((H, W))], -1)
+    d_w = d_cam @ c2w[:3, :3].T
+    with np.errstate(divide="ignore"):
+        t = np.min(np.where(d_w != 0, (np.sign(d_w) * 3.0 - c2w[:3, 3]) / d_w, np.inf), -1)
+    depth = t.astype(np.float32)
+    depth[:20] = 0
+    K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float32)
+    return (torch.from_numpy(depth).to(dev),
+            torch.from_numpy(np.linalg.inv(c2w).astype(np.float32)).to(dev),
+            torch.from_numpy(K).to(dev))
+
+
+def check_tsdf_kernel(dev, chk: Checks):
+    """K9 against its plain version: one 680 x 1200 frame into a 256³ volume
+    that already holds one frame; tsdf and weight must be equal bit for
+    bit."""
+    import torch
+    from nicer_slam_tpu_torch.ops import tsdf as tsdf_ops
+    p, res = PATHS["preprocess"], TSDF_RES
+    coords = tsdf_ops.axis_coords(res, [-3.2] * 3, [3.2] * 3, dev)
+    trunc = 4.0 * 6.4 / res
+    tsdf = torch.ones(res ** 3, device=dev)
+    weight = torch.zeros(res ** 3, device=dev)
+    tsdf_ops.integrate_plain(tsdf, weight, *tsdf_frame(dev, p["H"], p["W"], 0.0), coords,
+                             trunc, 5.0)
+    frame = tsdf_frame(dev, p["H"], p["W"], 0.3)
+    kt, kw, pt, pw = tsdf.clone(), weight.clone(), tsdf.clone(), weight.clone()
+    tsdf_ops.integrate(kt, kw, *frame, coords, trunc, 5.0)
+    _, pms = timed_once(lambda: tsdf_ops.integrate_plain(pt, pw, *frame, coords, trunc, 5.0))
+    same = torch.equal(kt, pt) and torch.equal(kw, pw)
+    err = max(max_abs(kt, pt), max_abs(kw, pw))
+    # the plain version's masks: voxels this frame observes, and voxels with
+    # a weight after it (the timed launches repeat the frame, so both stay)
+    observed = int((pw != weight).sum())
+    held = int((pw > 0).sum())
+    ms = cuda_time(lambda: tsdf_ops.integrate(tsdf, weight, *frame, coords, trunc, 5.0))
+    # what the function must move: every voxel's weight read, the tsdf of
+    # each voxel with a weight read and written, the weight of each observed
+    # voxel written, the depth frame and the coordinates read once; ~32
+    # operations a voxel (the projection's 9 products and 9 sums, 2 products,
+    # 2 divisions, 2 sums and 2 roundings for the pixel, the sdf, its
+    # division and clamp, the weighted mean)
+    small = nbytes(frame[0], *coords, frame[1], frame[2])
+    bytes_ = 4 * res ** 3 + 8 * held + 4 * observed + small
+    # the dense figure (both volumes read and written everywhere), for
+    # comparison with the first kernel, which moved that
+    dense_ms = bound(16 * res ** 3 + small, 0)[0]
+    chk.record("tsdf.integrate", "nicer_slam_tpu_torch/csrc/tsdf.cu",
+               "nicer_slam_tpu/preprocess/tsdf_fusion.py:33", err, same and observed > 0,
+               ms, pms, bytes_, 32 * res ** 3,
+               f"(256³ volume, 680x1200 frame, {observed} voxels observed, {held} with "
+               f"a weight, bit for bit {same}; dense 16 B a voxel {dense_ms:.4f} ms)")
+
+
 def check_bf16_kernels(dev, chk: Checks):
     """K3 on both SDF grids, from tables rounded to bf16, at the three
     point orders of its launches; the plain version 3 times after 1."""
@@ -1091,14 +1211,57 @@ def check_topk_kernels(dev, chk: Checks, S: int = 98, Kc: int = 16):
 # ---------------------------------------------------------------------------
 
 def scene_dir(kind: str) -> str:
+    if kind == "capture":
+        return os.path.join(SMOKE_DIR, "capture", CAPTURE_SCENE)
     p = PATHS[kind]
     return os.path.join(SMOKE_DIR, f"Synthetic_{kind}_{p['H']}x{p['W']}")
 
 
+def write_capture(scene: str) -> None:
+    """A raw Replica-layout capture of the synthetic scene in world units
+    (cube units x CAPTURE_SCALE), the tree the Replica converter reads:
+    <root>/<scene>/{traj.txt, results/{frame%06d.jpg, depth%06d.png}} and
+    <root>/<scene>_mesh.ply (tests/test_preprocess_e2e.py's capture, at
+    Replica's size and camera)."""
+    import cv2
+    import numpy as np
+    from nicer_slam_tpu_torch.datasets.synthetic import (camera_trajectory, render_frame,
+                                                         scene_sdf)
+    from nicer_slam_tpu_torch.ops.marching_cubes import extract_mesh
+    from nicer_slam_tpu_torch.utils.ply import write_ply
+
+    H, W = PATHS["preprocess"]["H"], PATHS["preprocess"]["W"]
+    K = np.eye(4)
+    K[0, 0], K[1, 1], K[0, 2], K[1, 2] = REPLICA_K
+    os.makedirs(os.path.join(scene, "results"))
+    lines = []
+    for i, c2w in enumerate(camera_trajectory(CAPTURE_FRAMES)):
+        rgb, z, _, _ = render_frame(H, W, K, c2w)
+        cv2.imwrite(os.path.join(scene, "results", f"frame{i:06d}.jpg"),
+                    cv2.cvtColor((rgb * 255).astype(np.uint8), cv2.COLOR_RGB2BGR),
+                    [int(cv2.IMWRITE_JPEG_QUALITY), 95])
+        cv2.imwrite(os.path.join(scene, "results", f"depth{i:06d}.png"),
+                    np.round(z * CAPTURE_SCALE * 6553.5).astype(np.uint16))
+        cw = c2w.copy()
+        cw[:3, 3] *= CAPTURE_SCALE
+        lines.append(" ".join(f"{v:.9f}" for v in cw.reshape(-1)))
+    with open(os.path.join(scene, "traj.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    verts, faces, normals = extract_mesh(scene_sdf, resolution=CAPTURE_MESH_RES,
+                                         grid_boundary=(-1.0, 1.0))
+    write_ply(os.path.join(os.path.dirname(scene), f"{CAPTURE_SCENE}_mesh.ply"),
+              (verts * CAPTURE_SCALE).astype(np.float32), faces, normals=normals)
+
+
 def write_scene(kind: str) -> None:
     """Generate one run's synthetic scan, and its held-out views where the
-    run is evaluated (run in a child process)."""
+    run is evaluated, or the raw capture (run in a child process)."""
     from nicer_slam_tpu_torch.datasets.synthetic import generate, generate_eval
+    if kind == "capture":
+        shutil.rmtree(os.path.dirname(scene_dir(kind)), ignore_errors=True)
+        write_capture(scene_dir(kind))
+        open(os.path.join(scene_dir(kind), "complete"), "w").close()
+        return
     p, data_dir = PATHS[kind], scene_dir(kind)
     shutil.rmtree(data_dir, ignore_errors=True)
     shutil.rmtree(data_dir + "_eval", ignore_errors=True)
@@ -1113,7 +1276,7 @@ def write_scene(kind: str) -> None:
 def start_scenes():
     """One child process per missing scan; returns {kind: Popen}."""
     procs = {}
-    for kind in PATHS:
+    for kind in SCENES:
         if not os.path.exists(os.path.join(scene_dir(kind), "complete")):
             os.makedirs(SMOKE_DIR, exist_ok=True)
             procs[kind] = subprocess.Popen(
@@ -1330,6 +1493,291 @@ def report(kind: str, r, failures) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: preprocessing on the card
+# ---------------------------------------------------------------------------
+
+class StageTimer:
+    """Wall seconds of every call of ``module.name`` while active (the card
+    synchronised after each), summed under ``key``."""
+
+    def __init__(self, times: dict, key: str, module, name: str):
+        self.times, self.key, self.module, self.name = times, key, module, name
+
+    def __enter__(self):
+        import torch
+        fn = self.orig = getattr(self.module, self.name)
+
+        def timed(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.times[self.key] = self.times.get(self.key, 0.0) + time.perf_counter() - t
+            return out
+
+        setattr(self.module, self.name, timed)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def _read_lzma(path):
+    import lzma
+    import numpy as np
+    with lzma.open(path) as f:
+        return np.load(f)
+
+
+def _finite(failures, what, *arrays):
+    import numpy as np
+    if not all(np.isfinite(a).all() for a in arrays):
+        failures.append(f"preprocess: non-finite {what}")
+
+
+def check_converted(scan: str, poses_world, failures) -> None:
+    """The converter's on-disk contract (tests/test_preprocess_e2e.py:87-140):
+    cameras, images, lzma cues, the 0 <-> 10 flow pair, the normalised mesh."""
+    import numpy as np
+    H, W = PATHS["preprocess"]["H"], PATHS["preprocess"]["W"]
+    cams = np.load(os.path.join(scan, "cameras.npz"))
+    K4 = np.eye(4)
+    K4[0, 0], K4[1, 1], K4[0, 2], K4[1, 2] = REPLICA_K
+    want = (K4 @ np.linalg.inv(poses_world[3])).astype(np.float32)
+    sm = cams["scale_mat_0"]
+    problems = []
+    if sorted(cams.files) != sorted([f"world_mat_{i}" for i in range(CAPTURE_FRAMES)]
+                                    + [f"scale_mat_{i}" for i in range(CAPTURE_FRAMES)]):
+        problems.append("cameras.npz keys")
+    if not np.allclose(cams["world_mat_3"], want, rtol=1e-5):
+        problems.append("world_mat_3")
+    if not (sm[0, 0] == sm[1, 1] == sm[2, 2] and sm[0, 0] > 1.0):
+        problems.append("scale_mat")
+    for i in range(CAPTURE_FRAMES):
+        for name in ("rgb.png", "gt_depth.png"):
+            if not os.path.exists(os.path.join(scan, f"{i:06d}_{name}")):
+                problems.append(f"{i:06d}_{name}")
+        dp = os.path.join(scan, f"{i:06d}_depth.npy")
+        with open(dp, "rb") as f:
+            if f.read(6) != b"\xfd7zXZ\x00":
+                problems.append(f"{dp} is not lzma")
+        d, n = _read_lzma(dp), _read_lzma(os.path.join(scan, f"{i:06d}_normal.npy"))
+        if d.shape != (H, W) or n.shape != (3, H, W):
+            problems.append(f"cue shapes {d.shape} {n.shape}")
+        _finite(failures, f"cues of frame {i}", d, n)
+    for name in ("0000_0010_flow.npy", "0000_0010_occ.png", "0010_0000_flow.npy"):
+        if not os.path.exists(os.path.join(scan + "_pair", name)):
+            problems.append(name)
+    if not os.path.exists(os.path.join(os.path.dirname(scan), f"{CAPTURE_SCENE}_mesh_01.ply")):
+        problems.append("normalised mesh")
+    if problems:
+        failures.append(f"preprocess: the converted scan breaks its contract: {problems}")
+
+
+def flow_epe(rgb_dir: str, geo_dir: str, pairs) -> dict:
+    """Per pair: the classical flow, and its mean end-point error against the
+    geometric flow over the pixels both call usable and over those the
+    geometric one calls usable, with the shares of such pixels."""
+    import cv2
+    import numpy as np
+    out = {}
+    for i, j in pairs:
+        stem = f"{i:04d}_{j:04d}"
+        fc, fg = (_read_lzma(os.path.join(d, f"{stem}_flow.npy")) for d in (rgb_dir, geo_dir))
+        geo = cv2.imread(os.path.join(geo_dir, f"{stem}_occ.png"))[..., 0] == 0
+        both = geo & (cv2.imread(os.path.join(rgb_dir, f"{stem}_occ.png"))[..., 0] == 0)
+        epe = np.linalg.norm(fc - fg, axis=-1)
+        out[stem] = dict(flow=fc, **{
+            f"epe_{name}": float(epe[m].mean()) if m.any() else float("nan")
+            for name, m in (("both", both), ("geo", geo))},
+            share_both=float(both.mean()), share_geo=float(geo.mean()))
+    return out
+
+
+def network_ms(dev, mono, depth_ckpt: str, flow_ckpt: str, img, img1) -> dict:
+    """CUDA-event times of each network's forward alone (no resize, no
+    copy), mean of 5 after 1: the mono prior at 680 x 1200 (padded to 680 x
+    1200, a multiple of 4), DPT at 384² and GMFlow at 704 x 1216. These are
+    library calls (cuDNN/cuBLAS convolutions, products, softmaxes)."""
+    import numpy as np
+    import torch
+    from nicer_slam_tpu_torch.models import dpt, gmflow
+
+    def dev_img(a, pad_to=1):
+        H, W = a.shape[:2]
+        a = np.pad(a, ((0, -H % pad_to), (0, -W % pad_to), (0, 0)))
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)[None]
+
+    out = {}
+    with torch.no_grad():
+        x = dev_img(img, 4)
+        out["mono_prior"] = cuda_time(lambda: mono.model(x), iters=5, warmup=1)
+        net = dpt.DPTInference(depth_ckpt, "depth", dev).model
+        x = torch.rand(1, 384, 384, 3, device=dev)
+        out["dpt"] = cuda_time(lambda: net(x), iters=5, warmup=1)
+        del net
+        net = gmflow.GMFlowInference(flow_ckpt, dev).model
+        a, b = dev_img(img, 32), dev_img(img1, 32)
+        out["gmflow"] = cuda_time(lambda: net(a, b), iters=5, warmup=1)
+    return out
+
+
+def run_preprocess(dev, capture: str) -> dict:
+    """Phase 8: the raw capture through the port's preprocessing entry points
+    on the card, then the demo networks on the converted scan."""
+    import numpy as np
+    import torch
+    from nicer_slam_tpu_torch.evaluation.eval_rec import calc_3d_metric
+    from nicer_slam_tpu_torch.models import dpt, gmflow, layers
+    from nicer_slam_tpu_torch.models.mono_prior import MonoPriorInference
+    from nicer_slam_tpu_torch.ops import _cuda
+    from nicer_slam_tpu_torch.ops import tsdf as tsdf_ops
+    from nicer_slam_tpu_torch.preprocess import extract_flows as ef
+    from nicer_slam_tpu_torch.preprocess import extract_monocular_cues as emc
+    from nicer_slam_tpu_torch.preprocess import replica_2_volsdf, tsdf_fusion
+    from nicer_slam_tpu_torch.preprocess.common import read_rgb
+
+    work = os.path.join(SMOKE_DIR, "preprocess")
+    shutil.rmtree(work, ignore_errors=True)
+    root = os.path.join(work, "Replica")
+    scan = os.path.join(root, "scan1")
+    failures, times = [], {}
+    poses = np.loadtxt(os.path.join(capture, "traj.txt")).reshape(-1, 4, 4)
+    pairs = ef._pairs(list(range(0, CAPTURE_FRAMES, 10)))
+    _cuda.reset_launch_counts()
+
+    # convert: images and cameras, cues from mono_prior.npz, geometric flows
+    t = time.perf_counter()
+    with StageTimer(times, "cues", emc, "extract_cues"), \
+            StageTimer(times, "geometric", ef, "extract_flows"):
+        replica_2_volsdf.convert_scene(capture, scan, scan_id=1, with_cues=True,
+                                       with_flow=True, intrinsics=REPLICA_K, device=str(dev))
+    times["convert"] = time.perf_counter() - t
+    check_converted(scan, poses, failures)
+    img0, img10 = read_rgb(os.path.join(scan, "000000_rgb.png")), \
+        read_rgb(os.path.join(scan, "000010_rgb.png"))
+    mono = MonoPriorInference(emc._default_mono_prior_path(), dev)
+    d_card, n_card = mono(img0)
+    t = time.perf_counter()
+    d_cpu, n_cpu = MonoPriorInference(emc._default_mono_prior_path(), "cpu")(img0)
+    times["mono_prior_cpu"] = time.perf_counter() - t
+    mono_err = max(float(np.abs(d_card - d_cpu).max()), float(np.abs(n_card - n_cpu).max()))
+    if not mono_err <= MONO_PRIOR_ATOL:
+        failures.append(f"preprocess: the mono prior on the card differs from the CPU by "
+                        f"{mono_err:.3e} > {MONO_PRIOR_ATOL:g}")
+
+    # RGB-only flows over the same keyframe pairs: classical, on the card
+    rgb_pairs = os.path.join(work, "pairs_rgb_only")
+    with StageTimer(times, "classical_compute", ef, "classical_flow"):
+        t = time.perf_counter()
+        ef.extract_flows(scan, rgb_pairs, rgb_only=True, device=str(dev))
+        times["classical"] = time.perf_counter() - t
+    epe = flow_epe(rgb_pairs, scan + "_pair", pairs)
+    _finite(failures, "classical flows", *(e["flow"] for e in epe.values()))
+    h, w = CLASSICAL_CROP
+    cl_card = ef.classical_flow(img0[:h, :w], img10[:h, :w], device=str(dev))
+    cl_cpu = ef.classical_flow(img0[:h, :w], img10[:h, :w], device="cpu")
+    classical_err = float(np.abs(cl_card - cl_cpu).max())
+    if not classical_err <= CLASSICAL_ATOL:
+        failures.append(f"preprocess: the classical flow on the card differs from the CPU "
+                        f"by {classical_err:.3e} px > {CLASSICAL_ATOL:g}")
+
+    # GMFlow and DPT from seeded weights, through the --ckpt / --depth_ckpt
+    # paths of the extraction CLIs, on one keyframe pair and one frame
+    one = os.path.join(work, "one_pair")
+    os.makedirs(one)
+    for k, src in enumerate((0, 10)):
+        shutil.copyfile(os.path.join(scan, f"{src:06d}_rgb.png"),
+                        os.path.join(one, f"{k:06d}_rgb.png"))
+    ckpts = {"flow": os.path.join(work, "gmflow_seeded.npz"),
+             "depth": os.path.join(work, "dpt_depth_seeded.npz"),
+             "normal": os.path.join(work, "dpt_normal_seeded.npz")}
+    np.savez(ckpts["flow"], **layers.to_flat(layers.init_seeded(gmflow.GMFlow(), 1)))
+    for task, oc in (("depth", 1), ("normal", 3)):
+        np.savez(ckpts[task], **layers.to_flat(layers.init_seeded(dpt.DPT(oc), 1 + oc)))
+    with StageTimer(times, "gmflow_compute", gmflow.GMFlowInference, "__call__"):
+        t = time.perf_counter()
+        ef.main(["--inference_dir", one, "--output_path", os.path.join(work, "pairs_gmflow"),
+                 "--ckpt", ckpts["flow"], "--keyframe_every", "1", "--device", str(dev)])
+        times["gmflow"] = time.perf_counter() - t
+    gm = _read_lzma(os.path.join(work, "pairs_gmflow", "0000_0001_flow.npy"))
+    _finite(failures, "GMFlow flow", gm)
+    only = os.path.join(work, "one_frame")
+    os.makedirs(only)
+    shutil.copyfile(os.path.join(scan, "000000_rgb.png"), os.path.join(only, "000000_rgb.png"))
+    with StageTimer(times, "dpt_compute", dpt.DPTInference, "__call__"):
+        t = time.perf_counter()
+        emc.main(["--img_path", only, "--output_path", os.path.join(work, "cues_dpt"),
+                  "--depth_ckpt", ckpts["depth"], "--normal_ckpt", ckpts["normal"],
+                  "--device", str(dev)])
+        times["dpt"] = time.perf_counter() - t
+    dd = _read_lzma(os.path.join(work, "cues_dpt", "000000_depth.npy"))
+    dn = _read_lzma(os.path.join(work, "cues_dpt", "000000_normal.npy"))
+    _finite(failures, "DPT cues", dd, dn)
+    if gm.shape != img0.shape[:2] + (2,) or dd.shape != img0.shape[:2] \
+            or dn.shape != (3,) + img0.shape[:2]:
+        failures.append(f"preprocess: GMFlow / DPT shapes {gm.shape} {dd.shape} {dn.shape}")
+
+    # TSDF fusion of the 21 GT depths at 256³ through K9, against the
+    # analytic scene mesh (world units, no ICP)
+    ply = os.path.join(work, "tsdf_mesh.ply")
+    with StageTimer(times, "tsdf_integrate", tsdf_ops, "integrate"):
+        t = time.perf_counter()
+        tsdf_fusion.main(["--scan_dir", scan, "--out", ply, "--res", str(TSDF_RES),
+                          "--depth_scale", "6553.5", "--every", "1", "--device", str(dev)])
+        times["tsdf"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rec = calc_3d_metric(ply, os.path.join(os.path.dirname(capture), f"{CAPTURE_SCENE}_mesh.ply"),
+                         n_points=TSDF_EVAL_POINTS, do_icp=False)
+    times["calc_3d_metric"] = time.perf_counter() - t
+    _finite(failures, "TSDF mesh metrics", np.array(list(rec.values())))
+    counts = _cuda.launch_counts()
+    net_ms = network_ms(dev, mono, ckpts["depth"], ckpts["flow"], img0, img10)
+    if counts["tsdf.integrate"] != CAPTURE_FRAMES:
+        failures.append(f"preprocess: K9 launched {counts['tsdf.integrate']} times for "
+                        f"{CAPTURE_FRAMES} frames")
+    torch.cuda.empty_cache()
+
+    # SLAM on the converted scan: the frame-10 mapping call reads the
+    # converter's 0 <-> 10 flow pair and the card-made cues
+    slam = run_slam(dev, "preprocess", root)
+    slam["counts"] = {k: v + slam["counts"][k] for k, v in counts.items()}
+    return dict(slam=slam, failures=failures, times=times, epe=epe, rec=rec,
+                mono_err=mono_err, classical_err=classical_err,
+                classical_equal=bool(np.array_equal(cl_card, cl_cpu)), n_pairs=len(pairs),
+                net_ms=net_ms)
+
+
+def report_preprocess(pre: dict, failures) -> None:
+    t = pre["times"]
+    n = pre["n_pairs"]
+    log(f"  convert {t['convert']:.2f} s ({CAPTURE_FRAMES} frames: cues {t['cues']:.2f} s = "
+        f"{t['cues'] / CAPTURE_FRAMES:.3f} s/frame, geometric flows {t['geometric']:.2f} s = "
+        f"{t['geometric'] / n:.3f} s/pair over {n} pairs, with the lzma writes)")
+    log(f"  mono prior card vs CPU on frame 0: {pre['mono_err']:.3e} (tolerance "
+        f"{MONO_PRIOR_ATOL:g}; the CPU forward {t['mono_prior_cpu']:.2f} s)")
+    log("  network forwards alone (library calls, CUDA events): "
+        + " ".join(f"{k} {v:.3f} ms" for k, v in pre["net_ms"].items()))
+    log(f"  classical flows {t['classical']:.2f} s = {t['classical'] / n:.3f} s/pair "
+        f"(classical_flow alone {t['classical_compute'] / n:.3f} s/pair, float64 on the card)")
+    log(f"  classical flow card vs CPU at {CLASSICAL_CROP[0]}x{CLASSICAL_CROP[1]} (frames 0, "
+        f"10): {pre['classical_err']:.3e} px, bit for bit {pre['classical_equal']} "
+        f"(tolerance {CLASSICAL_ATOL:g})")
+    for stem, e in pre["epe"].items():
+        log(f"    {stem}: end-point error vs geometric {e['epe_both']:.4f} px over the "
+            f"{e['share_both']:.2%} of pixels usable in both, {e['epe_geo']:.4f} px over "
+            f"the {e['share_geo']:.2%} the geometric flow calls usable")
+    log(f"  GMFlow (seeded, 704x1216 padded) {t['gmflow']:.2f} s for 1 pair both ways "
+        f"(network {t['gmflow_compute'] / 2:.3f} s/direction)")
+    log(f"  DPT (seeded, 384²) depth + normal {t['dpt']:.2f} s for 1 frame (networks "
+        f"{t['dpt_compute'] / 2:.3f} s/head, with the resizes)")
+    log(f"  TSDF {TSDF_RES}³ over {CAPTURE_FRAMES} frames {t['tsdf']:.2f} s (integrate "
+        f"{t['tsdf_integrate'] / CAPTURE_FRAMES * 1e3:.3f} ms/frame with the host copy); "
+        f"mesh vs the analytic scene ({TSDF_EVAL_POINTS} points, {t['calc_3d_metric']:.2f} s): "
+        + " ".join(f"{k}={v:.5g}" for k, v in pre["rec"].items()))
+    failures.extend(pre["failures"])
+    report("preprocess", pre["slam"], failures)
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the evaluation battery on the flagship run
 # ---------------------------------------------------------------------------
 
@@ -1441,15 +1889,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = card_line()
-    log(f"[1/8] card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    log(f"[1/9] card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     procs = start_scenes()
     try:
         t = time.perf_counter()
         path = _cuda.build()
         _cuda.library()
-        log(f"[2/8] build: {os.path.relpath(path, ROOT)} in {time.perf_counter() - t:.1f} s")
+        log(f"[2/9] build: {os.path.relpath(path, ROOT)} in {time.perf_counter() - t:.1f} s")
 
-        log(f"[3/8] kernels vs plain versions (tolerance: values {VAL_RTOL:g}·max|ref| "
+        log(f"[3/9] kernels vs plain versions (tolerance: values {VAL_RTOL:g}·max|ref| "
             f"per output, atomic gradients rel L2 {GRAD_REL_L2:g}, sampler {Z_ATOL:g} "
             f"on every ray, the voxel counter bit for bit); each kernel's launch "
             f"alone, mean of 10 after 2; the plain versions of K1/K2 once; bounds at "
@@ -1465,6 +1913,7 @@ def main() -> int:
         check_bf16_kernels(dev, chk)
         check_sampler_kernels(dev, chk)
         check_sdf_density(dev, chk)
+        check_tsdf_kernel(dev, chk)
         torch.cuda.empty_cache()
 
         runs = {}
@@ -1472,39 +1921,53 @@ def main() -> int:
             t = time.perf_counter()
             data_dir = wait_scene(procs, kind)
             p = PATHS[kind]
-            log(f"[{step}/8] SLAM main path: {kind} configuration, {N_FRAMES} frames, "
+            log(f"[{step}/9] SLAM main path: {kind} configuration, {N_FRAMES} frames, "
                 f"{p['H']}x{p['W']}, global_window_start {GLOBAL_WINDOW_START} "
                 f"(waited {time.perf_counter() - t:.1f} s for the scan)")
             runs[kind] = run_slam(dev, kind, data_dir)
             torch.cuda.empty_cache()
-        log("[6/8] eval: the checkpoint battery on the flagship run (eval_cam, mesh "
+        log("[6/9] eval: the checkpoint battery on the flagship run (eval_cam, mesh "
             f"{MESH_RESOLUTION}^3 vs the analytic scene, depth bias, interpolate view 2, "
             f"{PATHS['flagship']['eval_views']} extrapolated views)")
         ev = run_eval(dev, runs["flagship"], wait_scene(procs, "flagship"))
         torch.cuda.empty_cache()
-        log(f"[7/8] repeat: the demo configuration twice in this process, "
+        log(f"[7/9] repeat: the demo configuration twice in this process, "
             f"{REPEAT_FRAMES} frames each (mapping at frames 0 and 5), same seed and scan")
         repeat_failures = []
         check_repeat(dev, wait_scene(procs, "demo"), repeat_failures)
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        capture = wait_scene(procs, "capture")
+        log(f"[8/9] preprocess: a raw Replica-layout capture ({CAPTURE_FRAMES} frames, "
+            f"{PATHS['preprocess']['H']}x{PATHS['preprocess']['W']}) through the port's "
+            f"converter, cue and flow extraction and TSDF fusion on the card, then the demo "
+            f"networks on the converted scan (waited {time.perf_counter() - t:.1f} s for the "
+            f"capture)")
+        t = time.perf_counter()
+        pre = run_preprocess(dev, capture)
+        pre["phase_s"] = time.perf_counter() - t
     finally:
         for proc in procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
 
-    log("[8/8] report (card: " + card + ")")
+    log("[9/9] report (card: " + card + ")")
     failures = list(chk.failures) + repeat_failures
     for kind, r in runs.items():
         log(f" {kind}:")
         report(kind, r, failures)
     log(" eval (the flagship run):")
     report_eval(ev, failures)
+    log(f" preprocess (phase {pre['phase_s']:.1f} s):")
+    report_preprocess(pre, failures)
 
     kernels = []
     for name, r in chk.results.items():
         base = name.split("[")[0]
         by_path = {kind: r_["counts"][base] for kind, r_ in runs.items()}
         by_path["eval"] = ev["counts"][base]
+        by_path["preprocess"] = pre["slam"]["counts"][base]
         kernels.append(dict(r, launches=sum(by_path.values()), launches_by_path=by_path))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -41,7 +41,7 @@ KERNELS = ("hash_encode_with_grad.fwd", "hash_encode_with_grad.bwd",
            "composite.fwd", "composite.bwd",
            "weights_topk.fwd", "weights_topk.bwd", "topk_rgb.fwd", "topk_rgb.bwd",
            "importance_sample", "importance_sample_given",
-           "voxels.scatter", "voxels.beta", "sdf_density")
+           "voxels.scatter", "voxels.beta", "sdf_density", "tsdf.integrate")
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _P = ctypes.c_void_p
@@ -86,6 +86,9 @@ _SIGNATURES = {
     # z, S, counter, vres, -b·1e-4, d, a, c, beta, beta_scale, out, N, stream
     "nsl_sdf_density": [_P] * 8 + [_I] + [_P] * 3 + [_I, _P, _I] + [_F] * 4 + [_P] * 3
                        + [_I64, _P],
+    # tsdf, weight, depth, w2c, K, xs, ys, zs, res, H, W, trunc, depth_max,
+    # stream
+    "nsl_tsdf_integrate": [_P] * 8 + [_I] * 3 + [_F] * 2 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -260,3 +260,50 @@ def test_adam_state_files_keep_the_jax_layout(tmp_path):
         if p in opt.state:
             for k, v in opt.state[p].items():
                 assert torch.equal(fresh.state[p][k], v), k
+
+
+_CLI_HELP = r"""
+import runpy, sys
+for mod in ("nicer_slam_tpu_torch.preprocess.replica_2_volsdf",
+            "nicer_slam_tpu_torch.preprocess.tsdf_fusion"):
+    sys.argv = [mod, "--help"]
+    try:
+        runpy.run_module(mod, run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, (mod, e.code)
+bad = sorted(k for k in sys.modules
+             if k in ("jax", "nicer_slam_tpu") or k.startswith(("jax.", "nicer_slam_tpu.")))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_preprocess_clis_run_without_the_jax_package():
+    """``python -m ...replica_2_volsdf --help`` and ``...tsdf_fusion --help``
+    in one process that never imports jax or nicer_slam_tpu."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _CLI_HELP], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]
+    helps = out.stdout.split("usage:")[1:]
+    assert len(helps) == 2 and "--dataset_folder" in helps[0] and "--scan_dir" in helps[1]
+    assert all("--device" in h for h in helps)
+
+
+@pytest.mark.parametrize("module", ["common", "colmap", "extract_monocular_cues",
+                                    "extract_flows", "replica_2_volsdf",
+                                    "replica_eval_2_volsdf", "sevenscenes_2_volsdf",
+                                    "azure_2_volsdf", "tsdf_fusion"])
+def test_every_preprocess_module_has_its_counterpart(module):
+    """The port holds a counterpart of every file of nicer_slam_tpu/preprocess/
+    (and nothing it names is missing): its public functions are the JAX
+    module's."""
+    import importlib
+
+    j = importlib.import_module(f"nicer_slam_tpu.preprocess.{module}")
+    t = importlib.import_module(f"nicer_slam_tpu_torch.preprocess.{module}")
+    public = {n for n, v in vars(j).items() if callable(v) and not n.startswith("_")
+              and getattr(v, "__module__", "") == j.__name__}
+    missing = sorted(n for n in public if not callable(getattr(t, n, None)))
+    # the JAX package's jit factory is the port's ops/tsdf.py (K9)
+    assert missing == (["make_integrate_fn"] if module == "tsdf_fusion" else []), missing
