@@ -38,11 +38,15 @@ Phases, in order (any failure exits non-zero without the final line):
      chunk (131,072 grid points), the ray-ordered exact prepass of a
      2580-ray render chunk (1,651,200 points) and as many uniform points,
      K5 at 1024 (tracking), 4096 and 8192 (mapping) rays, K5 given
-     densities at a render chunk, and K6 (sdf_density) building the 128³
-     density cache and the exact prepass of a 2580-ray render chunk
-     (1,651,200 points; each one launch and no other kernel, within
-     2e-5 of the largest density, both versions also measured against
-     float64), and K9 (tsdf.integrate: one 680x1200 frame into a 256³
+     densities at a render chunk and at the exact prepass of a tracking
+     and a flagship mapping iteration (1024 and 8192 rays, jittered z, the
+     true near and far, the extras drawn per chunk of 1024 rays: 1 and 8
+     rows), and K6 (sdf_density) building the 128³ density cache and the
+     exact prepass of a 2580-ray render chunk (1,651,200 points) and of a
+     tracking and a mapping iteration (1024 and 8192 rays x 640 jittered
+     z, 5,242,880 points at 8192; each one launch and no other kernel,
+     within 2e-5 of the largest density, both versions also measured
+     against float64), and K9 (tsdf.integrate: one 680x1200 frame into a 256³
      volume that already holds one, bit for bit). The plain versions of K1/K2 run once;
      the K1/K2 backward runs twice more and its table gradient must come
      out the same bit for bit, with its kept fixed-point accumulator zero
@@ -58,6 +62,17 @@ Phases, in order (any failure exits non-zero without the final line):
      100/100 iterations, colour top-16, warp loss, GT depth) the same way,
      with the JAX package's camera free-space guard on (see PATHS).
      Launch counters are reset just before and read just after each run.
+  5b. options: the flagship conf with the JAX package's default exact
+     prepass (prepass_mode = exact: K6 ray mode and K5 given in every
+     tracking and mapping iteration, no density cache), warp patches
+     [1 5] under the SSIM warp loss and model_exposure, the free-space
+     guard as in phase 5, 6 frames (mapping + BA at 0 and 5) through
+     exp_runner; then the demo networks in nerf mode (no colour grid)
+     with per-image codes, 3 frames. It fails on non-finite poses or
+     losses, a frame-5 warp loss of 0, K6 grid mode or K5's cached mode
+     launched in the options loop, K6 ray or K5 given launches other than
+     the loop's tracking plus mapping iterations, or frozen per-image codes
+     that changed.
   6. eval: the port's checkpoint battery (evaluation/eval_checkpoint.py,
      its CLI's main) on the flagship run's directory, on the card: eval_cam
      (ATE, rotation drift), the mesh at 256³ against the analytic scene
@@ -97,8 +112,9 @@ Phases, in order (any failure exits non-zero without the final line):
      ms per track and map iteration, the runner's phase times, peak memory;
      the final model checkpoint is read back and held against the model;
      vis/ must hold rendering_*.png and surface_*.ply. Then one JSON line
-     with every kernel (launches by path: demo, flagship, eval, and
-     preprocess, which counts phase 8's steps and its SLAM run), the
+     with every kernel (launches by path: demo, flagship, options (both
+     runs of phase 5b, vis hooks included), eval, and preprocess, which
+     counts phase 8's steps and its SLAM run), the
      nvidia-smi line, and the result line.
 
 Float32 matmuls run without TF32 (set explicitly below). Runs repeat bit
@@ -139,6 +155,28 @@ PATHS = {
                      n_images=2000, eval_views=2,
                      edits=[("    flow_weight = 0.001\n",
                              "    flow_weight = 0.001\n    cam_freespace_w = 1.0\n")]),
+    # the options phase: the flagship with the JAX package's default exact
+    # prepass (8192 mapping rays in 8 prepass chunks of 1024, each with its
+    # own extra bins), warp patches 1 and 5 under the SSIM warp loss, and
+    # exposure; the free-space guard as in the flagship run
+    "options": dict(conf=os.path.join(ROOT, "confs", "replica", "runconf_replica_2.conf"),
+                    H=680, W=1200, scan_id=2, data_dir='"../Datasets/processed/Replica"',
+                    n_images=2000,
+                    edits=[("    flow_weight = 0.001\n",
+                            "    flow_weight = 0.001\n    cam_freespace_w = 1.0\n"),
+                           ("prepass_mode = cached", "prepass_mode = exact"),
+                           ("mapping_patchsizes = [\n        1\n    ]",
+                            "mapping_patchsizes = [\n        1\n        5\n    ]"),
+                           ('warp_loss_type = "l1"', 'warp_loss_type = "ssim"'),
+                           ("per_image_code = false",
+                            "per_image_code = false\n        model_exposure = true")]),
+    # then the demo networks with the nerf colour mode (no colour grid) and
+    # per-image codes
+    "nerf": dict(conf=os.path.join(ROOT, "confs", "runconf_demo_1.conf"), H=720, W=1280,
+                 scan_id=1, data_dir='"../Datasets/processed/Demo"', n_images=200,
+                 edits=[('mode = "idr"\n        d_in = 9', 'mode = "nerf"\n        d_in = 3'),
+                        ("per_image_code = false\n        use_grid_feature = true",
+                         "per_image_code = true\n        use_grid_feature = false")]),
     # the preprocess phase's run: the demo networks and schedule at 680x1200
     # on the scan that the port's Replica converter wrote (data_dir is set to
     # the converter's output by write_conf)
@@ -176,21 +214,33 @@ MESH_RESOLUTION = 256
 # reported for both)
 # (K3's work on the paths runs inside sdf_density; the standalone K3 kernel
 # is still held against its plain version in phase 3)
+# (K6 counts its grid mode, the cache builds, and its ray mode, the exact
+# prepass, apart)
 PATH_KERNELS = {
     "demo": ("hash_encode_with_grad.fwd", "hash_encode_with_grad.bwd", "hash_encode.fwd",
-             "hash_encode.bwd", "sdf_density", "composite.fwd", "composite.bwd",
-             "importance_sample", "importance_sample_given", "voxels.scatter", "voxels.beta"),
+             "hash_encode.bwd", "sdf_density.grid", "sdf_density.rays", "composite.fwd",
+             "composite.bwd", "importance_sample", "importance_sample_given",
+             "voxels.scatter", "voxels.beta"),
     "flagship": ("hash_encode_with_grad.fwd", "hash_encode_with_grad.bwd", "hash_encode.fwd",
-                 "hash_encode.bwd", "sdf_density", "weights_topk.fwd", "weights_topk.bwd",
-                 "topk_rgb.fwd", "topk_rgb.bwd", "importance_sample",
+                 "hash_encode.bwd", "sdf_density.grid", "sdf_density.rays", "weights_topk.fwd",
+                 "weights_topk.bwd", "topk_rgb.fwd", "topk_rgb.bwd", "importance_sample",
                  "importance_sample_given", "voxels.scatter", "voxels.beta"),
 }
 PATH_KERNELS["preprocess"] = PATH_KERNELS["demo"] + ("tsdf.integrate",)
+# the options run's loop (before its vis hook): the exact prepass in every
+# tracking and mapping iteration, no cache; K4's plain composite runs in
+# the vis render only (the loop colours the top-16)
+PATH_KERNELS["options"] = tuple(k for k in PATH_KERNELS["flagship"]
+                                if k not in ("sdf_density.grid", "importance_sample"))
+# the options phase: frames of the flagship options run (mapping + BA at 0
+# and 5) and of the nerf run (mapping at 0)
+OPTIONS_FRAMES = 6
+NERF_FRAMES = 3
 # kernels that the evaluation phase must launch (the eval renders: K6's
 # exact prepass, K5 given densities, K4's plain composite, K1's forward for
 # the normals and the mesh, K2's forward for the colours), and K3, which it
 # must not
-EVAL_KERNELS = ("sdf_density", "importance_sample_given", "composite.fwd",
+EVAL_KERNELS = ("sdf_density.rays", "importance_sample_given", "composite.fwd",
                 "hash_encode_with_grad.fwd", "hash_encode.fwd")
 # LPIPS on the card against its CPU value on the same view (float32
 # convolutions in other orders, no TF32)
@@ -667,21 +717,30 @@ def sampler_inputs(g, dev, R: int):
     return scfg, o, d, t_rand, perm, eik
 
 
-def given_inputs(g, dev, R: int = 2580):
-    """K5 given densities at one render chunk of an eval render: the
-    unjittered prepass z of R rays and the Laplace densities of a sphere's
-    SDF there; (cfg, z, density, perm, eik)."""
+def given_inputs(g, dev, R: int = 2580, training: bool = False):
+    """K5 given densities: the prepass z of R rays, their near and far, and
+    the Laplace densities of a sphere's SDF there; (cfg, z, near, far,
+    density, perm, eik). An eval render's chunk: unjittered z, the
+    linspace extras, anchors 0. A training iteration (``training``):
+    jittered z, the extras drawn per chunk of 1024 rays ([8, 32] at 8192
+    rays, one row at 1024: tracking does not chunk), random anchors."""
     import torch
     from nicer_slam_tpu_torch.ops import density as dens_ops
     from nicer_slam_tpu_torch.ops import ray_sampling as rs
     scfg = rs.SamplerConfig(N_samples=64, N_samples_eval=640, N_samples_extra=32)
     o, d = _sampler_rays(g, dev, R)
-    zs, _, _ = rs.uniform_z_vals(scfg, o, d, None)
+    t_rand = torch.rand((R, 640), generator=g, device=dev) if training else None
+    zs, near, far = rs.uniform_z_vals(scfg, o, d, t_rand)
     sdf = (o[:, None, :] + zs[..., None] * d[:, None, :]).norm(dim=-1) - 0.6
     dens = dens_ops.laplace_density(sdf, torch.tensor(0.0125, device=dev))
-    perm = torch.linspace(0, 639, 32, device=dev).to(torch.int64)
-    eik = torch.zeros((R,), dtype=torch.int64, device=dev)
-    return scfg, zs, dens, perm, eik
+    if not training:
+        perm = torch.linspace(0, 639, 32, device=dev).to(torch.int64)
+        return scfg, zs, near, far, dens, perm, torch.zeros((R,), dtype=torch.int64,
+                                                            device=dev)
+    perm = torch.stack([torch.randperm(640, generator=g, device=dev)[:32]
+                        for _ in range(rs.prepass_chunks(scfg, R))]).squeeze(0)
+    eik = torch.randint(0, scfg.total_samples, (R,), generator=g, device=dev)
+    return scfg, zs, near, far, dens, perm, eik
 
 
 def touched_voxels(res: int, pts) -> int:
@@ -698,9 +757,11 @@ def touched_voxels(res: int, pts) -> int:
 
 
 # rays of the importance sampler's launches on the paths: tracking, the
-# demo's mapping, the flagship's mapping; given densities: a render chunk
+# demo's mapping, the flagship's mapping; given densities: a render chunk,
+# and the exact prepass of a tracking and of a flagship mapping iteration
 SAMPLER_RAYS = (1024, 4096, 8192)
 GIVEN_RAYS = 2580
+TRAIN_RAYS = (1024, 8192)
 
 
 def check_sampler_kernels(dev, chk: Checks):
@@ -732,14 +793,18 @@ def check_sampler_kernels(dev, chk: Checks):
                         f"cache by touched voxels: {vox} of {cache.numel()}; bound with the "
                         f"cache whole {bound(io + whole, ops)[0]:.4f} ms")
     del cache, t_rand
-    scfg, zs, dens, perm, eik = given_inputs(g, dev, GIVEN_RAYS)
-    kz, ke = rs.importance_sample_given(scfg, zs, dens, perm, eik)
-    pz, pe = rs.importance_sample_given_plain(scfg, zs, dens, perm, eik)
-    ms = cuda_time(lambda: rs.importance_sample_given(scfg, zs, dens, perm, eik))
-    pms = cuda_time(lambda: rs.importance_sample_given_plain(scfg, zs, dens, perm, eik))
-    _sampler_record(chk, f"importance_sample_given[{GIVEN_RAYS}]", kz, ke, pz, pe, zs, ms,
-                    pms, GIVEN_RAYS, nbytes(zs, dens, perm, eik, kz, ke),
-                    GIVEN_RAYS * 640 * 20 + GIVEN_RAYS * kz.shape[1] * 40, "no cache")
+    for R, training in [(GIVEN_RAYS, False)] + [(R, True) for R in TRAIN_RAYS]:
+        ins = given_inputs(g, dev, R, training)
+        kz, ke = rs.importance_sample_given(*ins)
+        pz, pe = rs.importance_sample_given_plain(*ins)
+        ms = cuda_time(lambda: rs.importance_sample_given(*ins))
+        pms = cuda_time(lambda: rs.importance_sample_given_plain(*ins))
+        perm = ins[5]
+        _sampler_record(chk, f"importance_sample_given[{'train ' if training else ''}{R}]",
+                        kz, ke, pz, pe, ins[1], ms, pms, R, nbytes(*ins[1:], kz, ke),
+                        R * 640 * 20 + R * kz.shape[1] * 40,
+                        "no cache; " + ("jittered z, extras per chunk: perm "
+                                        f"{tuple(perm.shape)}" if training else "eval render"))
 
 
 # K3's points: a density-cache build chunk (build_density_cache's
@@ -880,18 +945,18 @@ def check_sdf_density(dev, chk: Checks):
     pack = sd.pack_sdf(net)
     src = "nicer_slam_tpu_torch/csrc/sdf_density.cu"
 
-    def one_launch(fn):
+    def one_launch(fn, mode):
         _cuda.reset_launch_counts()
         out = fn()
         counts = {k: v for k, v in _cuda.launch_counts().items() if v}
         _cuda.reset_launch_counts()
-        return out, counts == {"sdf_density": 1}, counts
+        return out, counts == {f"sdf_density.{mode}": 1}, counts
 
     def record(tag, rep, ko, po, exact, ms, pms, cost, single, counts, extra):
         err, scale = max_abs(ko, po), float(po.abs().max())
         ek = float((ko.double() - exact).abs().max()) / scale
         ep = float((po.double() - exact).abs().max()) / scale
-        chk.record(f"sdf_density[{tag}]", src, rep, err,
+        chk.record(f"sdf_density.{tag}", src, rep, err,
                    err <= SDF_DENSITY_RTOL * scale and single, ms, pms, *cost,
                    f"(err {err / scale:.2e} of max {scale:.4g}, tolerance "
                    f"{SDF_DENSITY_RTOL:g}; against float64: kernel {ek:.2e}, plain "
@@ -899,7 +964,7 @@ def check_sdf_density(dev, chk: Checks):
 
     # the density cache: 128³ grid points, and the device operations of one
     # build (the pack of tables and weights, then the launch)
-    ko, single, counts = one_launch(lambda: sd.density_grid(net, pack, SDF_RES, vox))
+    ko, single, counts = one_launch(lambda: sd.density_grid(net, pack, SDF_RES, vox), "grid")
     po = sd.density_grid_plain(net, pack.tables, SDF_RES, vox)
     xs = torch.linspace(-1.0, 1.0, SDF_RES, device=dev)
     exact = density_f64(net, pack, sd.grid_points(xs, torch.arange(SDF_RES ** 3, device=dev)),
@@ -909,26 +974,35 @@ def check_sdf_density(dev, chk: Checks):
                     warmup=1)
     n_ops = device_ops(lambda: sd.density_grid(net, sd.pack_sdf(net), SDF_RES, vox))
     build_ms = cuda_time(lambda: sd.density_grid(net, sd.pack_sdf(net), SDF_RES, vox))
-    record(f"grid {SDF_RES}^3", "nicer_slam_tpu/models/scene_model.py:108", ko, po, exact,
+    record(f"grid[{SDF_RES}^3]", "nicer_slam_tpu/models/scene_model.py:108", ko, po, exact,
            ms, pms, density_cache_cost(SDF_RES), single, counts,
            f"a build with its pack: {n_ops} device operations, {build_ms:.3f} ms")
     del ko, po, exact
-    # the exact prepass of a render chunk: 2580 rays x 640 z
+    # the exact prepass of a render chunk (2580 rays x 640 unjittered z) and
+    # of a tracking and a flagship mapping iteration (1024 and 8192 rays x
+    # 640 jittered z: 5.2M points in one launch at 8192)
     g = torch.Generator(device=dev)
     g.manual_seed(4)
     scfg = rs.SamplerConfig(N_samples=64, N_samples_eval=640, N_samples_extra=32)
-    o, d = _sampler_rays(g, dev, GIVEN_RAYS)
-    z, _, _ = rs.uniform_z_vals(scfg, o, d, None)
-    ko, single, counts = one_launch(lambda: sd.density_rays(net, pack, o, d, z, vox))
-    po = sd.density_rays_plain(net, pack.tables, o, d, z, vox)
-    exact = density_f64(net, pack, sd.ray_points(o, d, z), vox).reshape(z.shape)
-    ms = cuda_time(lambda: sd.density_rays(net, pack, o, d, z, vox))
-    pms = cuda_time(lambda: sd.density_rays_plain(net, pack.tables, o, d, z, vox), iters=3,
-                    warmup=1)
-    record(f"rays {GIVEN_RAYS}x640", "nicer_slam_tpu/models/scene_model.py:246", ko, po,
-           exact, ms, pms, sdf_density_cost(z.numel(), nbytes(o, d, z, ko)), single, counts,
-           f"{z.numel()} points, {int((po > 1.0).sum())} with density above 1")
-    del ko, po, exact, net, vox, pack
+    for R, training in [(GIVEN_RAYS, False)] + [(R, True) for R in TRAIN_RAYS]:
+        o, d = _sampler_rays(g, dev, R)
+        t_rand = torch.rand((R, 640), generator=g, device=dev) if training else None
+        z, _, _ = rs.uniform_z_vals(scfg, o, d, t_rand)
+        ko, single, counts = one_launch(lambda: sd.density_rays(net, pack, o, d, z, vox),
+                                        "rays")
+        po = sd.density_rays_plain(net, pack.tables, o, d, z, vox)
+        exact = density_f64(net, pack, sd.ray_points(o, d, z), vox).reshape(z.shape)
+        ms = cuda_time(lambda: sd.density_rays(net, pack, o, d, z, vox))
+        pms = cuda_time(lambda: sd.density_rays_plain(net, pack.tables, o, d, z, vox),
+                        iters=3, warmup=1)
+        record(f"rays[{'train ' if training else ''}{R}x640]",
+               "nicer_slam_tpu/models/scene_model.py:246", ko, po, exact, ms, pms,
+               sdf_density_cost(z.numel(), nbytes(o, d, z, ko)), single, counts,
+               f"{z.numel()} points, {int((po > 1.0).sum())} with density above 1"
+               + ("; jittered z" if training else ""))
+        del ko, po, exact
+        torch.cuda.empty_cache()
+    del net, vox, pack
     torch.cuda.empty_cache()
 
 
@@ -1474,12 +1548,12 @@ def report(kind: str, r, failures) -> None:
                         f"{float(terms['warp_loss'])}, not finite and positive")
     # the cache builds and the vis render's exact prepass run K6, not K3
     counts, builds = r["counts"], r["stats"]["cache_builds"]
-    log(f"  sdf_density launches {counts['sdf_density']}: {builds + 1} cache builds (one "
-        f"at set-up) and {counts['sdf_density'] - builds - 1} render chunks; "
+    log(f"  sdf_density launches: grid {counts['sdf_density.grid']} ({builds + 1} cache "
+        f"builds, one at set-up), rays {counts['sdf_density.rays']} (render chunks); "
         f"hash_encode_bf16 launches {counts['hash_encode_bf16']}")
-    if counts["hash_encode_bf16"] or counts["sdf_density"] < builds:
-        failures.append(f"{kind}: K3 launched on the main path, or fewer K6 launches than "
-                        f"cache builds")
+    if counts["hash_encode_bf16"] or counts["sdf_density.grid"] < builds:
+        failures.append(f"{kind}: K3 launched on the main path, or fewer K6 grid launches "
+                        f"than cache builds")
     never = [k for k in PATH_KERNELS[kind] if r["counts"][k] == 0]
     if never:
         failures.append(f"{kind}: kernels never launched on the main path: {never}")
@@ -1490,6 +1564,115 @@ def report(kind: str, r, failures) -> None:
     else:
         mesh = read_ply(os.path.join(r["runner"].plots_dir, plys[-1]))
         log(f"  mesh {plys[-1]}: {len(mesh['verts'])} vertices, {len(mesh['faces'])} faces")
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the model options (the exact prepass in training, warp patches
+# with SSIM, exposure; the nerf colour mode with per-image codes)
+# ---------------------------------------------------------------------------
+
+def run_options(dev, flagship_dir: str, demo_dir: str) -> dict:
+    """The options conf through exp_runner for OPTIONS_FRAMES frames, the
+    launch counters reset before it and read after its last frame (the
+    loop) and after its vis hook (the path); then the nerf conf for
+    NERF_FRAMES frames (counted into the path). Returns what report_options
+    reads."""
+    import numpy as np
+    import torch
+    from nicer_slam_tpu_torch.models import scene_model as sm
+    from nicer_slam_tpu_torch.ops import _cuda
+    from nicer_slam_tpu_torch.training import exp_runner
+
+    map_terms, loop_counts = {}, {}
+
+    def hook(runner, frame_idx):
+        if frame_idx % runner.mapping_every_frame == 0:
+            map_terms[frame_idx] = runner.last_map_terms
+        if frame_idx == runner.n_images - 1:
+            loop_counts.update(_cuda.launch_counts())
+
+    out = {}
+    for kind, n in (("options", OPTIONS_FRAMES), ("nerf", NERF_FRAMES)):
+        conf = write_conf(kind, flagship_dir if kind == "options" else demo_dir, n)
+        shutil.rmtree(os.path.join(SMOKE_DIR, f"exps_{kind}"), ignore_errors=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _cuda.reset_launch_counts()
+        t = time.perf_counter()
+        runner = exp_runner.main(["--conf", conf, "--root_dir", SMOKE_DIR, "--exps_folder",
+                                  f"exps_{kind}", "--device", str(dev)],
+                                 frame_hook=hook if kind == "options" else None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        summ = runner.timer.summary()
+        phase_s = {k: v["total_s"] for k, v in summ.items()}
+        errs = [float(np.linalg.norm(runner.est_pose_all[i][:3, 3]
+                                     - runner.dataset.gt_pose_all[i][:3, 3])) for i in range(n)]
+        r = dict(counts=_cuda.launch_counts(), errs=errs, vis=sorted(os.listdir(runner.plots_dir)),
+                 cache=runner.density_cache is not None, stats={
+                     "setup_s": wall - runner.run_s,
+                     "s_per_frame": (runner.run_s - phase_s.get("vis", 0.0)) / n,
+                     "ms_per_track_iter": 1000 * phase_s["tracking"]
+                     / (summ["tracking"]["count"] * runner.num_cam_iters),
+                     "ms_per_map_iter": summ["mapping"]["mean_ms"],
+                     **{f"{k}_s": v for k, v in phase_s.items()},
+                     "peak_mem_GiB": torch.cuda.max_memory_allocated(dev) / 2 ** 30})
+        if kind == "options":
+            r.update(map_terms=map_terms, loop_counts=loop_counts,
+                     iters=summ["tracking"]["count"] * runner.num_cam_iters
+                     + summ["mapping"]["count"])
+        else:
+            fresh = sm.SceneModel(runner.scene_cfg, np.random.default_rng(0)).render.embeddings
+            r["codes_same"] = same_bits(runner.model.render.embeddings, fresh)
+            r["codes_shape"] = tuple(fresh.shape)
+        out[kind] = r
+        del runner
+        torch.cuda.empty_cache()
+    out["counts"] = {k: out["options"]["counts"][k] + out["nerf"]["counts"][k]
+                     for k in out["options"]["counts"]}
+    return out
+
+
+def report_options(o: dict, failures) -> None:
+    import torch
+    opt, nerf = o["options"], o["nerf"]
+    for kind, r in (("options", opt), ("nerf", nerf)):
+        log(f"  {kind}: translation error vs GT per frame: "
+            + " ".join(f"{i}:{e:.4f}" for i, e in enumerate(r["errs"])))
+        log("  " + " ".join(f"{k}={v:.4g}" for k, v in r["stats"].items()))
+        log(f"  launches: " + " ".join(f"{k}={v}" for k, v in r["counts"].items() if v))
+        log(f"  vis/: {' '.join(r['vis'])}")
+        if not all(e == e and e < 1e3 for e in r["errs"]):
+            failures.append(f"{kind}: non-finite poses")
+    for f, terms in opt["map_terms"].items():
+        log(f"  loss terms, last iteration of the frame-{f} mapping call: "
+            + " ".join(f"{k}={float(v):.5g}" for k, v in terms.items()))
+    bad = [(f, k) for f, terms in opt["map_terms"].items() for k, v in terms.items()
+           if not torch.isfinite(v).all()]
+    if bad:
+        failures.append(f"options: non-finite loss terms {bad}")
+    last = max(opt["map_terms"])
+    warp = float(opt["map_terms"][last]["warp_loss"])
+    if not warp > 0 or last != OPTIONS_FRAMES - 1:
+        failures.append(f"options: warp_loss of the frame-{last} mapping call is {warp}")
+    lc, iters = opt["loop_counts"], opt["iters"]
+    log(f"  the loop ({iters} tracking and mapping iterations): sdf_density.rays "
+        f"{lc['sdf_density.rays']}, sdf_density.grid {lc['sdf_density.grid']}, "
+        f"importance_sample_given {lc['importance_sample_given']}, importance_sample "
+        f"{lc['importance_sample']}; a density cache: {opt['cache']}")
+    if (lc["sdf_density.grid"] or lc["importance_sample"] or opt["cache"]
+            or lc["sdf_density.rays"] != iters or lc["importance_sample_given"] != iters):
+        failures.append(f"options: the loop's exact prepass launched K6 rays "
+                        f"{lc['sdf_density.rays']} and K5 given {lc['importance_sample_given']} "
+                        f"times for {iters} iterations, K6 grid {lc['sdf_density.grid']}, K5 "
+                        f"cached {lc['importance_sample']} (a cache: {opt['cache']})")
+    never = [k for k in PATH_KERNELS["options"] if lc[k] == 0]
+    if never:
+        failures.append(f"options: kernels never launched in the loop: {never}")
+    log(f"  nerf: per-image codes {nerf['codes_shape']} the same bit for bit after "
+        f"{NERF_FRAMES} frames: {nerf['codes_same']}")
+    if not nerf["codes_same"]:
+        failures.append("nerf: the frozen per-image codes changed")
 
 
 # ---------------------------------------------------------------------------
@@ -1926,6 +2109,13 @@ def main() -> int:
                 f"(waited {time.perf_counter() - t:.1f} s for the scan)")
             runs[kind] = run_slam(dev, kind, data_dir)
             torch.cuda.empty_cache()
+        t = time.perf_counter()
+        log(f"[5b/9] options: the flagship configuration with the exact prepass, warp "
+            f"patches [1 5] under SSIM and exposure, {OPTIONS_FRAMES} frames; then the demo "
+            f"networks in nerf mode with per-image codes, {NERF_FRAMES} frames")
+        options = run_options(dev, wait_scene(procs, "flagship"), wait_scene(procs, "demo"))
+        options["phase_s"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
         log("[6/9] eval: the checkpoint battery on the flagship run (eval_cam, mesh "
             f"{MESH_RESOLUTION}^3 vs the analytic scene, depth bias, interpolate view 2, "
             f"{PATHS['flagship']['eval_views']} extrapolated views)")
@@ -1957,6 +2147,8 @@ def main() -> int:
     for kind, r in runs.items():
         log(f" {kind}:")
         report(kind, r, failures)
+    log(f" options (phase {options['phase_s']:.1f} s):")
+    report_options(options, failures)
     log(" eval (the flagship run):")
     report_eval(ev, failures)
     log(f" preprocess (phase {pre['phase_s']:.1f} s):")
@@ -1966,6 +2158,7 @@ def main() -> int:
     for name, r in chk.results.items():
         base = name.split("[")[0]
         by_path = {kind: r_["counts"][base] for kind, r_ in runs.items()}
+        by_path["options"] = options["counts"][base]
         by_path["eval"] = ev["counts"][base]
         by_path["preprocess"] = pre["slam"]["counts"][base]
         kernels.append(dict(r, launches=sum(by_path.values()), launches_by_path=by_path))

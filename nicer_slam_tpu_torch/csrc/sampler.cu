@@ -17,11 +17,16 @@
 // All random draws are inputs. No gradient.
 //
 // Given-density mode replaces the same pipeline with the "exact" prepass
-// (ray_sampling.py:131-134 with scene_model.py:246-260), which an eval
-// render takes: the caller computes the unjittered z [R, Ne] and the
-// densities of the SDF network (K3) with the voxel beta (K7) at those z,
+// (ray_sampling.py:131-134 with scene_model.py:246-287), the JAX package's
+// default in training and what every eval render takes: the caller
+// computes z [R, Ne] (jittered in training), near and far [R, 1] (the
+// configured near and the cube's far, not z's ends, which jitter moves)
+// and the densities of the SDF network with the voxel beta at those z (K6),
 // and the kernel runs steps 3-7 on them. z comes in as an input, so the
-// inverse CDF uses bit for bit the z the network was evaluated at.
+// inverse CDF uses bit for bit the z the network was evaluated at. The
+// extras come from perm [n_chunks, Nextra], ray r reading row r / chunk:
+// the JAX package draws them per chunk of prepass_ray_chunk rays
+// (scene_model.py:264-282), one key per chunk.
 //
 // What bounds it on the card: per ray, 640 trilinear reads of an 8 MB
 // volume (L2 resident) and two 640-long scans; the output is 98 floats.
@@ -306,15 +311,16 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock) importance_sample_kernel(
                  z_out + r * (Ns + 2 + Nextra), z_eik + r);
 }
 
-// Given-density mode (the exact prepass of an eval render): z [R, Ne] and
-// the densities the SDF network gave at those z come in; near and far are
-// z's ends (linspace puts them there exactly).
+// Given-density mode (the exact prepass): z [R, Ne], near and far [R, 1]
+// and the densities the SDF network gave at those z come in; ray r takes
+// its extras from perm row r / chunk.
 template <int CH>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock) importance_sample_given_kernel(
-    const float* __restrict__ z, const float* __restrict__ density,
+    const float* __restrict__ z, const float* __restrict__ near,
+    const float* __restrict__ far, const float* __restrict__ density,
     const int64_t* __restrict__ perm, const int64_t* __restrict__ eik_idx,
-    float* __restrict__ z_out, float* __restrict__ z_eik, int64_t R, int Ne,
-    int Ns, int Nextra, float u_step) {
+    float* __restrict__ z_out, float* __restrict__ z_eik, int64_t R, int64_t chunk,
+    int Ne, int Ns, int Nextra, float u_step) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
   const int64_t r = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -327,8 +333,8 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock) importance_sample_given_k
     rows.c[i] = dist * density[r * Ne + i];
   }
   __syncwarp();
-  sample_ray<CH>(rows, lane, Ne, Ns, Nextra, rows.z[0], rows.z[Ne - 1], perm, u_step,
-                 eik_idx[r], z_out + r * (Ns + 2 + Nextra), z_eik + r);
+  sample_ray<CH>(rows, lane, Ne, Ns, Nextra, near[r], far[r], perm + (r / chunk) * Nextra,
+                 u_step, eik_idx[r], z_out + r * (Ns + 2 + Nextra), z_eik + r);
 }
 
 // launch kern<CH> with CH the smallest of 4, 8, 20, 32 that holds
@@ -370,18 +376,20 @@ int nsl_importance_sample(const void* rays_o, const void* rays_d,
                      });
 }
 
-int nsl_importance_sample_given(const void* z, const void* density,
-                                const void* perm, const void* eik_idx,
-                                void* z_out, void* z_eik, int64_t R, int Ne,
-                                int Ns, int Nextra, float u_step,
-                                void* stream) {
+int nsl_importance_sample_given(const void* z, const void* near, const void* far,
+                                const void* density, const void* perm,
+                                const void* eik_idx, void* z_out, void* z_eik,
+                                int64_t R, int64_t chunk, int Ne, int Ns, int Nextra,
+                                float u_step, void* stream) {
+  if (R > 0 && (chunk < 1 || R % chunk != 0)) return (int)cudaErrorInvalidValue;
   return launch_rays(R, Ne, Ns, Nextra, (cudaStream_t)stream,
                      [&](auto ch, dim3 grid, dim3 block, size_t smem, cudaStream_t s) {
                        importance_sample_given_kernel<decltype(ch)::value>
                            <<<grid, block, smem, s>>>(
-                               (const float*)z, (const float*)density,
-                               (const int64_t*)perm, (const int64_t*)eik_idx,
-                               (float*)z_out, (float*)z_eik, R, Ne, Ns, Nextra, u_step);
+                               (const float*)z, (const float*)near, (const float*)far,
+                               (const float*)density, (const int64_t*)perm,
+                               (const int64_t*)eik_idx, (float*)z_out, (float*)z_eik, R,
+                               chunk, Ne, Ns, Nextra, u_step);
                      });
 }
 

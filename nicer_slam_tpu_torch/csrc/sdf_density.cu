@@ -2,7 +2,8 @@
 //
 // Replaces the density-cache build of nicer_slam_tpu/models/scene_model.py
 // build_density_cache (:108-143) and the exact prepass of an eval render
-// (:246-287: sdf_prepass + density_prepass inside importance_z_vals), which
+// or, with prepass_mode = exact, of every training iteration (:238-287:
+// sdf_prepass + density_prepass inside importance_z_vals), which
 // compute, per point x:
 //   sdf     = coarse_mlp([x, PE6(x), K3_coarse(x)])[0]
 //           + fine_mlp([x, PE6(x), K3_fine(x)])[0]

@@ -16,7 +16,7 @@ the MLP twice; K1's own backward is first order.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,7 +77,9 @@ class ImplicitNetConfig(NamedTuple):
 def implicit_config_from_conf(conf: Config, feature_vector_size: int,
                               name: str = "") -> ImplicitNetConfig:
     if conf.get_bool("concat_coarse_feature", False):
-        raise NotImplementedError("concat_coarse_feature is not ported yet")
+        raise NotImplementedError(
+            "concat_coarse_feature is not ported yet (ROADMAP.md queue 1: it needs the "
+            "exact prepass with fp32 tables and the coarse feature vector in K6)")
     return ImplicitNetConfig(
         d_in=conf.get_int("d_in", 3),
         d_out=conf.get_int("d_out", 1),
@@ -240,7 +242,7 @@ def combine_gradient(net: CombineNet, x: torch.Tensor, stage: str = "fine"):
 
 # ---------------------------------------------------------------------------
 # bf16 inference path (K3) for the density-cache build and the exact
-# prepass of an eval render; no gradient
+# prepass (the plain version of K6); no gradient
 # ---------------------------------------------------------------------------
 
 def pack_combine_tables(net: CombineNet) -> Dict[str, torch.Tensor]:
@@ -270,8 +272,28 @@ def combine_sdf_packed(net: CombineNet, packed: Dict[str, torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
-# Rendering (color) network, idr mode (base_networks.py:241-405)
+# Rendering (color) network (base_networks.py:241-405)
 # ---------------------------------------------------------------------------
+
+# the MLP input of each mode, in order ("grid" only where the color grid is
+# on); "no_color" runs no MLP: sigmoid of the first 3 feature channels
+RENDER_MODES = {
+    "idr": ("points", "view_dirs", "normals", "features", "grid"),
+    "idr_detach": ("points", "view_dirs", "normals_detached", "features"),
+    "idr_nopts": ("view_dirs", "normals", "features"),
+    "idr_nopts_detach": ("view_dirs", "normals_detached", "features"),
+    "idr_nonormal": ("points", "view_dirs", "features"),
+    "idr_noview": ("points", "normals", "features"),
+    "nerf": ("view_dirs", "features"),
+    "no_feature": ("points", "view_dirs", "normals"),
+    "no_feature_no_noraml": ("points", "view_dirs"),
+    "no_color": (),
+}
+# width of a per-image code (per_image_code) and of an exposure code
+# (model_exposure)
+IMAGE_CODE_DIM = 32
+EXPOSURE_CODE_DIM = 4
+
 
 class RenderingNetConfig(NamedTuple):
     mode: str = "idr"
@@ -280,6 +302,9 @@ class RenderingNetConfig(NamedTuple):
     dims: Tuple[int, ...] = (64, 64)
     weight_norm: bool = True
     multires_view: int = 4
+    per_image_code: bool = False
+    model_exposure: bool = False
+    n_images: int = 2000
     use_grid_feature: bool = False
     feature_vector_size: int = 64
     color_num_levels: int = 16
@@ -298,37 +323,69 @@ class RenderingNetConfig(NamedTuple):
 
     @property
     def layer_dims(self) -> Tuple[int, ...]:
-        d0 = self.d_in + self.feature_vector_size + self.grid_feature_dim
+        fvs = self.feature_vector_size
+        if self.mode in ("no_feature", "no_feature_no_noraml"):
+            fvs = 0
+        d0 = self.d_in + fvs + self.grid_feature_dim
         if self.multires_view > 0:
             d0 += positional_encoding_dim(self.multires_view, 3) - 3
+        if self.per_image_code:
+            d0 += IMAGE_CODE_DIM
         return (d0,) + tuple(self.dims) + (self.d_out,)
 
 
-def rendering_config_from_conf(conf: Config, feature_vector_size: int) -> RenderingNetConfig:
-    for opt in ("per_image_code", "model_exposure"):
-        if conf.get_bool(opt, False):
-            raise NotImplementedError(f"rendering_network.{opt} is not ported yet")
-    mode = conf.get_string("mode", "idr")
-    if mode != "idr":
-        raise NotImplementedError(f"rendering mode {mode!r} is not ported yet")
-    return RenderingNetConfig(
-        mode=mode,
+def check_rendering_config(cfg: RenderingNetConfig) -> None:
+    """Raise ValueError for a mode the JAX package does not know and for the
+    combinations it cannot run (each fails there with a shape error):
+    a mode whose MLP input leaves out the color grid that ``layer_dims``
+    counts, ``per_image_code`` with ``model_exposure`` (the exposure codes
+    replace the per-image codes the first layer is sized for), and
+    ``no_color`` with ``model_exposure`` (no second colour to return)."""
+    if cfg.mode not in RENDER_MODES:
+        raise ValueError(f"unknown rendering mode {cfg.mode!r}; one of {sorted(RENDER_MODES)}")
+    if cfg.use_grid_feature and cfg.mode not in ("idr", "no_color"):
+        raise ValueError(f"rendering mode {cfg.mode!r} with use_grid_feature: the mode's "
+                         f"input leaves out the color grid that the first layer counts")
+    if cfg.per_image_code and cfg.model_exposure:
+        raise ValueError("per_image_code with model_exposure: both keep per-image "
+                         "embeddings, and the exposure codes replace the per-image codes")
+    if cfg.mode == "no_color" and cfg.model_exposure:
+        raise ValueError("rendering mode 'no_color' with model_exposure: no_color "
+                         "returns one colour, exposure needs two")
+
+
+def rendering_config_from_conf(conf: Config, feature_vector_size: int,
+                               n_images: int = 2000) -> RenderingNetConfig:
+    cfg = RenderingNetConfig(
+        mode=conf.get_string("mode", "idr"),
         d_in=conf.get_int("d_in", 9),
         d_out=conf.get_int("d_out", 3),
         dims=tuple(conf.get_list("dims", [64, 64])),
         weight_norm=conf.get_bool("weight_norm", True),
         multires_view=conf.get_int("multires_view", 0),
+        per_image_code=conf.get_bool("per_image_code", False),
+        model_exposure=conf.get_bool("model_exposure", False),
+        n_images=n_images,
         use_grid_feature=conf.get_bool("use_grid_feature", False),
         feature_vector_size=feature_vector_size,
         color_num_levels=conf.get_int("color_num_levels", 16),
         color_logmap=conf.get_int("color_logmap", 24),
         color_desired_res=conf.get_int("color_desired_res", 2048),
     )
+    check_rendering_config(cfg)
+    return cfg
 
 
 class RenderingNet(nn.Module):
+    """The color MLP (``lins``), the color grid (``encoding``) where it is
+    on, the per-image codes (``embeddings``: [n_images, 32] with
+    per_image_code, [n_images, 4] with model_exposure) and the exposure MLP
+    (``exp_lins``, 4 -> 64 -> 64 -> 6, no weight norm), drawn from ``rng``
+    in the JAX package's order."""
+
     def __init__(self, cfg: RenderingNetConfig, rng: np.random.Generator):
         super().__init__()
+        check_rendering_config(cfg)
         self.cfg = cfg
         self.spec = cfg.hash_spec() if cfg.use_grid_feature else None
         if cfg.use_grid_feature:
@@ -339,26 +396,64 @@ class RenderingNet(nn.Module):
             WNLinear(init_linear_default(rng, dims[l], dims[l + 1],
                                          weight_norm=cfg.weight_norm))
             for l in range(len(dims) - 1))
+        code_dim = (IMAGE_CODE_DIM if cfg.per_image_code
+                    else EXPOSURE_CODE_DIM if cfg.model_exposure else 0)
+        if code_dim:
+            self.embeddings = nn.Parameter(torch.from_numpy(
+                rng.uniform(-1e-4, 1e-4, (cfg.n_images, code_dim)).astype(np.float32)))
+        if cfg.model_exposure:
+            self.exp_lins = nn.ModuleList(
+                WNLinear(init_linear_default(rng, a, b, weight_norm=False))
+                for a, b in ((EXPOSURE_CODE_DIM, 64), (64, 64), (64, 6)))
+
+
+def _from_euler(angles: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices [N, 3, 3] from Euler angles [N, 3] (the JAX
+    package's ``_from_euler_jax``)."""
+    sx, sy, sz = torch.sin(angles).unbind(-1)
+    cx, cy, cz = torch.cos(angles).unbind(-1)
+    row0 = torch.stack([cy * cz, sx * sy * cz - cx * sz, cx * sy * cz + sx * sz], -1)
+    row1 = torch.stack([cy * sz, sx * sy * sz + cx * cz, cx * sy * sz - sx * cz], -1)
+    row2 = torch.stack([-sy, sx * cy, cx * cy], -1)
+    return torch.stack([row0, row1, row2], -2)
 
 
 def rendering_forward(net: RenderingNet, points: torch.Tensor,
                       normals: torch.Tensor, view_dirs: torch.Tensor,
-                      feature_vectors: torch.Tensor,
-                      color_stage: str = "base") -> torch.Tensor:
-    """Color per sample point [N,3] (idr mode). In the ``base`` color stage
-    the color grid is detached: K2 runs forward only, under no_grad."""
+                      feature_vectors: torch.Tensor, color_stage: str = "base",
+                      image_indices: Optional[torch.Tensor] = None):
+    """Color per sample point [N,3] in the configured mode
+    (base_networks.py:333-395). In the ``base`` color stage the color grid
+    is detached: K2 runs forward only, under no_grad. ``image_indices``
+    [N] (each point's frame index) selects the per-image or exposure codes.
+    With ``model_exposure`` the result is (sigmoid(R·x + t), sigmoid(x)):
+    the exposure-corrected colour and the colour before it."""
     cfg = net.cfg
-    parts = [points, positional_encoding(view_dirs, cfg.multires_view),
-             normals, feature_vectors]
+    if cfg.mode == "no_color":
+        return torch.sigmoid(feature_vectors[:, :3])
+    inputs = {"points": points, "normals": normals, "features": feature_vectors,
+              "view_dirs": positional_encoding(view_dirs, cfg.multires_view)}
+    if "normals_detached" in RENDER_MODES[cfg.mode]:
+        inputs["normals_detached"] = normals.detach()
     if cfg.use_grid_feature:
         if color_stage == "base":
             with torch.no_grad():
-                parts.append(he.hash_encode(net.spec, net.encoding, points))
+                inputs["grid"] = he.hash_encode(net.spec, net.encoding, points)
         else:
-            parts.append(he.hash_encode(net.spec, net.encoding, points))
-    x = torch.cat(parts, dim=-1)
+            inputs["grid"] = he.hash_encode(net.spec, net.encoding, points)
+    x = torch.cat([inputs[k] for k in RENDER_MODES[cfg.mode] if k in inputs], dim=-1)
+    if cfg.per_image_code:
+        x = torch.cat([x, net.embeddings[image_indices]], dim=-1)
     for l, lin in enumerate(net.lins):
         x = lin(x)
         if l < len(net.lins) - 1:
             x = torch.relu(x)
-    return torch.sigmoid(x)
+    if not cfg.model_exposure:
+        return torch.sigmoid(x)
+    h = net.embeddings[image_indices]
+    for i, lin in enumerate(net.exp_lins):
+        h = lin(h)
+        if i < len(net.exp_lins) - 1:
+            h = torch.relu(h)
+    x_nor = torch.einsum("nij,nj->ni", _from_euler(h[..., :3]), x) + h[..., 3:]
+    return torch.sigmoid(x_nor), torch.sigmoid(x)

@@ -125,6 +125,39 @@ def normal_losses(normal_pred, normal_gt, mask):
     return l1, cos
 
 
+def _gaussian_window(ps: int, sigma: float = 1.5) -> torch.Tensor:
+    """The ps x ps gaussian window [ps*ps], summing to 1."""
+    x = torch.arange(ps, dtype=torch.float32) - ps // 2
+    g = torch.exp(-(x ** 2) / (2.0 * sigma ** 2))
+    g = g / g.sum()
+    return (g[:, None] * g[None, :]).reshape(-1)
+
+
+def warp_ssim(sampled_rgb, gt_rgb, mask, ps: int, patch_w=None):
+    """1 - the mean gaussian SSIM of each warped ps x ps patch (loss.py:
+    139-149, pytorch_msssim's SSIM with win_size = patchsize: one window per
+    patch). sampled_rgb [S,R,pp,3], gt_rgb [R,pp,3], mask [S,R,pp]; masked
+    pixels are zeroed first, so a fully masked patch has SSIM 1. ``patch_w``
+    [S,R] weights the mean (the plain mean at all ones). The caller applies
+    the 0.05 factor."""
+    m = mask[..., None].to(sampled_rgb.dtype)
+    x = (sampled_rgb * m).reshape(-1, ps * ps, 3)
+    y = (torch.broadcast_to(gt_rgb[None], sampled_rgb.shape) * m).reshape(-1, ps * ps, 3)
+    w = _gaussian_window(ps).to(device=x.device, dtype=x.dtype)
+    mu1 = torch.einsum("p,npc->nc", w, x)
+    mu2 = torch.einsum("p,npc->nc", w, y)
+    s1 = torch.einsum("p,npc->nc", w, x * x) - mu1 * mu1
+    s2 = torch.einsum("p,npc->nc", w, y * y) - mu2 * mu2
+    s12 = torch.einsum("p,npc->nc", w, x * y) - mu1 * mu2
+    C1, C2 = 0.01 ** 2, 0.03 ** 2
+    ssim = (((2 * mu1 * mu2 + C1) * (2 * s12 + C2))
+            / ((mu1 * mu1 + mu2 * mu2 + C1) * (s1 + s2 + C2)))
+    if patch_w is None:
+        return 1.0 - ssim.mean()
+    pw = torch.broadcast_to(patch_w.reshape(-1)[:, None], ssim.shape)
+    return 1.0 - (ssim * pw).sum() / pw.sum().clamp_min(1.0)
+
+
 def compute_losses(cfg: LossConfig, outputs: Dict[str, torch.Tensor],
                    gt: Dict[str, torch.Tensor], batch: RayBatch, *,
                    stage: str = "fine", is_first_frame: bool = False,
@@ -149,13 +182,28 @@ def compute_losses(cfg: LossConfig, outputs: Dict[str, torch.Tensor],
     sign_change = (sdf > 0.0).any(dim=-1) & (sdf < 0.0).any(dim=-1)
     mask = (sign_change & (gt["mask"][:, 0] > 0.5)).to(torch.float32) * rw
 
-    # warp at patch size 1 is always L1 (loss.py:132-155)
-    if cfg.warp_loss_weight > 0 and stage == "fine" and "warp_sampled_rgb_1" in outputs:
-        wmask = outputs["warp_mask_1"]                          # [S,R,1]
-        if batch.ray_weight is not None:
-            wmask = wmask.to(torch.float32) * rw[None, :, None]
-        diff = (outputs["warp_sampled_rgb_1"] - outputs["warp_gt_rgb_1"][None]).abs()
-        terms["warp_loss"] = _masked_mean(diff, wmask[..., None]) * (1.0 - ff)
+    # warp: the sum over the patch sizes (loss.py:132-155), in the JAX
+    # package's order (the output keys sorted as strings); patch size 1 is
+    # always L1, a larger one L1 or 0.05 x gaussian SSIM per warp_loss_type
+    warp_keys = sorted(k for k in outputs if k.startswith("warp_sampled_rgb_"))
+    if cfg.warp_loss_weight > 0 and stage == "fine" and warp_keys:
+        if cfg.warp_loss_type not in ("l1", "ssim"):
+            raise ValueError(f"unknown warp_loss_type {cfg.warp_loss_type}")
+        warp = zero
+        for key in warp_keys:
+            ps = int(key.rsplit("_", 1)[1])
+            sampled, wmask = outputs[key], outputs[f"warp_mask_{ps}"]   # [S,R,pp,3], [S,R,pp]
+            gt_patch = outputs[f"warp_gt_rgb_{ps}"]
+            if ps == 1 or cfg.warp_loss_type == "l1":
+                if batch.ray_weight is not None:
+                    wmask = wmask.to(torch.float32) * rw[None, :, None]
+                diff = (sampled - gt_patch[None]).abs()
+                warp = warp + _masked_mean(diff, wmask[..., None])
+            else:
+                patch_w = (None if batch.ray_weight is None
+                           else torch.broadcast_to(rw[None, :], wmask.shape[:2]))
+                warp = warp + 0.05 * warp_ssim(sampled, gt_patch, wmask, ps, patch_w)
+        terms["warp_loss"] = warp * (1.0 - ff)
     else:
         terms["warp_loss"] = zero
 

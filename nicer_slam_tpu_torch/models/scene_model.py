@@ -2,15 +2,17 @@
 nicer_slam_tpu/models/scene_model.py).
 
 Rays live in one flat ``[R]`` batch with a per-ray keyframe-slot id. The
-path: rays -> importance sampler (K5, reading the cached ``[res³]`` prepass
-density that K6 builds; an eval render without a cache takes the exact
-prepass, K6 at every prepass sample) -> coarse+fine SDF with
-analytic normals (K1) -> Laplace density with the voxel-counter β (K7) ->
-per-ray composite (K4; in training with ``color_topk`` the weights pass
-picks the top-k samples and the color network, K2 on the color grid, runs
-only there) -> flow over the keyframe edge graph, photometric warp at
-patch size 1, eikonal points, the camera-space normal map and the SDF at
-the cameras.
+path: rays -> importance sampler, with one of two prepasses: "cached" (K5
+reads the ``[res³]`` prepass density that K6 builds) or "exact" (the JAX
+package's default, and every eval render: K6 evaluates the SDF network and
+the density at every jittered prepass z, K5 samples from those densities)
+-> coarse+fine SDF with analytic normals (K1) -> Laplace density with the
+voxel-counter β (K7) -> per-ray composite (K4; in training with
+``color_topk`` the weights pass picks the top-k samples and the color
+network, K2 on the color grid, runs only there; with ``model_exposure`` a
+second composite of the colour before the exposure) -> flow over the
+keyframe edge graph, photometric warp per patch size, eikonal points, the
+camera-space normal map and the SDF at the cameras.
 
 Every random draw is an argument (``RenderDraws``); ``make_render_draws``
 makes them from a torch Generator, and the tests hand in the JAX package's
@@ -30,7 +32,7 @@ from ..config import Config
 from ..ops import density as density_ops
 from ..ops import sdf_density
 from ..ops.ray_sampling import (SamplerConfig, importance_sample,
-                                 importance_sample_given, uniform_z_vals)
+                                 importance_sample_given, prepass_chunks, uniform_z_vals)
 from ..ops.safe_math import safe_norm
 from ..ops.volume_rendering import composite, topk_rgb, weights_topk
 from ..utils.camera import rays_from_uv
@@ -49,6 +51,8 @@ class SceneConfig(NamedTuple):
     use_warp_loss: bool = True
     H: int = 680
     W: int = 1200
+    # the warp's patch sizes: each lifts a ps x ps patch around a ray
+    patchsizes: Tuple[int, ...] = (1,)
     # in training, the color network runs only at the color_topk samples of
     # largest weight per ray, their weights renormalised to the ray's whole
     # weight (the JAX package's SceneConfig.color_topk); 0 = every sample
@@ -64,22 +68,15 @@ def scene_config_from_conf(model_conf: Config, img_res, n_images: int) -> SceneC
         N_samples=rs.get_int("N_samples", 64),
         N_samples_eval=rs.get_int("N_samples_eval", 640),
         N_samples_extra=rs.get_int("N_samples_extra", 32),
+        prepass_ray_chunk=rs.get_int("prepass_ray_chunk", 1024),
         prepass_mode=rs.get_string("prepass_mode", "exact"),
         prepass_cache_res=rs.get_int("prepass_cache_res", 128),
     )
-    if sampler.prepass_mode != "cached":
-        raise NotImplementedError(
-            f"prepass_mode {sampler.prepass_mode!r}: training with the exact "
-            f"prepass is not ported (set model.ray_sampler.prepass_mode = "
-            f"cached; eval renders take the exact prepass either way)")
-    patchsizes = tuple(int(p) for p in model_conf.get_list("mapping_patchsizes", [1]))
-    if patchsizes != (1,):
-        raise NotImplementedError(f"warp patch sizes {patchsizes}: only (1,) is ported")
     return SceneConfig(
         combine=fields.combine_config_from_conf(
             model_conf.get_config("implicit_network"), fvs),
         render=fields.rendering_config_from_conf(
-            model_conf.get_config("rendering_network"), fvs),
+            model_conf.get_config("rendering_network"), fvs, n_images=n_images),
         sampler=sampler,
         density_method=model_conf.get_string("density_method", "volsdf_gridpredefined"),
         scene_bounding_sphere=model_conf.get_float("scene_bounding_sphere", 1.0),
@@ -88,6 +85,7 @@ def scene_config_from_conf(model_conf: Config, img_res, n_images: int) -> SceneC
         use_warp_loss=model_conf.get_bool("use_warp_loss", False),
         H=int(img_res[0]),
         W=int(img_res[1]),
+        patchsizes=tuple(int(p) for p in model_conf.get_list("mapping_patchsizes", [1])),
         color_topk=model_conf.get_int("color_topk", 0),
     )
 
@@ -143,19 +141,22 @@ def build_density_cache(cfg: SceneConfig, model: SceneModel,
 @torch.no_grad()
 def _exact_prepass(cfg: SceneConfig, model: SceneModel, voxels: torch.Tensor,
                    sdf_pack: sdf_density.SdfPack, cam_loc: torch.Tensor,
-                   ray_dirs: torch.Tensor, perm: torch.Tensor, eik_idx: torch.Tensor,
-                   beta_scale=None):
-    """The exact prepass of an eval render (scene_model.py:246-287 with
-    ray_sampling.py:112-163, training=False): the density at the 640
-    unjittered z of every ray in one K6 launch (``sdf_density.density_rays``:
-    the SDF network from the bf16-packed tables and the voxel β), then K5
-    on those densities."""
+                   ray_dirs: torch.Tensor, t_rand: Optional[torch.Tensor],
+                   perm: torch.Tensor, eik_idx: torch.Tensor, beta_scale=None):
+    """The exact prepass (scene_model.py:238-287 with ray_sampling.py:
+    112-163): the stratified z (jittered by ``t_rand`` in training), the
+    density at every one of them in one K6 launch
+    (``sdf_density.density_rays``: the SDF network from the bf16-packed
+    tables and the voxel β), then K5 on those densities with the true near
+    and far. The JAX package runs a training prepass in chunks of
+    ``prepass_ray_chunk`` rays, one key each; ``perm`` carries their draws
+    ([n_chunks, N_extra]), so one launch of each kernel covers all rays."""
     sc = cfg.sampler
-    z, _, _ = uniform_z_vals(sc, cam_loc, ray_dirs, None)
+    z, near, far = uniform_z_vals(sc, cam_loc, ray_dirs, t_rand)
     density = sdf_density.density_rays(model.implicit, sdf_pack, cam_loc, ray_dirs, z,
                                        voxels, _learned_beta(cfg, model), beta_scale,
                                        cfg.voxel_res)
-    return importance_sample_given(sc, z, density, perm, eik_idx)
+    return importance_sample_given(sc, z, near, far, density, perm, eik_idx)
 
 
 class RayBatch(NamedTuple):
@@ -179,7 +180,7 @@ class RenderDraws(NamedTuple):
     """The random draws of one render_rays call."""
 
     t_rand: torch.Tensor                        # [R, Ne] in [0,1)
-    perm: torch.Tensor                          # [N_extra] int64 bins
+    perm: torch.Tensor                          # [N_extra] or [n_chunks, N_extra] int64 bins
     eik_idx: torch.Tensor                       # [R] int64 in [0, S)
     eik_uniform: Optional[torch.Tensor] = None  # [10R, 3] in [-b, b)
     eik_nei: Optional[torch.Tensor] = None      # [11R, 3] in [0,1)
@@ -187,10 +188,15 @@ class RenderDraws(NamedTuple):
 
 def make_render_draws(cfg: SceneConfig, R: int, gen: torch.Generator,
                       device, is_mapping: bool) -> RenderDraws:
+    """The draws of one training render_rays call: the exact prepass draws
+    its extra bins per chunk of ``prepass_ray_chunk`` rays (``perm``
+    [n_chunks, N_extra] when it chunks), the cached prepass once."""
     sc = cfg.sampler
     t_rand = torch.rand((R, sc.N_samples_eval), generator=gen, device=device)
-    perm = torch.randperm(sc.N_samples_eval, generator=gen,
-                          device=device)[:sc.N_samples_extra]
+    n = prepass_chunks(sc, R) if sc.prepass_mode != "cached" else 1
+    perms = [torch.randperm(sc.N_samples_eval, generator=gen,
+                            device=device)[:sc.N_samples_extra] for _ in range(n)]
+    perm = perms[0] if n == 1 else torch.stack(perms)
     eik_idx = torch.randint(0, sc.total_samples, (R,), generator=gen, device=device)
     if not is_mapping:
         return RenderDraws(t_rand, perm, eik_idx)
@@ -205,18 +211,21 @@ def render_rays(cfg: SceneConfig, model: SceneModel, voxels: torch.Tensor,
                 color_stage: str = "highfreq", training: bool = True,
                 is_mapping: bool = False, edges: Optional[FlowEdges] = None,
                 full_rgb: Optional[torch.Tensor] = None,
+                full_depth: Optional[torch.Tensor] = None,
                 density_cache: Optional[torch.Tensor] = None,
                 sdf_pack: Optional[sdf_density.SdfPack] = None,
                 beta_scale: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Forward pass over a flat ray batch. With ``is_mapping`` the output
     also holds the updated voxel counter (``voxels``) and the eikonal
-    gradients (``grad_theta``, ``grad_theta_nei``). Without a
-    ``density_cache`` the prepass is exact (eval renders only) and reads
-    ``sdf_pack``, the caller's ``sdf_density.pack_sdf`` of the model,
-    packed once for all the chunks of a render."""
-    if density_cache is None and training:
-        raise NotImplementedError(
-            "training with the exact prepass is not ported: pass the density cache")
+    gradients (``grad_theta``, ``grad_theta_nei``), and, with the warp
+    loss and ``full_rgb`` [S, H*W, 3], ``warp_{sampled_rgb,gt_rgb,mask}_{ps}``
+    for every patch size (``full_depth`` [S, H*W], the slots' monocular
+    depth, masks the patches of ps > 1 across depth edges). With a
+    ``density_cache`` the prepass reads it; without one it is exact and
+    reads ``sdf_pack``, the caller's ``sdf_density.pack_sdf`` of the model
+    (packed once per mapping iteration, tracked frame or render). With
+    ``model_exposure`` the output holds ``rgb_un`` and ``rgb_un_values``,
+    the colours before the exposure and their composite."""
     if density_cache is None and sdf_pack is None:
         raise ValueError("the exact prepass reads sdf_pack "
                          "(sdf_density.pack_sdf of the model)")
@@ -231,13 +240,14 @@ def render_rays(cfg: SceneConfig, model: SceneModel, voxels: torch.Tensor,
         ne = cfg.sampler.N_samples_eval
         perm = torch.as_tensor(np.linspace(0, ne - 1, cfg.sampler.N_samples_extra)
                                .astype(np.int64), device=ray_dirs.device)
+    t_rand = draws.t_rand if training else None
     if density_cache is None:
         z_vals, z_eik = _exact_prepass(cfg, model, voxels, sdf_pack, cam_loc.detach(),
-                                       ray_dirs.detach(), perm, draws.eik_idx, beta_scale)
+                                       ray_dirs.detach(), t_rand, perm, draws.eik_idx,
+                                       beta_scale)
     else:
-        z_vals, z_eik = importance_sample(
-            cfg.sampler, cam_loc, ray_dirs, density_cache,
-            draws.t_rand if training else None, perm, draws.eik_idx)
+        z_vals, z_eik = importance_sample(cfg.sampler, cam_loc, ray_dirs, density_cache,
+                                          t_rand, perm, draws.eik_idx)
     S = z_vals.shape[1]
 
     points = cam_loc[:, None, :] + z_vals[..., None] * ray_dirs[:, None, :]
@@ -252,6 +262,10 @@ def render_rays(cfg: SceneConfig, model: SceneModel, voxels: torch.Tensor,
                        beta_scale).reshape(R, S)
     normals = (gradients / (safe_norm(gradients, dim=-1, keepdim=True) + 1e-6)
                ).reshape(R, S, 3)
+    # each point's frame index, for the per-image and exposure codes
+    rcfg = cfg.render
+    ray_frames = (batch.frame_ids[batch.kf_slot]
+                  if rcfg.per_image_code or rcfg.model_exposure else None)
     Kc = cfg.color_topk
     if training and 0 < Kc < S:
         # color only at the Kc samples of largest weight (scene_model.py:
@@ -261,11 +275,20 @@ def render_rays(cfg: SceneConfig, model: SceneModel, voxels: torch.Tensor,
         flat_i = picks.reshape(-1)
         rgb_k = fields.rendering_forward(
             model.render, points_flat[flat_i], gradients[flat_i], dirs_flat[flat_i],
-            feature_vectors[flat_i], color_stage)
+            feature_vectors[flat_i], color_stage,
+            image_indices=None if ray_frames is None else ray_frames.repeat_interleave(Kc))
+        if rcfg.model_exposure:
+            rgb_k, rgb_un = (t.reshape(R, Kc, 3) for t in rgb_k)
+            rgb_un_values = topk_rgb(topk_w, wsum, rgb_un)
         rgb_values = topk_rgb(topk_w, wsum, rgb_k.reshape(R, Kc, 3))
     else:
-        rgb_flat = fields.rendering_forward(model.render, points_flat, gradients,
-                                            dirs_flat, feature_vectors, color_stage)
+        rgb_flat = fields.rendering_forward(
+            model.render, points_flat, gradients, dirs_flat, feature_vectors, color_stage,
+            image_indices=None if ray_frames is None else ray_frames.repeat_interleave(S))
+        if rcfg.model_exposure:
+            rgb_flat, rgb_un = rgb_flat
+            rgb_un = rgb_un.reshape(R, S, 3)
+            rgb_un_values = composite(z_vals, density, rgb_un, normals)[1]
         weights, rgb_values, depth_values, normal_comp = composite(
             z_vals, density, rgb_flat.reshape(R, S, 3), normals)
     surf_points = cam_loc + depth_values * ray_dirs                      # [R,3]
@@ -281,34 +304,17 @@ def render_rays(cfg: SceneConfig, model: SceneModel, voxels: torch.Tensor,
         pix = torch.einsum("eij,erj->eri", tgt_K[:, :3, :3], cam_pts)
         out["flow"] = pix[..., :2] / (pix[..., 2:] + 1e-8) - batch.uv[None]
 
-    # ---- warp at patch size 1 (network.py:167-279)
+    # ---- warp (network.py:167-279): per patch size, a ps x ps pixel patch
+    # around every ray lifted to the ray's rendered depth (fronto-parallel),
+    # reprojected into every keyframe slot and sampled bilinearly there; the
+    # ground truth is the ray's own keyframe, integer-sampled (1.0 outside
+    # the image, masked); for ps > 1 the patch's monocular-depth variance
+    # must be under 0.01 (network.py:260-271)
     if cfg.use_warp_loss and is_mapping and full_rgb is not None:
         w2c_all = torch.linalg.inv(batch.poses)
-        cam_pts = (torch.einsum("sij,nj->sni", w2c_all[:, :3, :3], surf_points)
-                   + w2c_all[:, None, :3, 3])
-        pix_p = torch.einsum("sij,snj->sni", batch.intrinsics[:, :3, :3], cam_pts)
-        tgt_uv = pix_p[..., :2] / (pix_p[..., 2:] + 1e-8)                # [S,R,2]
-        tgt_depth = pix_p[..., 2]
-        sx = tgt_uv[..., 0] * (cfg.W - 1) / cfg.W
-        sy = tgt_uv[..., 1] * (cfg.H - 1) / cfg.H
-        sampled = _bilinear_sample_images(full_rgb, sx, sy, cfg.H, cfg.W)
-        nu = tgt_uv[..., 0] / cfg.W * 2 - 1
-        nv = tgt_uv[..., 1] / cfg.H * 2 - 1
-        in_bounds = ((nu > -1) & (nu < 1) & (nv > -1) & (nv < 1)
-                     & (tgt_depth > 0))[..., None]                       # [S,R,1]
-        iu = batch.uv[:, 0].to(torch.int64)
-        iv = batch.uv[:, 1].to(torch.int64)
-        inb_gt = (iu >= 0) & (iu < cfg.W) & (iv >= 0) & (iv < cfg.H)     # [R]
-        pix_idx = iv.clamp(0, cfg.H - 1) * cfg.W + iu.clamp(0, cfg.W - 1)
-        gt_rgb = full_rgb[batch.kf_slot, pix_idx]
-        if gt_rgb.dtype == torch.uint8:
-            gt_rgb = gt_rgb.to(torch.float32) / 255.0
-        gt_rgb = torch.where(inb_gt[:, None], gt_rgb, torch.ones_like(gt_rgb))
-        mask = (in_bounds & inb_gt[None, :, None]
-                & batch.slot_valid[:, None, None] & batch.ray_valid[None, :, None])
-        out["warp_sampled_rgb_1"] = sampled.reshape(-1, R, 1, 3)
-        out["warp_gt_rgb_1"] = gt_rgb[:, None, :]                        # [R,1,3]
-        out["warp_mask_1"] = mask                                        # [S,R,1]
+        for ps in cfg.patchsizes:
+            out.update(_warp_patches(cfg, batch, ps, w2c_all, c2w, K, depth_values,
+                                     surf_points, full_rgb, full_depth))
 
     depth_values = depth_scale * depth_values
     if cfg.white_bkgd:
@@ -323,6 +329,9 @@ def render_rays(cfg: SceneConfig, model: SceneModel, voxels: torch.Tensor,
         "sdf": sdf.reshape(R, S),
         "weights": weights,
     })
+    if rcfg.model_exposure:
+        out["rgb_un"] = rgb_un
+        out["rgb_un_values"] = rgb_un_values
 
     # ---- eikonal points (network.py:313-336)
     if training and is_mapping:
@@ -345,6 +354,59 @@ def render_rays(cfg: SceneConfig, model: SceneModel, voxels: torch.Tensor,
     if is_mapping:
         out["voxels"] = new_voxels
     return out
+
+
+def _warp_patches(cfg: SceneConfig, batch: RayBatch, ps: int, w2c_all, c2w, K,
+                  depth_values, surf_points, full_rgb, full_depth):
+    """The warp outputs of one patch size: ``warp_sampled_rgb_{ps}``
+    [S,R,pp,3], ``warp_gt_rgb_{ps}`` [R,pp,3] and ``warp_mask_{ps}``
+    [S,R,pp] (pp = ps²)."""
+    R, pp = batch.uv.shape[0], ps * ps
+    if ps == 1:
+        patch_uv = batch.uv[:, None, :]                                  # [R,1,2]
+        pts = surf_points[:, None, :]                                    # [R,1,3]
+    else:
+        half = ps // 2
+        gx, gy = np.meshgrid(np.arange(-half, half + 1), np.arange(-half, half + 1),
+                             indexing="ij")
+        offs = torch.as_tensor(np.stack([gx, gy], -1).reshape(-1, 2).astype(np.float32),
+                               device=batch.uv.device)
+        patch_uv = batch.uv[:, None, :] + offs[None]                     # [R,pp,2]
+        dirs_p, cam_p, _ = rays_from_uv(patch_uv.reshape(-1, 2),
+                                        c2w.repeat_interleave(pp, 0),
+                                        K.repeat_interleave(pp, 0))
+        pts = (cam_p + depth_values.repeat_interleave(pp, 0) * dirs_p).reshape(R, pp, 3)
+    flat = pts.reshape(-1, 3)
+    cam_pts = (torch.einsum("sij,nj->sni", w2c_all[:, :3, :3], flat)
+               + w2c_all[:, None, :3, 3])
+    pix_p = torch.einsum("sij,snj->sni", batch.intrinsics[:, :3, :3], cam_pts)
+    tgt_uv = pix_p[..., :2] / (pix_p[..., 2:] + 1e-8)                    # [S,R·pp,2]
+    tgt_depth = pix_p[..., 2]
+    # the reference normalises by W (not W-1) and grid_samples with
+    # align_corners=True: the sample lies at uv·(dim-1)/dim
+    sx = tgt_uv[..., 0] * (cfg.W - 1) / cfg.W
+    sy = tgt_uv[..., 1] * (cfg.H - 1) / cfg.H
+    sampled = _bilinear_sample_images(full_rgb, sx, sy, cfg.H, cfg.W)
+    nu = tgt_uv[..., 0] / cfg.W * 2 - 1
+    nv = tgt_uv[..., 1] / cfg.H * 2 - 1
+    in_bounds = ((nu > -1) & (nu < 1) & (nv > -1) & (nv < 1)
+                 & (tgt_depth > 0)).reshape(-1, R, pp)                   # [S,R,pp]
+    iu = patch_uv[..., 0].to(torch.int64)                                # [R,pp]
+    iv = patch_uv[..., 1].to(torch.int64)
+    inb_gt = (iu >= 0) & (iu < cfg.W) & (iv >= 0) & (iv < cfg.H)
+    pix_idx = iv.clamp(0, cfg.H - 1) * cfg.W + iu.clamp(0, cfg.W - 1)
+    gt_rgb = full_rgb[batch.kf_slot[:, None], pix_idx]                  # [R,pp,3]
+    if gt_rgb.dtype == torch.uint8:
+        gt_rgb = gt_rgb.to(torch.float32) / 255.0
+    gt_rgb = torch.where(inb_gt[..., None], gt_rgb, torch.ones_like(gt_rgb))
+    mask = (in_bounds & inb_gt[None] & batch.slot_valid[:, None, None]
+            & batch.ray_valid[None, :, None])
+    if ps > 1 and full_depth is not None:
+        d_patch = full_depth[batch.kf_slot[:, None], pix_idx].to(torch.float32)
+        d_patch = torch.where(inb_gt, d_patch, torch.ones_like(d_patch))
+        mask = mask & (d_patch.var(dim=-1, unbiased=False) < 0.01)[None, :, None]
+    return {f"warp_sampled_rgb_{ps}": sampled.reshape(-1, R, pp, 3),
+            f"warp_gt_rgb_{ps}": gt_rgb, f"warp_mask_{ps}": mask}
 
 
 def _bilinear_sample_images(images: torch.Tensor, x: torch.Tensor,

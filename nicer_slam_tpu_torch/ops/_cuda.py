@@ -41,7 +41,8 @@ KERNELS = ("hash_encode_with_grad.fwd", "hash_encode_with_grad.bwd",
            "composite.fwd", "composite.bwd",
            "weights_topk.fwd", "weights_topk.bwd", "topk_rgb.fwd", "topk_rgb.bwd",
            "importance_sample", "importance_sample_given",
-           "voxels.scatter", "voxels.beta", "sdf_density", "tsdf.integrate")
+           "voxels.scatter", "voxels.beta", "sdf_density.grid", "sdf_density.rays",
+           "tsdf.integrate")
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _P = ctypes.c_void_p
@@ -75,9 +76,9 @@ _SIGNATURES = {
     # R, res, Ne, Ns, Nextra, bound, near, far_max, t_step, u_step, stream
     "nsl_importance_sample": [_P] * 8 + [_I64, _I, _I, _I, _I, _F, _F, _F,
                                          _F, _F, _P],
-    # z, density, perm, eik_idx, z_out, z_eik, R, Ne, Ns, Nextra, u_step,
-    # stream
-    "nsl_importance_sample_given": [_P] * 6 + [_I64, _I, _I, _I, _F, _P],
+    # z, near, far, density, perm, eik_idx, z_out, z_eik, R, chunk, Ne, Ns,
+    # Nextra, u_step, stream
+    "nsl_importance_sample_given": [_P] * 8 + [_I64, _I64, _I, _I, _I, _F, _P],
     # x, counter, N, res, stream
     "nsl_voxel_scatter": [_P, _P, _I64, _I, _P],
     # x, counter, beta, N, res, -b·1e-4, d, a, c, stream

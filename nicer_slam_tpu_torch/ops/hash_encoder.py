@@ -339,7 +339,7 @@ def pack_table_bf16(table: torch.Tensor) -> torch.Tensor:
 def hash_encode_bf16_plain(spec: HashGridSpec, packed: torch.Tensor,
                            x: torch.Tensor, size: float = 1.0) -> torch.Tensor:
     """Plain version of K3: the K2 plain version on the widened table."""
-    return hash_encode_plain(spec, packed.to(torch.float32), x, size)
+    return hash_encode_plain(spec, packed.to(x.dtype), x, size)
 
 
 def hash_encode_bf16(spec: HashGridSpec, packed: torch.Tensor, x: torch.Tensor,

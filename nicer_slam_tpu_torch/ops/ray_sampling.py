@@ -7,15 +7,20 @@ trilinearly; ``importance_sample`` fuses that read with the whole sampler,
 and ``importance_sample_plain`` is its plain version (the CPU path and the
 reference for the comparisons on the card).
 
-An eval render (``render_rays`` without a cache) takes the "exact"
-prepass instead: the SDF network (K3) and the voxel β (K7) give the
-densities at the unjittered z, and ``importance_sample_given`` runs the
-same weights, inverse CDF, merge and sort on them, with z as an input so
-that the CDF uses bit for bit the z the network was evaluated at.
+The "exact" prepass (``render_rays`` without a cache: the JAX package's
+default in training, and every eval render) evaluates the SDF network and
+the voxel β at the prepass z (K6, ops/sdf_density.py) and
+``importance_sample_given`` runs the same weights, inverse CDF, merge and
+sort on those densities, with z, near and far as inputs, so that the CDF
+uses bit for bit the z the network was evaluated at (jittered in
+training).
 
 Every random draw is an input: ``t_rand [R, Ne]`` (stratified jitter),
-``perm [N_extra]`` (the shared extra bins) and ``eik_idx [R]`` (the
-eikonal anchor). Rays are detached: z never carries a pose gradient.
+``perm`` (the extra bins, shared by the rays of a chunk: ``[N_extra]``
+for all rays, or ``[n_chunks, N_extra]``, row r // (R / n_chunks) for ray
+r, as the JAX package's exact prepass draws them per chunk of
+``prepass_ray_chunk`` rays) and ``eik_idx [R]`` (the eikonal anchor).
+Rays are detached: z never carries a pose gradient.
 
 On the card K5 is latency bound: per ray, 640 trilinear reads of an
 L2-resident 8 MB volume and two 640-long scans. One warp holds one ray:
@@ -52,7 +57,12 @@ class SamplerConfig(NamedTuple):
     N_samples: int = 64
     N_samples_eval: int = 640
     N_samples_extra: int = 32
-    prepass_mode: str = "cached"
+    # the exact prepass in training draws its extra bins per chunk of this
+    # many rays when R > prepass_ray_chunk and R % prepass_ray_chunk == 0
+    # (the JAX package's sequential ray chunks, each with its own key);
+    # 0 = one draw for all rays
+    prepass_ray_chunk: int = 1024
+    prepass_mode: str = "exact"
     prepass_cache_res: int = 128
 
     @property
@@ -69,6 +79,24 @@ class SamplerConfig(NamedTuple):
 # sorted samples (4 per lane in the warp's bitonic sort)
 KERNEL_MAX_EVAL = 1024
 KERNEL_MAX_SORTED = 128
+
+
+def prepass_chunks(cfg: SamplerConfig, R: int) -> int:
+    """Chunks of ``prepass_ray_chunk`` rays whose exact prepass in training
+    draws its own jitter, extra bins and anchors (1: no chunking)."""
+    pc = cfg.prepass_ray_chunk
+    return R // pc if pc and R > pc and R % pc == 0 else 1
+
+
+def perm_rows(perm: torch.Tensor, R: int) -> torch.Tensor:
+    """The extra bins of every ray [R, N_extra] from ``perm`` [N_extra] or
+    [n_chunks, N_extra] (ray r takes row r // (R / n_chunks))."""
+    if perm.dim() == 1:
+        return perm[None].expand(R, -1)
+    C = perm.shape[0]
+    if R % C:
+        raise ValueError(f"perm: {C} chunks do not divide {R} rays")
+    return perm.repeat_interleave(R // C, dim=0)
 
 
 def _step(n: int) -> float:
@@ -210,7 +238,8 @@ def _sample_from_density(cfg: SamplerConfig, z_vals, near, far, density,
     eikonal anchor (ray_sampler.py:100-166 after the density)."""
     R = z_vals.shape[0]
     z_samples = sample_cdf(z_vals, prepass_weights(z_vals, density), cfg.N_samples)
-    z_all = torch.cat([z_samples, near, far, z_vals[:, perm]], -1)
+    z_all = torch.cat([z_samples, near, far,
+                       torch.gather(z_vals, 1, perm_rows(perm, R))], -1)
     z_all, _ = torch.sort(z_all, -1)
     z_eik = torch.gather(z_all, -1, eik_idx.reshape(R, 1))
     return z_all, z_eik
@@ -232,15 +261,14 @@ def importance_sample_plain(cfg: SamplerConfig, rays_o: torch.Tensor,
 
 
 def importance_sample_given_plain(cfg: SamplerConfig, z_vals: torch.Tensor,
+                                  near: torch.Tensor, far: torch.Tensor,
                                   density: torch.Tensor, perm: torch.Tensor,
                                   eik_idx: torch.Tensor):
-    """Plain version of K5's given-density mode: unjittered z [R, Ne] from
-    ``uniform_z_vals`` and the densities at them -> (z_vals [R, S] sorted,
-    z_eik [R,1]). near and far are z's first and last columns, where
-    linspace puts them exactly."""
+    """Plain version of K5's given-density mode: z [R, Ne], near and far
+    [R, 1] from ``uniform_z_vals`` (jittered or not) and the densities at z
+    -> (z_vals [R, S] sorted, z_eik [R,1])."""
     with torch.no_grad():
-        return _sample_from_density(cfg, z_vals, z_vals[:, :1], z_vals[:, -1:],
-                                    density, perm, eik_idx)
+        return _sample_from_density(cfg, z_vals, near, far, density, perm, eik_idx)
 
 
 def importance_sample(cfg: SamplerConfig, rays_o: torch.Tensor,
@@ -280,13 +308,16 @@ def importance_sample(cfg: SamplerConfig, rays_o: torch.Tensor,
 
 
 def importance_sample_given(cfg: SamplerConfig, z_vals: torch.Tensor,
+                            near: torch.Tensor, far: torch.Tensor,
                             density: torch.Tensor, perm: torch.Tensor,
                             eik_idx: torch.Tensor):
-    """K5 in given-density mode (the exact prepass): z [R, Ne] and the
-    prepass densities [R, Ne] -> (z_vals [R, S] sorted, z_eik [R, 1]).
-    Plain version on CPU, kernel on CUDA."""
+    """K5 in given-density mode (the exact prepass): z [R, Ne], near and far
+    [R, 1] and the prepass densities [R, Ne] -> (z_vals [R, S] sorted,
+    z_eik [R, 1]). ``perm`` is [N_extra] or [n_chunks, N_extra]. Plain
+    version on CPU, kernel on CUDA."""
     if z_vals.device.type == "cpu":
-        return importance_sample_given_plain(cfg, z_vals, density, perm, eik_idx)
+        return importance_sample_given_plain(cfg, z_vals, near, far, density, perm,
+                                             eik_idx)
     if z_vals.device.type != "cuda":
         raise ValueError(f"importance_sample_given: unsupported device {z_vals.device}")
     R = z_vals.shape[0]
@@ -294,14 +325,20 @@ def importance_sample_given(cfg: SamplerConfig, z_vals: torch.Tensor,
     _check_kernel_shape(cfg, Ne)
     dev = z_vals.device
     z_vals, density = z_vals.detach().contiguous(), density.detach().contiguous()
+    near, far = near.detach().contiguous(), far.detach().contiguous()
     _cuda.check(z_vals, "z_vals", torch.float32, (R, Ne))
+    _cuda.check(near, "near", torch.float32, (R, 1), device=dev)
+    _cuda.check(far, "far", torch.float32, (R, 1), device=dev)
     _cuda.check(density, "density", torch.float32, (R, Ne), device=dev)
-    _cuda.check(perm, "perm", torch.int64, (Nx,), device=dev)
+    C = 1 if perm.dim() == 1 else perm.shape[0]
+    if R % C:
+        raise ValueError(f"perm: {C} chunks do not divide {R} rays")
+    _cuda.check(perm, "perm", torch.int64, (Nx,) if perm.dim() == 1 else (C, Nx), device=dev)
     _cuda.check(eik_idx, "eik_idx", torch.int64, (R,), device=dev)
     z_out = torch.empty((R, cfg.total_samples), dtype=torch.float32, device=dev)
     z_eik = torch.empty((R, 1), dtype=torch.float32, device=dev)
     _cuda.launch("importance_sample_given", "nsl_importance_sample_given", R,
-                 z_vals.data_ptr(), density.data_ptr(), perm.data_ptr(),
-                 eik_idx.data_ptr(), z_out.data_ptr(), z_eik.data_ptr(), R, Ne, Ns,
-                 Nx, _step(Ns))
+                 z_vals.data_ptr(), near.data_ptr(), far.data_ptr(), density.data_ptr(),
+                 perm.data_ptr(), eik_idx.data_ptr(), z_out.data_ptr(), z_eik.data_ptr(),
+                 R, R // C, Ne, Ns, Nx, _step(Ns))
     return z_out, z_eik

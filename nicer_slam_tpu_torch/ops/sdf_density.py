@@ -1,6 +1,7 @@
 """SDF to prepass density in one kernel (counterpart of the density-cache
 build, nicer_slam_tpu/models/scene_model.py:108 ``build_density_cache``,
-and of the exact prepass of an eval render, :246-287): kernel K6.
+and of the exact prepass, :238-287, of an eval render and of every
+training iteration with ``prepass_mode = exact``): kernel K6.
 
 Per point x, from the SDF grids' tables rounded to bfloat16
 (``fields.pack_combine_tables``)::
@@ -303,7 +304,8 @@ def _launch(net, pack: SdfPack, N: int, out: torch.Tensor, voxels, beta, beta_sc
             raise ValueError(f"voxel_res {voxel_res} exceeds the kernel's 32-bit index")
         _cuda.check(voxels, "voxels", torch.float32, (voxel_res,) * 3, device=dev)
     (tc, mc, sc), (tf, mf, sf) = tabs["coarse"], tabs["fine"]
-    _cuda.launch("sdf_density", "nsl_sdf_density", N, pack.weights.data_ptr(),
+    _cuda.launch("sdf_density.grid" if xs is not None else "sdf_density.rays",
+                 "nsl_sdf_density", N, pack.weights.data_ptr(),
                  tc.data_ptr(), mc.data_ptr(), sc.data_ptr(), tf.data_ptr(),
                  mf.data_ptr(), sf.data_ptr(), _cuda.ptr(xs), res, _cuda.ptr(o),
                  _cuda.ptr(d), _cuda.ptr(z), S,

@@ -17,6 +17,7 @@ import torch
 
 from ..models import scene_model as sm
 from ..models.losses import LossConfig, compute_losses
+from ..ops import sdf_density
 from ..utils.camera import camera_from_tensor
 from .state import fill_missing_grads, fresh_adam_single_step
 
@@ -103,7 +104,8 @@ def map_step(scene_cfg: sm.SceneConfig, map_cfg: MapConfig,
              color_stage: str, ba: bool, is_first_frame: bool = False,
              ) -> tuple:
     """One mapping iteration; updates ``model`` in place through
-    ``optimizer``. Returns (voxels, poses_q, terms)."""
+    ``optimizer``. Returns (voxels, poses_q, terms). Without a
+    ``density_cache`` the prepass is exact."""
     H, W = scene_cfg.H, scene_cfg.W
     R = map_cfg.num_pixels
     Smax = map_cfg.max_slots
@@ -129,6 +131,10 @@ def map_step(scene_cfg: sm.SceneConfig, map_cfg: MapConfig,
     else:
         flow_gt = flow_mask = edges = None
     full_rgb = store.rgb[refs.slot_rows] if scene_cfg.use_warp_loss else None
+    # the slots' monocular depth masks the warp patches of ps > 1
+    full_depth = (store.depth[refs.slot_rows]
+                  if scene_cfg.use_warp_loss and any(p > 1 for p in scene_cfg.patchsizes)
+                  else None)
     slot_valid = torch.arange(Smax, device=dev) < refs.n_valid
     ray_weight = refs.slot_conf[slot] if refs.slot_conf is not None else None
 
@@ -139,10 +145,14 @@ def map_step(scene_cfg: sm.SceneConfig, map_cfg: MapConfig,
                         ray_weight=ray_weight)
     bs = (None if beta_scale is None
           else torch.tensor(beta_scale, dtype=torch.float32, device=dev))
+    # without a density cache the prepass is exact: the SDF network packed
+    # once for this iteration's K6 launch
+    pack = sdf_density.pack_sdf(model.implicit) if density_cache is None else None
     out = sm.render_rays(scene_cfg, model, voxels, batch, draws.render,
                          stage=stage, color_stage=color_stage, training=True,
                          is_mapping=True, edges=edges, full_rgb=full_rgb,
-                         density_cache=density_cache, beta_scale=bs)
+                         full_depth=full_depth, density_cache=density_cache,
+                         sdf_pack=pack, beta_scale=bs)
     terms = compute_losses(loss_cfg, out, gt, batch, stage=stage,
                            is_first_frame=is_first_frame, num_slots=Smax,
                            flow_gt=flow_gt, flow_mask=flow_mask, edges=edges)

@@ -6,7 +6,10 @@ checkpoints/{Model,Optimizer,Pose}Parameters/, runconf.conf}; per frame:
 tracking, then every ``mapping_every_frame`` frames a mapping call (with BA
 in its last iterations), checkpoints every ``checkpoint_freq`` frames. The
 prepass density cache is rebuilt before every tracked frame and every
-``prepass_cache_refresh`` mapping iterations. A visualisation hook
+``prepass_cache_refresh`` mapping iterations when the conf's
+``prepass_mode`` is ``cached``; with the exact prepass (the default) no
+cache exists and every render evaluates the SDF network at its prepass
+samples. A visualisation hook
 (``utils.plots.vis_hook``) runs at the start of every ``plot_freq``-th
 frame's mapping call (after frame 1, every ``SLAM.mapping.inner_freq``
 iterations) and once after the last frame; it renders a full frame
@@ -257,7 +260,10 @@ class SLAMRunner:
         if not self.quiet:
             print(*args, flush=True)
 
-    def _refresh_cache(self) -> torch.Tensor:
+    def _refresh_cache(self) -> Optional[torch.Tensor]:
+        """A fresh prepass density cache; None with the exact prepass."""
+        if self.scene_cfg.sampler.prepass_mode != "cached":
+            return None
         with self.timer.phase("cache"):
             return sm.build_density_cache(self.scene_cfg, self.model, self.voxels)
 

@@ -11,8 +11,10 @@ Mapping: one Adam(betas=(0.9, 0.99), eps=1e-15) over six groups:
   density (beta)   learning_rate_beta
   coarse MLP       lr
 
-The fine SDF MLP is frozen (requires_grad off; its weights come from the
-pretrain file). The reference's optax Adam steps every group on every
+The color MLP group holds the exposure MLP too (``exp_lins``, with
+model_exposure). The fine SDF MLP and the rendering net's per-image or
+exposure codes (``embeddings``) are frozen (requires_grad off), as in the
+JAX package; the fine MLP's weights come from the pretrain file. The reference's optax Adam steps every group on every
 iteration, a zero gradient included, so momentum keeps moving a group that
 got no gradient (the color grid in the ``base`` color stage, the fine grid
 in the ``coarse`` stage); ``fill_missing_grads`` gives torch's Adam, which
@@ -43,9 +45,11 @@ class OptimConfig(NamedTuple):
 
 def param_groups(cfg: OptimConfig, model: SceneModel):
     """[(group name, [params], lr)] in the reference's group order; freezes
-    the fine MLP as a side effect."""
+    the fine MLP and the per-image codes as a side effect."""
     for p in model.implicit.fine.lins.parameters():
         p.requires_grad_(False)
+    if hasattr(model.render, "embeddings"):
+        model.render.embeddings.requires_grad_(False)
     lr = cfg.learning_rate
     groups = [("fine_grid", [model.implicit.fine.encoding],
                lr * cfg.lr_factor_for_fine_grid),
@@ -54,7 +58,10 @@ def param_groups(cfg: OptimConfig, model: SceneModel):
     if model.render.cfg.use_grid_feature:
         groups.append(("color_grid", [model.render.encoding],
                        lr * cfg.lr_factor_for_color_grid))
-    groups.append(("color_mlp", list(model.render.lins.parameters()), lr))
+    color_mlp = list(model.render.lins.parameters())
+    if hasattr(model.render, "exp_lins"):
+        color_mlp += list(model.render.exp_lins.parameters())
+    groups.append(("color_mlp", color_mlp, lr))
     if hasattr(model, "density"):
         groups.append(("density", list(model.density.parameters()),
                        cfg.learning_rate_beta))

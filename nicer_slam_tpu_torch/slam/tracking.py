@@ -5,7 +5,10 @@ Per iteration: sample pixels of the frame, render, RGB-L1 loss, gradient
 with respect to the 7-dof camera tensor [qw qx qy qz tx ty tz] only (the
 map parameters take no gradient, so K1/K2 skip their table scatter), one
 Adam step with StepLR from the pre-update step count, and the post-step
-pose of the minimum pre-step loss is kept. The loop is a Python loop; the
+pose of the minimum pre-step loss is kept. Without a density cache the
+prepass is exact; the map does not move while tracking, so the SDF network
+is packed for it once per frame. Every ray renders with frame index 0, as
+in the JAX package (its per-image and exposure codes are frame 0's). The loop is a Python loop; the
 best-candidate bookkeeping stays on the device, so an iteration does not
 wait for the host.
 """
@@ -18,6 +21,7 @@ import torch
 
 from ..models import scene_model as sm
 from ..models.losses import LossConfig, compute_losses
+from ..ops import sdf_density
 from ..utils.camera import camera_from_tensor
 from .state import adam_init, adam_update
 
@@ -81,6 +85,7 @@ def track_frame(scene_cfg: sm.SceneConfig, track_cfg: TrackConfig,
     losses = []
     requires = [p.requires_grad for p in model.parameters()]
     model.requires_grad_(False)
+    pack = sdf_density.pack_sdf(model.implicit) if density_cache is None else None
     try:
         for it in range(track_cfg.num_iters):
             d = (draws[it] if draws is not None
@@ -104,7 +109,7 @@ def track_frame(scene_cfg: sm.SceneConfig, track_cfg: TrackConfig,
             out = sm.render_rays(scene_cfg, model, voxels, batch, d.render,
                                  stage="fine", color_stage="highfreq",
                                  training=True, is_mapping=False,
-                                 density_cache=density_cache)
+                                 density_cache=density_cache, sdf_pack=pack)
             loss = compute_losses(loss_cfg, out, gt, batch, stage="fine",
                                   num_slots=1)["loss"]
             if track_cfg.motion_prior_w or track_cfg.motion_prior_rot_w:

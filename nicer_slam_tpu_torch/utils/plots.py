@@ -74,16 +74,23 @@ def mesh_sdf_fn(model, device):
 
 def vertex_colors(model, verts: np.ndarray, normals: np.ndarray, device,
                   chunk: int = 65536) -> np.ndarray:
-    """Color-network colours [V,3] at the vertices, view direction -normal."""
+    """Color-network colours [V,3] at the vertices, view direction -normal.
+    Per-image and exposure codes are frame 0's (the JAX package's vis hook
+    passes frame 0 with per_image_code; with model_exposure it has no
+    colour here, the port takes frame 0's exposure-corrected one)."""
+    cfg = model.render.cfg
     colors = np.zeros((verts.shape[0], 3), np.float32)
     for s in range(0, verts.shape[0], chunk):
         e = min(s + chunk, verts.shape[0])
         pts = torch.from_numpy(verts[s:e]).to(device)
         dirs = torch.from_numpy(-normals[s:e]).to(device)
+        idx = (torch.zeros((e - s,), dtype=torch.int64, device=device)
+               if cfg.per_image_code or cfg.model_exposure else None)
         with torch.no_grad():
             _, feat, grad = fields.combine_get_outputs(model.implicit, pts, "fine")
-            colors[s:e] = fields.rendering_forward(
-                model.render, pts, grad, dirs, feat, "highfreq").cpu().numpy()
+            rgb = fields.rendering_forward(model.render, pts, grad, dirs, feat, "highfreq",
+                                           image_indices=idx)
+            colors[s:e] = (rgb[0] if cfg.model_exposure else rgb).cpu().numpy()
     return colors
 
 

@@ -298,12 +298,12 @@ def _given_matches_jax(Ne):
     z_j, _ = jrs.importance_z_vals(
         cfg_j, jnp.asarray(o), jnp.asarray(d), lambda p: jnp.linalg.norm(p, axis=-1) - 0.5,
         lambda s, p: jdens.laplace_density(s, beta), jax.random.PRNGKey(0), training=False)
-    z, _, _ = trs.uniform_z_vals(cfg_t, T(o), T(d), None)
+    z, near, far = trs.uniform_z_vals(cfg_t, T(o), T(d), None)
     pts = (T(o)[:, None] + z[..., None] * T(d)[:, None]).reshape(-1, 3)
     dens = tdens.laplace_density(T(sdf_np(pts.numpy()).astype(np.float32)),
                                  torch.tensor(beta)).reshape(R, -1)
     perm = T(np.linspace(0, Ne - 1, 8).astype(np.int64))
-    z_t, e_t = trs.importance_sample_given(cfg_t, z, dens, perm,
+    z_t, e_t = trs.importance_sample_given(cfg_t, z, near, far, dens, perm,
                                            torch.zeros(R, dtype=torch.int64))
     z_j, z_t = np.asarray(z_j), z_t.numpy()
     assert z_t.shape == z_j.shape == (R, 26)

@@ -239,7 +239,7 @@ def test_inverse_cdf_samples_are_monotone_and_within_the_ray(case):
     assert ((z[:, :1] >= near) & (z[:, -1:] <= far)).all()
     eik = torch.zeros(z.shape[0], dtype=torch.int64)
     z_all, z_eik = trs.importance_sample_given_plain(
-        cfg, z, dens, torch.zeros(0, dtype=torch.int64), eik)
+        cfg, z, near, far, dens, torch.zeros(0, dtype=torch.int64), eik)
     assert z_all.shape == (z.shape[0], cfg.total_samples)
     assert (z_all[:, 1:] >= z_all[:, :-1]).all()
     assert ((z_all >= near) & (z_all <= far)).all()

@@ -108,11 +108,22 @@ def test_map_step_with_ba_and_color_topk_matches_jax(scene):
     _map_step_case(scene, color_topk=TOPK)
 
 
-def _map_step_case(scene, color_topk):
+def _map_step_case(scene, color_topk, cfgs=None, loss_edits=None, beta_scale=None):
+    """One map_step of both packages on the scene's frames 0 and 4. By
+    default the scene's configuration with its prepass cache; ``cfgs`` (a
+    (jax, torch) SceneConfig pair, fresh seed-0 weights) with the exact
+    prepass, whose densities ``beta_scale`` widens; ``loss_edits`` replace
+    fields of both packages' mapping LossConfig."""
     s = scene
     ds = s["ds"]
-    jcfg = s["jcfg"]._replace(color_topk=color_topk)
-    tcfg = s["tcfg"]._replace(color_topk=color_topk)
+    exact = cfgs is not None
+    jcfg, tcfg = cfgs if exact else (s["jcfg"], s["tcfg"])
+    jcfg = jcfg._replace(color_topk=color_topk)
+    tcfg = tcfg._replace(color_topk=color_topk)
+    jparams0 = _torch_tiny.models(jcfg, tcfg)[0] if exact else s["jparams"]
+    jloss = s["jloss"][0]._replace(**(loss_edits or {}))
+    tloss = s["tloss"][0]._replace(**(loss_edits or {}))
+    blocked, cache = (None, None) if exact else (s["blocked"], s["cache"])
     frames, Smax, R = [0, 4], 4, 48
     rows = [ds.frame(f) for f in frames]
     rgb = np.stack([np.clip(r["rgb"] * 255 + 0.5, 0, 255).astype(np.uint8) for r in rows])
@@ -133,15 +144,18 @@ def _map_step_case(scene, color_topk):
     q[1, 4:] += np.array([0.02, -0.01, 0.015], np.float32)     # a tracking error
     slot_rows = np.array([0, 1, 0, 0])
     conf = np.array([1.0, 0.6, 1.0, 1.0], np.float32)          # fractional weights
-    # A ray in pixel column or row 0 projects onto the border of its own
+    # A warp pixel in column or row 0 projects onto the border of its own
     # frame, where the warp's in-bounds test (u/W*2-1 > -1) compares a
     # rounding-size number with 0: jitted XLA and eager code may disagree.
-    # Take the first key whose rays avoid those pixels.
-    key = next(k for k in map(jax.random.PRNGKey, range(1000))
-               if np.all(np.asarray(jax.random.randint(jax.random.split(k)[0], (R,), 0,
-                                                       H * W)) % W > 0)
-               and np.all(np.asarray(jax.random.randint(jax.random.split(k)[0], (R,), 0,
-                                                        H * W)) >= W))
+    # Take the first key whose rays' patches (ps // 2 pixels around each
+    # ray) avoid those pixels.
+    margin = max(tcfg.patchsizes) // 2 + 1
+    pix = np.asarray(jax.vmap(lambda k: jax.random.randint(jax.random.split(k)[0], (R,), 0,
+                                                           H * W))(
+        jax.vmap(jax.random.PRNGKey)(jnp.arange(20000))))
+    clear = np.all((pix % W >= margin) & (pix // W >= margin), axis=1)
+    key = jax.random.PRNGKey(int(np.argmax(clear)))
+    assert clear.any()
 
     map_j = jmap.MapConfig(num_pixels=R, max_slots=Smax, max_edges=2, BA_cam_lr=1e-3)
     refs_j = jmap.MapBatchRefs(
@@ -152,14 +166,14 @@ def _map_step_case(scene, color_topk):
         flow_occ=jnp.asarray(occ), slot_conf=jnp.asarray(conf))
     ocfg = jstate.OptimConfig(learning_rate=0.002, lr_factor_for_fine_grid=20.0,
                               lr_factor_for_coarse_grid=20.0, lr_factor_for_color_grid=5.0)
-    jparams = jax.tree.map(jnp.array, s["jparams"])
+    jparams = jax.tree.map(jnp.array, jparams0)
     optimizer = jstate.make_optimizer(ocfg, jparams)
     p_j, st_j, vox_j, q_j, terms_j = jmap.map_step(
-        jcfg, map_j, s["jloss"][0], jparams, optimizer.init(jparams),
+        jcfg, map_j, jloss, jparams, optimizer.init(jparams),
         jnp.asarray(s["vox"]), optimizer, jnp.asarray(q), refs_j, jnp.asarray(rgb),
         jnp.asarray(depth), jnp.asarray(normal), jnp.asarray(gtd), jnp.asarray(mask), key,
-        s["blocked"], None, stage="fine", color_stage="highfreq", ba=True,
-        is_first_frame=False, use_flow=True)
+        blocked, None if beta_scale is None else jnp.asarray(beta_scale, jnp.float32),
+        stage="fine", color_stage="highfreq", ba=True, is_first_frame=False, use_flow=True)
 
     def port_step(dtype):
         """The port's map_step on the same inputs, with its float inputs and
@@ -178,8 +192,9 @@ def _map_step_case(scene, color_topk):
             t_rand=rd.t_rand.to(dtype), eik_uniform=rd.eik_uniform.to(dtype),
             eik_nei=rd.eik_nei.to(dtype)))
         out = tmap.map_step(
-            tcfg, tmap.MapConfig(num_pixels=R, max_slots=Smax, BA_cam_lr=1e-3), s["tloss"][0],
-            model, opt_t, f(s["vox"]), f(q), refs_t, store, draws, s["cache"].to(dtype), None,
+            tcfg, tmap.MapConfig(num_pixels=R, max_slots=Smax, BA_cam_lr=1e-3), tloss,
+            model, opt_t, f(s["vox"]), f(q), refs_t, store, draws,
+            None if cache is None else cache.to(dtype), beta_scale,
             stage="fine", color_stage="highfreq", ba=True, is_first_frame=False)
         return (model,) + out
 
@@ -191,8 +206,10 @@ def _map_step_case(scene, color_topk):
 
     for k, v in terms_j.items():
         _close(terms_t[k], v, rel_atol=1e-7)
-    for k in ("flow_loss", "warp_loss", "eikonal_loss", "depth_loss", "normal_cos"):
-        assert float(terms_t[k]) > 0, k       # every term of the stack is live
+    for k, w in (("flow_loss", tloss.flow_weight), ("warp_loss", tloss.warp_loss_weight),
+                 ("eikonal_loss", tloss.eikonal_weight), ("depth_loss", tloss.depth_weight),
+                 ("normal_cos", tloss.normal_cos_weight)):
+        assert float(terms_t[k]) > 0 or w == 0, k     # every weighted term is live
     np.testing.assert_array_equal(vox_t.numpy(), np.asarray(vox_j))
 
     # gradients: the JAX first Adam moment after one step is 0.1 * grad
@@ -201,7 +218,10 @@ def _map_step_case(scene, color_topk):
     for name, p in model.named_parameters():
         key_ = name.replace(".", "/")
         if key_ not in mu:
-            assert not p.requires_grad and key_.startswith("implicit/fine/lins")
+            # frozen: the fine MLP and the per-image / exposure codes
+            assert not p.requires_grad and key_.startswith(("implicit/fine/lins",
+                                                            "render/embeddings"))
+            np.testing.assert_array_equal(jax_layout(key_, p), new_j[key_])
             continue
         g_j = mu[key_] / np.float32(0.1)
         g_t = jax_layout(key_, p.grad)
@@ -233,11 +253,26 @@ def test_track_frame_with_color_topk_matches_jax(scene):
     _track_frame_case(scene, color_topk=TOPK)
 
 
-def _track_frame_case(scene, color_topk):
+def _track_frame_case(scene, color_topk, cfgs=None, edit=None):
+    """Five tracking iterations of both packages on the scene's frame 2. By
+    default the scene's configuration with its prepass cache; ``cfgs`` (a
+    (jax, torch) SceneConfig pair) with the exact prepass on fresh seed-0
+    weights, which ``edit(jparams, model)`` may change first. Returns the
+    port's inputs and result: (tcfg, model, track_frame's arguments after
+    the model, best_q)."""
     s = scene
     ds = s["ds"]
-    jcfg = s["jcfg"]._replace(color_topk=color_topk)
-    tcfg = s["tcfg"]._replace(color_topk=color_topk)
+    exact = cfgs is not None
+    jcfg, tcfg = cfgs if exact else (s["jcfg"], s["tcfg"])
+    jcfg = jcfg._replace(color_topk=color_topk)
+    tcfg = tcfg._replace(color_topk=color_topk)
+    if exact:
+        jparams, model = _torch_tiny.models(jcfg, tcfg)
+        if edit is not None:
+            jparams = edit(jparams, model)
+    else:
+        jparams, model = s["jparams"], s["model"]
+    blocked, cache = (None, None) if exact else (s["blocked"], s["cache"])
     frame = 2
     rgb = np.clip(ds.frame(frame)["rgb"] * 255 + 0.5, 0, 255).astype(np.uint8)
     K = ds.intrinsics_all[frame]
@@ -247,13 +282,13 @@ def _track_frame_case(scene, color_topk):
                               lr_gamma=0.5)
     key = jax.random.PRNGKey(5)
     best_j, final_j, aux_j = jtrack.track_frame(
-        jcfg, tr_j, s["jloss"][1], s["jparams"], jnp.asarray(s["vox"]), jnp.asarray(rgb),
-        jnp.asarray(K), jnp.asarray(q0), key, s["blocked"])
+        jcfg, tr_j, s["jloss"][1], jparams, jnp.asarray(s["vox"]), jnp.asarray(rgb),
+        jnp.asarray(K), jnp.asarray(q0), key, blocked)
     tr_t = ttrack.TrackConfig(*tr_j)
-    model = s["model"]
-    best_t, final_t, aux_t = ttrack.track_frame(
-        tcfg, tr_t, s["tloss"][1], model, T(s["vox"]), T(rgb), T(K), T(q0),
-        density_cache=s["cache"], draws=_torch_draws.track_draws(key, tcfg, tr_t))
+    args = (T(s["vox"]), T(rgb), T(K), T(q0))
+    kwargs = dict(density_cache=cache, draws=_torch_draws.track_draws(key, tcfg, tr_t))
+    best_t, final_t, aux_t = ttrack.track_frame(tcfg, tr_t, s["tloss"][1], model, *args,
+                                                **kwargs)
     _close(aux_t["losses"].numpy(), np.asarray(aux_j["losses"]))
     np.testing.assert_allclose(final_t.numpy(), np.asarray(final_j), atol=1e-5, rtol=0)
     np.testing.assert_allclose(best_t.numpy(), np.asarray(best_j), atol=1e-5, rtol=0)
@@ -261,6 +296,7 @@ def _track_frame_case(scene, color_topk):
     # tracking takes no map gradient and leaves requires_grad as it was
     assert all(p.grad is None for p in model.parameters())
     assert model.implicit.coarse.encoding.requires_grad
+    return tcfg, model, (tr_t, s["tloss"][1]), args, kwargs, best_t
 
 
 def _tiny_conf(tmp_path, data_dir, n_images):

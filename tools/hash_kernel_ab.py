@@ -10,7 +10,8 @@ csrc/composite.cu and csrc/voxels.cu are built with nvcc into build/parent/
 beside this checkout's library (build/kernels/); every entry point must
 have this checkout's C interface (the hash backward writing its table
 gradient through a [T C + L] int64 scratch, the weights pass writing its
-top-k values and picks). Both
+top-k values and picks, K5's given mode taking near, far and per-chunk
+extras). Both
 libraries run on the same operands, at chip_smoke.py's shapes:
 
   * K1/K2 forward and backward: chip_smoke.HASH_CASES, ray-ordered and
@@ -246,9 +247,9 @@ def sampler_cases(dev, calls, rows_out):
                 (o[:, None, :] + z_pre[..., None] * d[:, None, :]).reshape(-1, 3))
             io = chip_smoke.nbytes(o, d, t_rand, perm, eik, pz, pe) + 4 * vox
         else:
-            scfg, z_pre, dens, perm, eik = chip_smoke.given_inputs(g, dev, R)
-            pz, pe = rs.importance_sample_given_plain(scfg, z_pre, dens, perm, eik)
-            io = chip_smoke.nbytes(z_pre, dens, perm, eik, pz, pe)
+            scfg, z_pre, near, far, dens, perm, eik = chip_smoke.given_inputs(g, dev, R)
+            pz, pe = rs.importance_sample_given_plain(scfg, z_pre, near, far, dens, perm, eik)
+            io = chip_smoke.nbytes(z_pre, near, far, dens, perm, eik, pz, pe)
         Ne, Ns, Nx = scfg.N_samples_eval, scfg.N_samples, scfg.N_samples_extra
         outs = {s: (torch.empty_like(pz), torch.empty_like(pe)) for s in calls}
 
@@ -262,9 +263,9 @@ def sampler_cases(dev, calls, rows_out):
                     float(scfg.scene_bounding_sphere), float(scfg.near),
                     float(scfg.uniform_far), rs._step(Ne), rs._step(Ns))
             return lambda: calls[side](
-                "nsl_importance_sample_given", z_pre.data_ptr(), dens.data_ptr(),
-                perm.data_ptr(), eik.data_ptr(), z_out.data_ptr(), z_eik.data_ptr(), R, Ne,
-                Ns, Nx, rs._step(Ns))
+                "nsl_importance_sample_given", z_pre.data_ptr(), near.data_ptr(),
+                far.data_ptr(), dens.data_ptr(), perm.data_ptr(), eik.data_ptr(),
+                z_out.data_ptr(), z_eik.data_ptr(), R, R, Ne, Ns, Nx, rs._step(Ns))
 
         for side in calls:
             run(side)()
