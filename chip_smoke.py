@@ -46,7 +46,13 @@ Phases, in order (any failure exits non-zero without the final line):
      tracking and a mapping iteration (1024 and 8192 rays x 640 jittered
      z, 5,242,880 points at 8192; each one launch and no other kernel,
      within 2e-5 of the largest density, both versions also measured
-     against float64), and K9 (tsdf.integrate: one 680x1200 frame into a 256³
+     against float64; the times on record printed beside the shipped
+     kernel's),
+     K6's general kernel on the networks of GENERAL_NETS (grid and ray
+     mode) and an 8 x 256 skip network (a render chunk), its concat
+     variant at flagship widths (2580 and 8192 x 640), K1/K2 at the
+     channel counts 1, 3, 5, 6, 7 (100,352 uniform points), and K9
+     (tsdf.integrate: one 680x1200 frame into a 256³
      volume that already holds one, bit for bit). The plain versions of K1/K2 run once;
      the K1/K2 backward runs twice more and its table gradient must come
      out the same bit for bit, with its kept fixed-point accumulator zero
@@ -73,6 +79,18 @@ Phases, in order (any failure exits non-zero without the final line):
      launched in the options loop, K6 ray or K5 given launches other than
      the loop's tracking plus mapping iterations, or frozen per-image codes
      that changed.
+  5c. networks: TINY_CONF (the JAX package's end-to-end test conf, copied
+     here) through exp_runner on a 9-frame 60x80 scan with the exact
+     prepass (the general K6 only, no shipped K6), then 5 frames with the
+     density cache (the general K6's grid mode builds it); the flagship
+     conf with concat_coarse_feature and the exact prepass for 3 frames
+     (K6-concat launches equal to the loop's tracking plus mapping
+     iterations, finite poses and losses); that run's Adam state saved in
+     the optax layout and loaded (bit for bit, and the next step on the
+     same gradients bit for bit); training/pretrain.py for 50 steps on the
+     flagship networks (K1 launched, the loss falls, the npz loads into a
+     flagship runner) and training/train_mono_prior.py for 20 (finite,
+     falling).
   6. eval: the port's checkpoint battery (evaluation/eval_checkpoint.py,
      its CLI's main) on the flagship run's directory, on the card: eval_cam
      (ATE, rotation drift), the mesh at 256³ against the analytic scene
@@ -113,7 +131,8 @@ Phases, in order (any failure exits non-zero without the final line):
      the final model checkpoint is read back and held against the model;
      vis/ must hold rendering_*.png and surface_*.ply. Then one JSON line
      with every kernel (launches by path: demo, flagship, options (both
-     runs of phase 5b, vis hooks included), eval, and preprocess, which
+     runs of phase 5b, vis hooks included), networks (phase 5c's runs and
+     pretrain), eval, and preprocess, which
      counts phase 8's steps and its SLAM run), the
      nvidia-smi line, and the result line.
 
@@ -170,6 +189,19 @@ PATHS = {
                            ('warp_loss_type = "l1"', 'warp_loss_type = "ssim"'),
                            ("per_image_code = false",
                             "per_image_code = false\n        model_exposure = true")]),
+    # the networks phase: the flagship with concat_coarse_feature (the fine
+    # network reads the coarse network's feature rows) and the exact
+    # prepass (the JAX package cannot cache it), the free-space guard as in
+    # the flagship run
+    "concat": dict(conf=os.path.join(ROOT, "confs", "replica", "runconf_replica_2.conf"),
+                   H=680, W=1200, scan_id=2, data_dir='"../Datasets/processed/Replica"',
+                   n_images=2000,
+                   edits=[("    flow_weight = 0.001\n",
+                           "    flow_weight = 0.001\n    cam_freespace_w = 1.0\n"),
+                          ("prepass_mode = cached", "prepass_mode = exact"),
+                          ("num_levels = 8\n            level_dim = 4\n",
+                           "num_levels = 8\n            level_dim = 4\n"
+                           "            concat_coarse_feature = true\n")]),
     # then the demo networks with the nerf colour mode (no colour grid) and
     # per-image codes
     "nerf": dict(conf=os.path.join(ROOT, "confs", "runconf_demo_1.conf"), H=720, W=1280,
@@ -236,6 +268,115 @@ PATH_KERNELS["options"] = tuple(k for k in PATH_KERNELS["flagship"]
 # and 5) and of the nerf run (mapping at 0)
 OPTIONS_FRAMES = 6
 NERF_FRAMES = 3
+# the networks phase: frames of the flagship concat run (mapping + BA at 0)
+CONCAT_FRAMES = 3
+# the JAX package's end-to-end test configuration (tests/test_slam_e2e.py
+# TINY_CONF, copied; its dataset class written as the port names it): coarse
+# [32] on a 2 x 4 grid, fine [32 32] on a 4 x 2 grid, the exact prepass (no
+# prepass_mode), on a 60 x 80 synthetic scan of TINY_FRAMES frames
+TINY_CONF = """
+SLAM {{
+    mapping {{
+        mapping_window_size = 6
+        BA = true
+        BA_ratio = 0.7
+        BA_cam_lr = 0.001
+        keyframe_every = 10
+        mapping_every_frame = 4
+        iters = {map_iters}
+    }}
+    tracking {{ gt_cam = false  lr = 0.01  iters = {track_iters}  Hedge = 0  Wedge = 0
+                lr_step_size = 4  lr_gamma = 0.5 }}
+}}
+train {{
+    expname = "tiny"
+    folder_suffix = "test"
+    dataset_class = "datasets.scene_dataset.SLAMDataset"
+    lr_factor_for_coarse_grid = 20.0
+    lr_factor_for_fine_grid = 20.0
+    lr_factor_for_color_grid = 5.0
+    tracking_num_pixels = 192
+    checkpoint_freq = 8
+    plot_freq = 1000
+    learning_rate = 0.002
+    mapping_num_pixels = 512
+    split_n_pixels = 2048
+}}
+plot {{ plot_nimgs = 1  resolution = 64  grid_boundary = [ -1.0 1.0 ] }}
+loss {{
+    assign_scale_shift_init = true
+    assign_scale = 20.0
+    warp_loss_weight = 0.5
+    warp_loss_type = "l1"
+    rgb_loss = "torch.nn.L1Loss"
+    eikonal_weight = 0.1
+    smooth_weight = 0.005
+    depth_weight = 0.1
+    normal_l1_weight = 0.05
+    normal_cos_weight = 0.05
+    flow_weight = 0.001
+}}
+tracking_loss {{
+    rgb_loss = "torch.nn.L1Loss"
+    eikonal_weight = 0  smooth_weight = 0  depth_weight = 0
+    normal_l1_weight = 0  normal_cos_weight = 0
+}}
+dataset {{
+    data_dir = "{data_dir}"
+    img_res = [ {H} {W} ]
+    scan_id = 1
+    use_mask = false
+    use_gt_depth = true
+    n_images = {n_images}
+}}
+model {{
+    feature_vector_size = 16
+    scene_bounding_sphere = 1.0
+    use_warp_loss = true
+    mapping_patchsizes = [ 1 ]
+    tracking_patchsizes = [ 1 ]
+    sampling_method = "important"
+    density_method = "volsdf_gridpredefined"
+    implicit_network {{
+        coarse {{
+            d_in = 3  d_out = 1  dims = [ 32 ]
+            geometric_init = true  bias = 0.9  skip_in = []
+            weight_norm = true  multires = 6  inside_outside = true
+            use_grid_feature = true
+            base_size = 16  end_size = 16  logmap = 15
+            num_levels = 2  level_dim = 4  divide_factor = 1.0
+            embedding_method = "nerf"
+        }}
+        fine {{
+            d_in = 3  d_out = 1  dims = [ 32 32 ]
+            geometric_init = false  bias = 0.9  skip_in = []
+            weight_norm = true  multires = 6  inside_outside = true
+            use_grid_feature = true
+            base_size = 16  end_size = 64  logmap = 17
+            num_levels = 4  level_dim = 2  divide_factor = 1.0
+            embedding_method = "nerf"
+        }}
+    }}
+    rendering_network {{
+        mode = "idr"  d_in = 9  d_out = 3  dims = [ 32 32 ]
+        weight_norm = true  multires_view = 4
+        per_image_code = false  use_grid_feature = false
+    }}
+    density {{ params_init {{ beta = 0.1 }}  beta_min = 0.0001 }}
+    gridpredefinedensity {{}}
+    ray_sampler {{ near = 0.0  N_samples = 24  N_samples_eval = 96  N_samples_extra = 8 }}
+}}
+"""
+TINY_FRAMES, TINY_H, TINY_W, TINY_ITERS = 9, 60, 80, 12
+# then with prepass_mode = cached (mapping at 0 and 4)
+TINY_CACHED_FRAMES = 5
+# the training tools: pretrain's steps on the flagship networks (its
+# default 32,768 uniform points a step), train_mono_prior's steps on a few
+# procedural scenes at its default 96 x 128; the loss must fall from the
+# mean of the first TOOL_WINDOW steps to that of the last
+PRETRAIN_STEPS = 50
+MONO_STEPS, MONO_SCENES, MONO_FRAMES = 20, 2, 4
+TOOL_WINDOW = 5
 # kernels that the evaluation phase must launch (the eval renders: K6's
 # exact prepass, K5 given densities, K4's plain composite, K1's forward for
 # the normals and the mesh, K2's forward for the colours), and K3, which it
@@ -457,82 +598,116 @@ def check_hash_kernels(dev, chk: Checks):
     shapes, on ray-ordered and on uniform points, each launch timed alone
     on preallocated operands; the plain versions run once."""
     import torch
-    from nicer_slam_tpu_torch.ops import hash_encoder as he
 
     specs = hash_specs()
     g = torch.Generator(device=dev)
     g.manual_seed(0)
-    src = "nicer_slam_tpu_torch/csrc/hash_encoder.cu"
     for grid, jac, kind in HASH_CASES:
         spec = specs[grid]
-        L, C = spec.num_levels, spec.level_dim
-        table = torch.rand((spec.total_entries, C), generator=g, device=dev) * 2 - 1
+        table = torch.rand((spec.total_entries, spec.level_dim), generator=g,
+                           device=dev) * 2 - 1
         for order in ("ray", "uniform"):
-            x = hash_points(g, dev, kind, order)
-            N = x.shape[0]
-            rows = touched_rows(spec, x)
-            tag = f"[{grid}/{kind}/{order}]"
-            kname = "hash_encode_with_grad" if jac else "hash_encode"
-            replaces = "nicer_slam_tpu/ops/hash_encoder.py:" + ("266" if jac else "177")
-            feats = torch.empty((N, L * C), device=dev)
-            dfeat = torch.empty((N, L * C, 3), device=dev) if jac else None
+            check_hash_case(dev, chk, g, spec, table, jac, hash_points(g, dev, kind, order),
+                            f"[{grid}/{kind}/{order}]")
+        del table
+        torch.cuda.empty_cache()
 
-            def fwd():
-                he.hash_encode_fwd_launch(spec, table, x, 1.0, feats, dfeat)
 
-            fwd()
-            po, pms = timed_once(lambda: he.hash_encode_plain(spec, table, x, 1.0, jac))
-            po = list(po) if jac else [po]
-            chk.values(f"{kname}.fwd{tag}", src, replaces,
-                       [feats, dfeat] if jac else [feats], po, cuda_time(fwd), pms,
-                       ("feats", "dfeat"), *hash_cost(spec, N, rows, jac, False))
-            del po
-            # backward: the table gradient (mapping) and the input gradient
-            gf = torch.randn((N, L * C), generator=g, device=dev)
-            gd = torch.randn((N, L * C, 3), generator=g, device=dev) if jac else None
-            g_table = torch.empty_like(table)
-            g_x = torch.empty((N, 3), device=dev)
+def check_hash_case(dev, chk: Checks, g, spec, table, jac: bool, x, tag: str):
+    """One K1 (jac) or K2 case: the forward against the plain version, the
+    backward with the table gradient against autograd of the plain version,
+    the same table gradient over 3 launches and the kept accumulator zero
+    after each."""
+    import torch
+    from nicer_slam_tpu_torch.ops import hash_encoder as he
 
-            def bwd():
-                he.hash_encode_bwd_launch(spec, table, x, 1.0, jac, gf, gd, g_table, g_x)
+    src = "nicer_slam_tpu_torch/csrc/hash_encoder.cu"
+    L, C = spec.num_levels, spec.level_dim
+    N = x.shape[0]
+    rows = touched_rows(spec, x)
+    kname = "hash_encode_with_grad" if jac else "hash_encode"
+    replaces = "nicer_slam_tpu/ops/hash_encoder.py:" + ("266" if jac else "177")
+    feats = torch.empty((N, L * C), device=dev)
+    dfeat = torch.empty((N, L * C, 3), device=dev) if jac else None
 
-            # the fixed-point accumulator that the wrapper keeps: its first
-            # T·C words must be zero after every launch
-            acc = he.fixed_point_scratch(spec, dev)[:spec.total_entries * C]
-            zero_after = []
-            bwd()
-            zero_after.append(not bool(acc.any()))
-            xx, tt = x.clone().requires_grad_(True), table.clone().requires_grad_(True)
+    def fwd():
+        he.hash_encode_fwd_launch(spec, table, x, 1.0, feats, dfeat)
 
-            def plain_bwd():
-                out = he.hash_encode_plain(spec, tt, xx, 1.0, jac)
-                loss = (out[0] * gf).sum() + (out[1] * gd).sum() if jac else (out * gf).sum()
-                return torch.autograd.grad(loss, [xx, tt])
+    fwd()
+    po, pms = timed_once(lambda: he.hash_encode_plain(spec, table, x, 1.0, jac))
+    po = list(po) if jac else [po]
+    chk.values(f"{kname}.fwd{tag}", src, replaces,
+               [feats, dfeat] if jac else [feats], po, cuda_time(fwd), pms,
+               ("feats", "dfeat"), *hash_cost(spec, N, rows, jac, False))
+    del po
+    # backward: the table gradient (mapping) and the input gradient
+    gf = torch.randn((N, L * C), generator=g, device=dev)
+    gd = torch.randn((N, L * C, 3), generator=g, device=dev) if jac else None
+    g_table = torch.empty_like(table)
+    g_x = torch.empty((N, 3), device=dev)
 
-            (pgx, pgt), pms = timed_once(plain_bwd)
-            ex, et = rel_l2(g_x, pgx), rel_l2(g_table, pgt)
-            err = max(max_abs(g_x, pgx), max_abs(g_table, pgt))
-            # the table gradient is summed in fixed point: run to run the same
-            first = g_table.clone()
-            same = True
-            for _ in range(2):
-                bwd()
-                zero_after.append(not bool(acc.any()))
-                same &= torch.equal(first, g_table)
-            del first
-            ms = cuda_time(bwd)
-            zero_after.append(not bool(acc.any()))
-            chk.record(f"{kname}.bwd{tag}", src,
-                       replaces if jac else "nicer_slam_tpu/ops/hash_encoder.py:613",
-                       err, ex <= GRAD_REL_L2 and et <= GRAD_REL_L2 and same
-                       and all(zero_after), ms, pms,
-                       *hash_cost(spec, N, rows, jac, True),
-                       f"(rel L2: grad_x {ex:.2e}, grad_table {et:.2e}; {N} points, "
-                       f"{rows} rows; the same over 3 launches: {same}; accumulator "
-                       f"zero after each of 3 launches and after the timed ones: "
-                       f"{zero_after})")
-            del xx, tt, pgx, pgt, g_table, g_x, gf, gd, feats, dfeat, x, acc
-            torch.cuda.empty_cache()
+    def bwd():
+        he.hash_encode_bwd_launch(spec, table, x, 1.0, jac, gf, gd, g_table, g_x)
+
+    # the fixed-point accumulator that the wrapper keeps: its first
+    # T·C words must be zero after every launch
+    acc = he.fixed_point_scratch(spec, dev)[:spec.total_entries * C]
+    zero_after = []
+    bwd()
+    zero_after.append(not bool(acc.any()))
+    xx, tt = x.clone().requires_grad_(True), table.clone().requires_grad_(True)
+
+    def plain_bwd():
+        out = he.hash_encode_plain(spec, tt, xx, 1.0, jac)
+        loss = (out[0] * gf).sum() + (out[1] * gd).sum() if jac else (out * gf).sum()
+        return torch.autograd.grad(loss, [xx, tt])
+
+    (pgx, pgt), pms = timed_once(plain_bwd)
+    ex, et = rel_l2(g_x, pgx), rel_l2(g_table, pgt)
+    err = max(max_abs(g_x, pgx), max_abs(g_table, pgt))
+    # the table gradient is summed in fixed point: run to run the same
+    first = g_table.clone()
+    same = True
+    for _ in range(2):
+        bwd()
+        zero_after.append(not bool(acc.any()))
+        same &= torch.equal(first, g_table)
+    del first
+    ms = cuda_time(bwd)
+    zero_after.append(not bool(acc.any()))
+    chk.record(f"{kname}.bwd{tag}", src,
+               replaces if jac else "nicer_slam_tpu/ops/hash_encoder.py:613",
+               err, ex <= GRAD_REL_L2 and et <= GRAD_REL_L2 and same
+               and all(zero_after), ms, pms,
+               *hash_cost(spec, N, rows, jac, True),
+               f"(rel L2: grad_x {ex:.2e}, grad_table {et:.2e}; {N} points, "
+               f"{rows} rows; the same over 3 launches: {same}; accumulator "
+               f"zero after each of 3 launches and after the timed ones: "
+               f"{zero_after})")
+    del xx, tt, pgx, pgt, g_table, g_x, gf, gd, feats, dfeat, acc
+    torch.cuda.empty_cache()
+
+
+# K1 and K2 at the channel counts no shipped grid has (the kernels take C
+# from 1 to 8 and L <= 32; the shipped grids are C 8, 4, 2):
+# (levels, channels, jac) on a tracking iteration's count of uniform points
+HASH_CHANNEL_CASES = ((16, 1, True), (8, 3, True), (6, 5, False), (8, 6, True),
+                      (4, 7, True))
+
+
+def check_hash_channels(dev, chk: Checks):
+    import torch
+    from nicer_slam_tpu_torch.ops import hash_encoder as he
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    for L, C, jac in HASH_CHANNEL_CASES:
+        spec = he.make_spec(input_dim=3, num_levels=L, level_dim=C, per_level_scale=2.0,
+                            base_resolution=16, log2_hashmap_size=17,
+                            desired_resolution=256)
+        table = torch.rand((spec.total_entries, C), generator=g, device=dev) * 2 - 1
+        check_hash_case(dev, chk, g, spec, table, jac, uniform_points(g, dev, 1024 * 98),
+                        f"[L{L} C{C}/uniform]")
         del table
         torch.cuda.empty_cache()
 
@@ -846,27 +1021,40 @@ def hash_specs():
 SDF_GRIDS = ("coarse", "fine")
 
 
-def sdf_density_cost(n: int, io_bytes: int, voxel_res: int = 64):
-    """(bytes, operations) of K6 over n points of the flagship
-    configuration, the least the card must do: read both SDF grids' bf16
-    tables, the packed weights and the voxel counter once, the points'
-    inputs and outputs (``io_bytes``) once; per point the corner sums of
-    both grids (2 operations per multiply-add), both MLPs with only the
-    SDF row of each last layer (2 per weight) and ~30 for the positional
-    encoding and the density."""
-    from nicer_slam_tpu_torch.config import parse_file
-    from nicer_slam_tpu_torch.models import fields
-    conf = parse_file(PATHS["flagship"]["conf"]).get_config("model")
-    comb = fields.combine_config_from_conf(conf.get_config("implicit_network"),
-                                           conf.get_int("feature_vector_size"))
+def sdf_density_cost(n: int, io_bytes: int, voxel_res: int = 64, comb=None):
+    """(bytes, operations) of K6 over n points of the SDF networks ``comb``
+    (the flagship configuration's by default), the least the card must
+    do: read both SDF grids' tables (bf16; fp32 with concat_coarse_feature),
+    the weights and the voxel counter once, the points' inputs and outputs
+    (``io_bytes``) once; per point the corner sums of each grid with
+    features on (2 operations per multiply-add), both MLPs with only the
+    SDF row of each last layer (the coarse one's whole last layer with
+    concat; 2 per weight) and ~30 for the positional encoding and the
+    density."""
+    if comb is None:
+        comb = flagship_combine()
+    concat = comb.fine.concat_coarse_feature
     bytes_, per_pt = io_bytes + 4 * voxel_res ** 3, 30
     for cfg in (comb.coarse, comb.fine):
         spec, dims = cfg.hash_spec(), cfg.layer_dims
+        rows = dims[-1] if concat and cfg is comb.coarse else 1
         weights = sum(dims[i] * (dims[i + 1] - (dims[0] if i + 1 in cfg.skip_in else 0))
-                      for i in range(len(dims) - 2)) + dims[-2]
-        bytes_ += 2 * spec.total_entries * spec.level_dim + 4 * (weights + sum(dims[1:-1]) + 1)
-        per_pt += 2 * spec.level_dim * 8 * spec.num_levels + 2 * weights
+                      for i in range(len(dims) - 2)) + dims[-2] * rows
+        if cfg.use_grid_feature:
+            bytes_ += (4 if concat else 2) * spec.total_entries * spec.level_dim
+            per_pt += 2 * spec.level_dim * 8 * spec.num_levels
+        bytes_ += 4 * (weights + sum(dims[1:-1]) + rows)
+        per_pt += 2 * weights
     return bytes_, per_pt * n
+
+
+def flagship_combine():
+    """The flagship configuration's SDF networks (their config)."""
+    from nicer_slam_tpu_torch.config import parse_file
+    from nicer_slam_tpu_torch.models import fields
+    conf = parse_file(PATHS["flagship"]["conf"]).get_config("model")
+    return fields.combine_config_from_conf(conf.get_config("implicit_network"),
+                                           conf.get_int("feature_vector_size"))
 
 
 def density_cache_cost(res: int = 128, voxel_res: int = 64):
@@ -928,6 +1116,10 @@ def device_ops(fn) -> int:
 
 
 SDF_RES = 128
+# the shipped network's K6 times on record (PERF.md section 6, the kernel
+# table; NVIDIA H100 80GB HBM3, 700 W): the 128³ cache and a flagship
+# mapping iteration's exact prepass (8192 x 640 jittered z)
+SHIPPED_RECORD_MS = {"grid": {128: 2.716}, "rays": {8192: 5.999}}
 
 
 def check_sdf_density(dev, chk: Checks):
@@ -963,7 +1155,8 @@ def check_sdf_density(dev, chk: Checks):
                    f"{ep:.2e}; one launch and no other: {single} {counts}; {extra})")
 
     # the density cache: 128³ grid points, and the device operations of one
-    # build (the pack of tables and weights, then the launch)
+    # build (the pack of tables and weights, then the launch); the shipped
+    # kernel's times beside those on record (same card and power limit)
     ko, single, counts = one_launch(lambda: sd.density_grid(net, pack, SDF_RES, vox), "grid")
     po = sd.density_grid_plain(net, pack.tables, SDF_RES, vox)
     xs = torch.linspace(-1.0, 1.0, SDF_RES, device=dev)
@@ -976,7 +1169,9 @@ def check_sdf_density(dev, chk: Checks):
     build_ms = cuda_time(lambda: sd.density_grid(net, sd.pack_sdf(net), SDF_RES, vox))
     record(f"grid[{SDF_RES}^3]", "nicer_slam_tpu/models/scene_model.py:108", ko, po, exact,
            ms, pms, density_cache_cost(SDF_RES), single, counts,
-           f"a build with its pack: {n_ops} device operations, {build_ms:.3f} ms")
+           f"a build with its pack: {n_ops} device operations, {build_ms:.3f} ms; "
+           f"on record: {SHIPPED_RECORD_MS['grid'][SDF_RES]} ms, now "
+           f"{ms / SHIPPED_RECORD_MS['grid'][SDF_RES] - 1:+.1%}")
     del ko, po, exact
     # the exact prepass of a render chunk (2580 rays x 640 unjittered z) and
     # of a tracking and a flagship mapping iteration (1024 and 8192 rays x
@@ -999,11 +1194,197 @@ def check_sdf_density(dev, chk: Checks):
                "nicer_slam_tpu/models/scene_model.py:246", ko, po, exact, ms, pms,
                sdf_density_cost(z.numel(), nbytes(o, d, z, ko)), single, counts,
                f"{z.numel()} points, {int((po > 1.0).sum())} with density above 1"
-               + ("; jittered z" if training else ""))
+               + ("; jittered z" if training else "")
+               + (f"; on record: {SHIPPED_RECORD_MS['rays'][R]} ms, now "
+                  f"{ms / SHIPPED_RECORD_MS['rays'][R] - 1:+.1%}"
+                  if training and R in SHIPPED_RECORD_MS["rays"] else ""))
         del ko, po, exact
         torch.cuda.empty_cache()
     del net, vox, pack
     torch.cuda.empty_cache()
+
+
+# the general K6 (sdf_density_general) and its concat variant: SDF networks
+# that the JAX package runs and the shipped kernel does not serve, as
+# implicit_network blocks (feature_vector_size, then the text): the JAX
+# package's end-to-end test conf (tests/test_slam_e2e.py TINY_CONF), the
+# port's parity-test networks (tests/_torch_tiny.py), and one with skip_in,
+# the fine clamp, divide_factor 1.5, multires 0 and a 16 x 2 grid; then the
+# flagship's networks with a VolSDF-like fine network (8 x 256, skip_in
+# [4], geometric init) and with concat_coarse_feature
+GENERAL_NETS = {
+    "tiny-jax": (16, """
+        coarse {
+            d_in = 3  d_out = 1  dims = [ 32 ]
+            geometric_init = true  bias = 0.9  skip_in = []
+            weight_norm = true  multires = 6  inside_outside = true
+            use_grid_feature = true
+            base_size = 16  end_size = 16  logmap = 15
+            num_levels = 2  level_dim = 4  divide_factor = 1.0
+        }
+        fine {
+            d_in = 3  d_out = 1  dims = [ 32 32 ]
+            geometric_init = false  bias = 0.9  skip_in = []
+            weight_norm = true  multires = 6  inside_outside = true
+            use_grid_feature = true
+            base_size = 16  end_size = 64  logmap = 17
+            num_levels = 4  level_dim = 2  divide_factor = 1.0
+        }"""),
+    "tiny-port": (8, """
+        coarse {
+            d_in = 3  d_out = 1  dims = [ 16 ]
+            geometric_init = true  bias = 0.6  skip_in = []
+            weight_norm = true  multires = 6  inside_outside = true
+            use_grid_feature = true
+            base_size = 8  end_size = 8  logmap = 12
+            num_levels = 2  level_dim = 8  divide_factor = 1.0
+        }
+        fine {
+            d_in = 3  d_out = 1  dims = [ 16 16 ]
+            geometric_init = false  bias = 0.6  skip_in = []
+            weight_norm = true  multires = 6  inside_outside = true
+            use_grid_feature = true
+            base_size = 8  end_size = 32  logmap = 10
+            num_levels = 3  level_dim = 4  divide_factor = 1.0
+        }"""),
+    "skip-clamp": (16, """
+        coarse {
+            d_in = 3  d_out = 1  dims = [ 32 ]
+            geometric_init = true  bias = 0.9  skip_in = []
+            weight_norm = true  multires = 0  inside_outside = true
+            use_grid_feature = true
+            base_size = 16  end_size = 16  logmap = 15
+            num_levels = 2  level_dim = 4  divide_factor = 1.5
+        }
+        fine {
+            d_in = 3  d_out = 1  dims = [ 64 64 64 64 ]
+            geometric_init = false  bias = 0.9  skip_in = [ 2 ]  clamp = true
+            weight_norm = true  multires = 0  inside_outside = true
+            use_grid_feature = true
+            base_size = 16  end_size = 512  logmap = 16
+            num_levels = 16  level_dim = 2  divide_factor = 1.5
+        }"""),
+}
+GENERAL_RES = 128
+
+
+def general_net(dev, which: str):
+    """(net, voxels) for GENERAL_NETS[which], "volsdf-8x256" or "concat",
+    seeded as sdf_net: tables U(-0.05, 0.05), a voxel counter of counts
+    0-199."""
+    import numpy as np
+    import torch
+    from nicer_slam_tpu_torch.config import parse_string
+    from nicer_slam_tpu_torch.models import fields
+    if which in GENERAL_NETS:
+        fvs, text = GENERAL_NETS[which]
+        comb = fields.combine_config_from_conf(
+            parse_string(f"implicit_network {{{text}\n}}").get_config("implicit_network"), fvs)
+    else:
+        comb = flagship_combine()
+        fine = (comb.fine._replace(dims=(256,) * 8, skip_in=(4,), geometric_init=True,
+                                   bias=0.6)
+                if which == "volsdf-8x256" else comb.fine._replace(concat_coarse_feature=True))
+        comb = comb._replace(fine=fine)
+    net = fields.CombineNet(comb, np.random.default_rng(0))
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for sub in (net.coarse, net.fine):
+            sub.encoding.copy_(torch.rand(sub.encoding.shape, generator=g) * 0.1 - 0.05)
+    vox = torch.randint(0, 200, (64, 64, 64), generator=g).to(torch.float32)
+    return net.to(dev), vox.to(dev)
+
+
+def general_density_f64(net, pack, x, voxels, chunk=131072):
+    """The density at x in float64 from the general kernel's packed weights
+    (its layer order and padding), beta from K7's plain read."""
+    import torch
+    from nicer_slam_tpu_torch.ops import density as dens_ops
+    from nicer_slam_tpu_torch.ops import sdf_density as sd
+    out = []
+    for xc in x.split(chunk):
+        sdf = sd.sdf_general_reference(net, pack.tables, pack.weights, pack.desc, xc,
+                                       torch.float64)
+        beta = dens_ops.grid_predefined_beta_plain(voxels, xc)[:, 0].double()
+        out.append(dens_ops.laplace_density(sdf, beta))
+    return torch.cat(out)
+
+
+def check_sdf_general(dev, chk: Checks):
+    """The general K6 and its concat variant against their plain versions
+    (each one launch and no other kernel; within SDF_DENSITY_RTOL of the
+    largest density; both versions also measured against float64): the
+    GENERAL_NETS in grid mode (128³) and ray mode (a render chunk, 2580 x
+    640), the 8 x 256 network on a render chunk, and the concat variant
+    at flagship widths on a render chunk and a flagship mapping
+    iteration's 8192 x 640 jittered z."""
+    import torch
+    from nicer_slam_tpu_torch.ops import _cuda
+    from nicer_slam_tpu_torch.ops import ray_sampling as rs
+    from nicer_slam_tpu_torch.ops import sdf_density as sd
+
+    src = "nicer_slam_tpu_torch/csrc/sdf_density.cu"
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    scfg = rs.SamplerConfig(N_samples=64, N_samples_eval=640, N_samples_extra=32)
+
+    def one(net, vox, pack, tag, mode, fn, plain, x, cost, extra):
+        kname = f"sdf_density_{pack.variant}.{mode}"
+        _cuda.reset_launch_counts()
+        ko = fn()
+        counts = {k: v for k, v in _cuda.launch_counts().items() if v}
+        _cuda.reset_launch_counts()
+        single = counts == {kname: 1}
+        po = plain()
+        exact = general_density_f64(net, pack, x, vox,
+                                    32768 if max(net.cfg.fine.dims) > 64 else 131072)
+        exact = exact.reshape(po.shape)
+        err, scale = max_abs(ko, po), float(po.abs().max())
+        ek = float((ko.double() - exact).abs().max()) / scale
+        ep = float((po.double() - exact).abs().max()) / scale
+        ms = cuda_time(fn)
+        pms = cuda_time(plain, iters=3, warmup=1)
+        tile, smem, w_smem = sd.general_plan(pack)
+        chk.record(f"{kname}[{tag}]", src, "nicer_slam_tpu/models/scene_model.py:"
+                   + ("108" if mode == "grid" else "246"), err,
+                   err <= SDF_DENSITY_RTOL * scale and single, ms, pms, *cost,
+                   f"(err {err / scale:.2e} of max {scale:.4g}, tolerance "
+                   f"{SDF_DENSITY_RTOL:g}; against float64: kernel {ek:.2e}, plain "
+                   f"{ep:.2e}; one launch and no other: {single} {counts}; tile {tile} "
+                   f"points, {smem} B shared, weights "
+                   f"{'in shared memory' if w_smem else 'through L1/L2'} "
+                   f"({pack.weights.numel()} floats); {extra})")
+
+    cases = [(w, m) for w in GENERAL_NETS for m in ("grid", "rays")]
+    cases += [("volsdf-8x256", "rays"), ("concat", "rays"), ("concat", "train")]
+    for which, mode in cases:
+        net, vox = general_net(dev, which)
+        pack = sd.pack_sdf(net)
+        want = "concat" if which == "concat" else "general"
+        if pack.variant != want:
+            chk.failures.append(f"sdf_density: {which} got the {pack.variant} variant")
+            continue
+        if mode == "grid":
+            xs = torch.linspace(-1.0, 1.0, GENERAL_RES, device=dev)
+            x = sd.grid_points(xs, torch.arange(GENERAL_RES ** 3, device=dev))
+            one(net, vox, pack, f"{which} {GENERAL_RES}^3", "grid",
+                lambda: sd.density_grid(net, pack, GENERAL_RES, vox),
+                lambda: sd.density_grid_plain(net, pack.tables, GENERAL_RES, vox), x,
+                sdf_density_cost(GENERAL_RES ** 3, 4 * GENERAL_RES + 4 * GENERAL_RES ** 3,
+                                 comb=net.cfg), f"{x.shape[0]} points")
+        else:
+            R = 8192 if mode == "train" else GIVEN_RAYS
+            o, d = _sampler_rays(g, dev, R)
+            t_rand = torch.rand((R, 640), generator=g, device=dev) if mode == "train" else None
+            z, _, _ = rs.uniform_z_vals(scfg, o, d, t_rand)
+            one(net, vox, pack, f"{which} {'train ' if t_rand is not None else ''}{R}x640",
+                "rays", lambda: sd.density_rays(net, pack, o, d, z, vox),
+                lambda: sd.density_rays_plain(net, pack.tables, o, d, z, vox),
+                sd.ray_points(o, d, z), sdf_density_cost(z.numel(), nbytes(o, d, z) + 4 * z.numel(),
+                                                       comb=net.cfg),
+                f"{z.numel()} points" + ("; jittered z" if t_rand is not None else ""))
+        del net, vox, pack
+        torch.cuda.empty_cache()
 
 
 def tsdf_frame(dev, H: int, W: int, yaw: float):
@@ -1571,15 +1952,12 @@ def report(kind: str, r, failures) -> None:
 # with SSIM, exposure; the nerf colour mode with per-image codes)
 # ---------------------------------------------------------------------------
 
-def run_options(dev, flagship_dir: str, demo_dir: str) -> dict:
-    """The options conf through exp_runner for OPTIONS_FRAMES frames, the
-    launch counters reset before it and read after its last frame (the
-    loop) and after its vis hook (the path); then the nerf conf for
-    NERF_FRAMES frames (counted into the path). Returns what report_options
-    reads."""
+def run_counted(dev, conf: str, exps: str, n: int) -> dict:
+    """exp_runner.main on conf for n frames, the launch counters reset
+    before it and read after its last frame (the loop) and after its vis
+    hook (the path); per mapping frame the last iteration's loss terms."""
     import numpy as np
     import torch
-    from nicer_slam_tpu_torch.models import scene_model as sm
     from nicer_slam_tpu_torch.ops import _cuda
     from nicer_slam_tpu_torch.training import exp_runner
 
@@ -1591,37 +1969,49 @@ def run_options(dev, flagship_dir: str, demo_dir: str) -> dict:
         if frame_idx == runner.n_images - 1:
             loop_counts.update(_cuda.launch_counts())
 
+    shutil.rmtree(os.path.join(SMOKE_DIR, exps), ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _cuda.reset_launch_counts()
+    t = time.perf_counter()
+    runner = exp_runner.main(["--conf", conf, "--root_dir", SMOKE_DIR, "--exps_folder", exps,
+                              "--device", str(dev)], frame_hook=hook)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    summ = runner.timer.summary()
+    phase_s = {k: v["total_s"] for k, v in summ.items()}
+    errs = [float(np.linalg.norm(runner.est_pose_all[i][:3, 3]
+                                 - runner.dataset.gt_pose_all[i][:3, 3])) for i in range(n)]
+    return dict(runner=runner, counts=_cuda.launch_counts(), loop_counts=loop_counts,
+                map_terms=map_terms, errs=errs,
+                iters=summ["tracking"]["count"] * runner.num_cam_iters
+                + summ["mapping"]["count"],
+                stats={"setup_s": wall - runner.run_s,
+                       "s_per_frame": (runner.run_s - phase_s.get("vis", 0.0)) / n,
+                       "ms_per_track_iter": 1000 * phase_s["tracking"]
+                       / (summ["tracking"]["count"] * runner.num_cam_iters),
+                       "ms_per_map_iter": summ["mapping"]["mean_ms"],
+                       **{f"{k}_s": v for k, v in phase_s.items()},
+                       "peak_mem_GiB": torch.cuda.max_memory_allocated(dev) / 2 ** 30})
+
+
+def run_options(dev, flagship_dir: str, demo_dir: str) -> dict:
+    """The options conf through exp_runner for OPTIONS_FRAMES frames
+    (``run_counted``: its loop's and its path's launches); then the nerf
+    conf for NERF_FRAMES frames (counted into the path). Returns what
+    report_options reads."""
+    import numpy as np
+    import torch
+    from nicer_slam_tpu_torch.models import scene_model as sm
+
     out = {}
     for kind, n in (("options", OPTIONS_FRAMES), ("nerf", NERF_FRAMES)):
-        conf = write_conf(kind, flagship_dir if kind == "options" else demo_dir, n)
-        shutil.rmtree(os.path.join(SMOKE_DIR, f"exps_{kind}"), ignore_errors=True)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        _cuda.reset_launch_counts()
-        t = time.perf_counter()
-        runner = exp_runner.main(["--conf", conf, "--root_dir", SMOKE_DIR, "--exps_folder",
-                                  f"exps_{kind}", "--device", str(dev)],
-                                 frame_hook=hook if kind == "options" else None)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        summ = runner.timer.summary()
-        phase_s = {k: v["total_s"] for k, v in summ.items()}
-        errs = [float(np.linalg.norm(runner.est_pose_all[i][:3, 3]
-                                     - runner.dataset.gt_pose_all[i][:3, 3])) for i in range(n)]
-        r = dict(counts=_cuda.launch_counts(), errs=errs, vis=sorted(os.listdir(runner.plots_dir)),
-                 cache=runner.density_cache is not None, stats={
-                     "setup_s": wall - runner.run_s,
-                     "s_per_frame": (runner.run_s - phase_s.get("vis", 0.0)) / n,
-                     "ms_per_track_iter": 1000 * phase_s["tracking"]
-                     / (summ["tracking"]["count"] * runner.num_cam_iters),
-                     "ms_per_map_iter": summ["mapping"]["mean_ms"],
-                     **{f"{k}_s": v for k, v in phase_s.items()},
-                     "peak_mem_GiB": torch.cuda.max_memory_allocated(dev) / 2 ** 30})
-        if kind == "options":
-            r.update(map_terms=map_terms, loop_counts=loop_counts,
-                     iters=summ["tracking"]["count"] * runner.num_cam_iters
-                     + summ["mapping"]["count"])
-        else:
+        r = run_counted(dev, write_conf(kind, flagship_dir if kind == "options" else demo_dir,
+                                        n), f"exps_{kind}", n)
+        runner = r.pop("runner")
+        r.update(vis=sorted(os.listdir(runner.plots_dir)),
+                 cache=runner.density_cache is not None)
+        if kind == "nerf":
             fresh = sm.SceneModel(runner.scene_cfg, np.random.default_rng(0)).render.embeddings
             r["codes_same"] = same_bits(runner.model.render.embeddings, fresh)
             r["codes_shape"] = tuple(fresh.shape)
@@ -1673,6 +2063,216 @@ def report_options(o: dict, failures) -> None:
         f"{NERF_FRAMES} frames: {nerf['codes_same']}")
     if not nerf["codes_same"]:
         failures.append("nerf: the frozen per-image codes changed")
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: SDF networks beyond the shipped one (the general K6 and its
+# concat variant through exp_runner), Adam in the optax layout on the card,
+# and the training tools
+# ---------------------------------------------------------------------------
+
+def adam_round_trip(runner) -> dict:
+    """The runner's Adam state saved in the optax layout and loaded into a
+    fresh optimizer over a copy of its model: every moment and count must
+    come back bit for bit, and one more step on the same gradients must
+    leave both models and states the same bit for bit."""
+    import copy
+    import torch
+    from nicer_slam_tpu_torch.slam import checkpoint as ckpt
+    from nicer_slam_tpu_torch.slam import state as st
+
+    path = os.path.join(SMOKE_DIR, "adam")
+    shutil.rmtree(path, ignore_errors=True)
+    model_a, opt_a = runner.model, runner.optimizer
+    t = time.perf_counter()
+    ckpt.save_optimizer(path, model_a, opt_a, runner.n_images - 1)
+    save_s = time.perf_counter() - t
+    model_b = copy.deepcopy(model_a)
+    opt_b = st.make_optimizer(runner.optim_cfg, model_b)
+    t = time.perf_counter()
+    ckpt.load_optimizer(path, model_b, opt_b)
+    load_s = time.perf_counter() - t
+
+    def states_equal():
+        pairs = list(zip(model_a.parameters(), model_b.parameters()))
+        n = sum(1 for pa, _ in pairs if pa in opt_a.state)
+        same = all((pa in opt_a.state) == (pb in opt_b.state)
+                   and all(torch.equal(opt_a.state[pa][k], opt_b.state[pb][k])
+                           for k in opt_a.state.get(pa, {}))
+                   for pa, pb in pairs)
+        return same, n
+
+    loaded_same, n_states = states_equal()
+    g = torch.Generator(device=next(model_a.parameters()).device)
+    g.manual_seed(11)
+    for pa, pb in zip(model_a.parameters(), model_b.parameters()):
+        if pa.requires_grad:
+            pa.grad = torch.randn(pa.shape, generator=g, device=pa.device) * 1e-3
+            pb.grad = pa.grad.clone()
+    opt_a.step()
+    opt_b.step()
+    stepped_same = (all(torch.equal(pa, pb) for pa, pb in zip(model_a.parameters(),
+                                                             model_b.parameters()))
+                    and states_equal()[0])
+    steps = sorted({int(s["step"]) for s in opt_b.state.values()})
+    del model_b, opt_b
+    return dict(loaded_same=loaded_same, stepped_same=stepped_same, n_states=n_states,
+                steps=steps, save_s=save_s, load_s=load_s,
+                file_MB=os.path.getsize(os.path.join(path, "latest.npz")) / 1e6)
+
+
+def run_networks(dev, flagship_dir: str) -> dict:
+    """Phase 5c: TINY_CONF's networks on a small scan and the flagship conf
+    with concat_coarse_feature, both with the exact prepass, through
+    exp_runner; the Adam round trip on the concat run's optimizer;
+    pretrain on the flagship networks, its npz into the port's runner; and
+    train_mono_prior, its npz into the port's mono prior."""
+    import numpy as np
+    import torch
+    from nicer_slam_tpu_torch.datasets.synthetic import generate
+    from nicer_slam_tpu_torch.models.mono_prior import MonoPriorInference
+    from nicer_slam_tpu_torch.ops import _cuda
+    from nicer_slam_tpu_torch.slam.runner import SLAMRunner
+    from nicer_slam_tpu_torch.training import pretrain, train_mono_prior
+
+    out = {}
+    tiny_dir = os.path.join(SMOKE_DIR, "tiny", "Synthetic")
+    shutil.rmtree(os.path.dirname(tiny_dir), ignore_errors=True)
+    generate(tiny_dir, scan_id=1, n_frames=TINY_FRAMES, H=TINY_H, W=TINY_W, world_scale=3.0,
+             keyframe_every=10, with_flow=True)
+    conf = os.path.join(SMOKE_DIR, "tiny.conf")
+    with open(conf, "w") as f:
+        f.write(TINY_CONF.format(data_dir=tiny_dir, H=TINY_H, W=TINY_W, n_images=TINY_FRAMES,
+                                 map_iters=TINY_ITERS, track_iters=TINY_ITERS))
+    out["tiny"] = run_counted(dev, conf, "exps_tiny", TINY_FRAMES)
+    del out["tiny"]["runner"]
+    # the same networks with the density cache: the general kernel's grid
+    # mode builds it
+    text = open(conf).read()
+    cached = os.path.join(SMOKE_DIR, "tiny_cached.conf")
+    with open(cached, "w") as f:
+        f.write(text.replace("N_samples_extra = 8 }",
+                             "N_samples_extra = 8  prepass_mode = cached }"))
+    out["tiny_cached"] = run_counted(dev, cached, "exps_tiny_cached", TINY_CACHED_FRAMES)
+    del out["tiny_cached"]["runner"]
+    torch.cuda.empty_cache()
+
+    out["concat"] = run_counted(dev, write_conf("concat", flagship_dir, CONCAT_FRAMES),
+                                "exps_concat", CONCAT_FRAMES)
+    runner = out["concat"].pop("runner")
+    out["concat"]["concat"] = runner.scene_cfg.combine.fine.concat_coarse_feature
+    out["adam"] = adam_round_trip(runner)
+    del runner
+    torch.cuda.empty_cache()
+
+    pt_out = os.path.join(SMOKE_DIR, "pretrain_smoke.npz")
+    _cuda.reset_launch_counts()
+    t = time.perf_counter()
+    hist = pretrain.train(steps=PRETRAIN_STEPS, conf=PATHS["flagship"]["conf"], out=pt_out,
+                          device=dev, log_every=10)
+    torch.cuda.synchronize()
+    out["pretrain"] = dict(losses=[h["loss"] for h in hist], s=time.perf_counter() - t,
+                           counts=_cuda.launch_counts())
+    text = open(write_conf("flagship", flagship_dir, 2)).read()
+    if text.count("train {\n") != 1:
+        raise RuntimeError("flagship conf: no train block")
+    conf = os.path.join(SMOKE_DIR, "pretrain_load.conf")
+    with open(conf, "w") as f:
+        f.write(text.replace("train {\n", f'train {{\n    pretrain_path = "{pt_out}"\n'))
+    r = SLAMRunner(conf=conf, root_dir=SMOKE_DIR, exps_folder_name="exps_pretrain_load",
+                   quiet=True, device=dev)
+    with np.load(pt_out) as data:
+        out["pretrain"]["loaded"] = all(
+            np.array_equal(p.detach().cpu().numpy(), data[f"fine_lin{i}_{k}"])
+            for i, lin in enumerate(r.model.implicit.fine.lins)
+            for k, p in lin.named_parameters())
+    del r
+    torch.cuda.empty_cache()
+
+    mp_out = os.path.join(SMOKE_DIR, "mono_prior_smoke.npz")
+    t = time.perf_counter()
+    hist = train_mono_prior.train(steps=MONO_STEPS, n_scenes=MONO_SCENES,
+                                  frames_per_scene=MONO_FRAMES, out=mp_out, device=dev)
+    torch.cuda.synchronize()
+    d, n01 = MonoPriorInference(mp_out, device=dev)(
+        np.random.default_rng(0).uniform(0, 1, (96, 128, 3)).astype(np.float32))
+    out["mono"] = dict(losses=[h["loss"] for h in hist], s=time.perf_counter() - t,
+                       cue_finite=bool(np.isfinite(d).all() and np.isfinite(n01).all()))
+    out["counts"] = {k: sum(out[r]["counts"][k] for r in ("tiny", "tiny_cached", "concat",
+                                                          "pretrain"))
+                     for k in out["tiny"]["counts"]}
+    return out
+
+
+def _falls(losses) -> bool:
+    import numpy as np
+    head, tail = losses[:TOOL_WINDOW], losses[-TOOL_WINDOW:]
+    return bool(np.isfinite(losses).all()) and sum(tail) / len(tail) < sum(head) / len(head)
+
+
+def report_networks(nw: dict, failures) -> None:
+    import torch
+    for kind in ("tiny", "tiny_cached", "concat"):
+        r = nw[kind]
+        log(f"  {kind}: translation error vs GT per frame: "
+            + " ".join(f"{i}:{e:.4f}" for i, e in enumerate(r["errs"])))
+        log("  " + " ".join(f"{k}={v:.4g}" for k, v in r["stats"].items()))
+        log("  launches: " + " ".join(f"{k}={v}" for k, v in r["counts"].items() if v))
+        for f, terms in r["map_terms"].items():
+            log(f"  loss terms, last iteration of the frame-{f} mapping call: "
+                + " ".join(f"{k}={float(v):.5g}" for k, v in terms.items()))
+        if not all(e == e and e < 1e3 for e in r["errs"]):
+            failures.append(f"{kind}: non-finite poses")
+        bad = [(f, k) for f, terms in r["map_terms"].items() for k, v in terms.items()
+               if not torch.isfinite(v).all()]
+        if bad or not r["map_terms"]:
+            failures.append(f"{kind}: non-finite loss terms {bad} (or no mapping call)")
+    tc, lc = nw["tiny"]["counts"], nw["concat"]["loop_counts"]
+    log(f"  tiny: sdf_density_general.rays {tc['sdf_density_general.rays']}, the shipped "
+        f"kernel {tc['sdf_density.rays'] + tc['sdf_density.grid']}")
+    if tc["sdf_density_general.rays"] == 0 or tc["sdf_density.rays"] or tc["sdf_density.grid"]:
+        failures.append("tiny: the general K6 did not run the exact prepass")
+    cc = nw["tiny_cached"]["counts"]
+    log(f"  tiny, cached: sdf_density_general.grid {cc['sdf_density_general.grid']} (cache "
+        f"builds), importance_sample {cc['importance_sample']}, the shipped kernel "
+        f"{cc['sdf_density.rays'] + cc['sdf_density.grid']}")
+    if (cc["sdf_density_general.grid"] == 0 or cc["importance_sample"] == 0
+            or cc["sdf_density.rays"] or cc["sdf_density.grid"]):
+        failures.append("tiny, cached: the general K6 did not build the density cache")
+    iters = nw["concat"]["iters"]
+    log(f"  concat: the loop ({iters} tracking and mapping iterations): "
+        f"sdf_density_concat.rays {lc['sdf_density_concat.rays']}, general "
+        f"{lc['sdf_density_general.rays']}, shipped {lc['sdf_density.rays']} / "
+        f"{lc['sdf_density.grid']}; concat_coarse_feature {nw['concat']['concat']}")
+    if (not nw["concat"]["concat"] or lc["sdf_density_concat.rays"] != iters
+            or lc["sdf_density.rays"] or lc["sdf_density.grid"]):
+        failures.append(f"concat: K6-concat launched {lc['sdf_density_concat.rays']} times "
+                        f"for {iters} iterations")
+    a = nw["adam"]
+    log(f"  adam (the concat run's optimizer, optax layout, {a['file_MB']:.1f} MB, save "
+        f"{a['save_s']:.2f} s, load {a['load_s']:.2f} s): {a['n_states']} parameter states "
+        f"loaded bit for bit: {a['loaded_same']}; the next step on the same gradients bit "
+        f"for bit: {a['stepped_same']}; counts after it {a['steps']}")
+    if not (a["loaded_same"] and a["stepped_same"] and a["n_states"] > 0):
+        failures.append("adam: the optax-layout round trip is not bit for bit")
+    pt = nw["pretrain"]
+    k1 = (pt["counts"]["hash_encode_with_grad.fwd"], pt["counts"]["hash_encode_with_grad.bwd"])
+    log(f"  pretrain ({PRETRAIN_STEPS} steps, {pt['s']:.2f} s): loss "
+        f"{pt['losses'][0]:.5g} -> {pt['losses'][-1]:.5g} (means of the first and last "
+        f"{TOOL_WINDOW}: {sum(pt['losses'][:TOOL_WINDOW]) / TOOL_WINDOW:.5g} -> "
+        f"{sum(pt['losses'][-TOOL_WINDOW:]) / TOOL_WINDOW:.5g}); K1 fwd / bwd launches "
+        f"{k1[0]} / {k1[1]}; loaded into the runner's fine MLP: {pt['loaded']}")
+    if not (_falls(pt["losses"]) and min(k1) > 0 and pt["loaded"]):
+        failures.append("pretrain: the loss did not fall, K1 never launched, or the npz did "
+                        "not load")
+    mo = nw["mono"]
+    log(f"  train_mono_prior ({MONO_STEPS} steps, {MONO_SCENES * MONO_FRAMES} frames, "
+        f"{mo['s']:.2f} s): loss {mo['losses'][0]:.5g} -> {mo['losses'][-1]:.5g} (means "
+        f"{sum(mo['losses'][:TOOL_WINDOW]) / TOOL_WINDOW:.5g} -> "
+        f"{sum(mo['losses'][-TOOL_WINDOW:]) / TOOL_WINDOW:.5g}); its cues finite: "
+        f"{mo['cue_finite']}")
+    if not (_falls(mo["losses"]) and mo["cue_finite"]):
+        failures.append("train_mono_prior: the loss is not finite or did not fall")
 
 
 # ---------------------------------------------------------------------------
@@ -2088,6 +2688,7 @@ def main() -> int:
             f"TFLOP/s float32; card {card}")
         chk = Checks()
         check_hash_kernels(dev, chk)
+        check_hash_channels(dev, chk)
         for (R, S), tag in zip(COMPOSITE_SHAPES, COMPOSITE_TAGS):
             check_demo_kernels(dev, chk, R, S, tag)
         check_hash_tracking(dev, chk)
@@ -2096,6 +2697,7 @@ def main() -> int:
         check_bf16_kernels(dev, chk)
         check_sampler_kernels(dev, chk)
         check_sdf_density(dev, chk)
+        check_sdf_general(dev, chk)
         check_tsdf_kernel(dev, chk)
         torch.cuda.empty_cache()
 
@@ -2115,6 +2717,15 @@ def main() -> int:
             f"networks in nerf mode with per-image codes, {NERF_FRAMES} frames")
         options = run_options(dev, wait_scene(procs, "flagship"), wait_scene(procs, "demo"))
         options["phase_s"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        log(f"[5c/9] networks: TINY_CONF's SDF networks ({TINY_FRAMES} frames, "
+            f"{TINY_H}x{TINY_W}, the exact prepass; then {TINY_CACHED_FRAMES} with the "
+            f"density cache) and the flagship with concat_coarse_feature ({CONCAT_FRAMES} "
+            f"frames, the exact prepass); Adam in the optax layout; pretrain "
+            f"({PRETRAIN_STEPS} steps) and train_mono_prior ({MONO_STEPS})")
+        networks = run_networks(dev, wait_scene(procs, "flagship"))
+        networks["phase_s"] = time.perf_counter() - t
         torch.cuda.empty_cache()
         log("[6/9] eval: the checkpoint battery on the flagship run (eval_cam, mesh "
             f"{MESH_RESOLUTION}^3 vs the analytic scene, depth bias, interpolate view 2, "
@@ -2149,6 +2760,8 @@ def main() -> int:
         report(kind, r, failures)
     log(f" options (phase {options['phase_s']:.1f} s):")
     report_options(options, failures)
+    log(f" networks (phase {networks['phase_s']:.1f} s):")
+    report_networks(networks, failures)
     log(" eval (the flagship run):")
     report_eval(ev, failures)
     log(f" preprocess (phase {pre['phase_s']:.1f} s):")
@@ -2159,6 +2772,7 @@ def main() -> int:
         base = name.split("[")[0]
         by_path = {kind: r_["counts"][base] for kind, r_ in runs.items()}
         by_path["options"] = options["counts"][base]
+        by_path["networks"] = networks["counts"][base]
         by_path["eval"] = ev["counts"][base]
         by_path["preprocess"] = pre["slam"]["counts"][base]
         kernels.append(dict(r, launches=sum(by_path.values()), launches_by_path=by_path))

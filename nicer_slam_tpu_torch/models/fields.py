@@ -11,7 +11,12 @@ SDF normals take the analytic route: the grid encoder returns features and
 their Jacobian from one gather (K1), ``dSDF/dinput`` comes from
 ``torch.autograd.grad(..., create_graph=True)`` over the MLP alone, and the
 chain rule contracts the two. The outer loss therefore differentiates only
-the MLP twice; K1's own backward is first order.
+the MLP twice; K1's own backward is first order. With
+``concat_coarse_feature`` the fine MLP also reads the coarse network's
+feature rows, so the fine network's cotangent on them is pulled back
+through the coarse MLP as well (the JAX package's whole-network vjp,
+``combine_get_outputs_vjp``, computed with the same analytic grid
+Jacobians).
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ class ImplicitNetConfig(NamedTuple):
     level_dim: int = 8
     divide_factor: float = 1.0
     feature_vector_size: int = 64
+    concat_coarse_feature: bool = False
     clamp: bool = False
     name: str = ""
 
@@ -62,6 +68,8 @@ class ImplicitNetConfig(NamedTuple):
     @property
     def layer_dims(self) -> Tuple[int, ...]:
         d0 = self.d_in + self.grid_feature_dim
+        if self.concat_coarse_feature:
+            d0 += self.feature_vector_size
         if self.multires > 0:
             d0 += positional_encoding_dim(self.multires, self.d_in) - 3
         return (d0,) + tuple(self.dims) + (self.d_out + self.feature_vector_size,)
@@ -76,10 +84,6 @@ class ImplicitNetConfig(NamedTuple):
 
 def implicit_config_from_conf(conf: Config, feature_vector_size: int,
                               name: str = "") -> ImplicitNetConfig:
-    if conf.get_bool("concat_coarse_feature", False):
-        raise NotImplementedError(
-            "concat_coarse_feature is not ported yet (ROADMAP.md queue 1: it needs the "
-            "exact prepass with fp32 tables and the coarse feature vector in K6)")
     return ImplicitNetConfig(
         d_in=conf.get_int("d_in", 3),
         d_out=conf.get_int("d_out", 1),
@@ -98,6 +102,7 @@ def implicit_config_from_conf(conf: Config, feature_vector_size: int,
         level_dim=conf.get_int("level_dim", 2),
         divide_factor=conf.get_float("divide_factor", 1.5),
         feature_vector_size=feature_vector_size,
+        concat_coarse_feature=conf.get_bool("concat_coarse_feature", False),
         clamp=conf.get_bool("clamp", False),
         name=name,
     )
@@ -159,13 +164,21 @@ def _mlp_input(net: ImplicitNet, x: torch.Tensor, feats: torch.Tensor):
     return torch.cat([x, feats], dim=-1)
 
 
-def implicit_forward(net: ImplicitNet, x: torch.Tensor) -> torch.Tensor:
-    """[N,3] -> [N, 1+feature_vector_size] (grid features through K2)."""
-    return _mlp_forward(net, _mlp_input(net, x, _grid_features(net, x)))
+def implicit_forward(net: ImplicitNet, x: torch.Tensor,
+                     c_feature_vectors: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[N,3] -> [N, 1+feature_vector_size] (grid features through K2); the
+    fine network with concat_coarse_feature also reads the coarse
+    network's feature rows ``c_feature_vectors``."""
+    feats = _grid_features(net, x)
+    if net.cfg.concat_coarse_feature and c_feature_vectors is not None:
+        feats = torch.cat([feats, c_feature_vectors], dim=-1)
+    return _mlp_forward(net, _mlp_input(net, x, feats))
 
 
-def implicit_outputs_analytic(net: ImplicitNet, x: torch.Tensor):
-    """(out [N,1+F], dSDF/dx [N,3]) via K1 + an MLP-only autograd.grad."""
+def _analytic_input(net: ImplicitNet, x: torch.Tensor,
+                    c_feature_vectors: Optional[torch.Tensor] = None):
+    """(MLP input, dfeat/dx of its grid columns or None, columns before
+    the grid's): the grid features and their Jacobian from K1."""
     cfg = net.cfg
     if cfg.use_grid_feature:
         feats, dfeat = he.hash_encode_with_grad(
@@ -173,8 +186,26 @@ def implicit_outputs_analytic(net: ImplicitNet, x: torch.Tensor):
         dfeat = dfeat / cfg.divide_factor
     else:
         feats, dfeat = x.new_zeros((x.shape[0], cfg.grid_feature_dim)), None
-    inp = _mlp_input(net, x, feats)
-    n_pe = inp.shape[-1] - feats.shape[-1]
+    n_pe = positional_encoding_dim(cfg.multires, 3) if cfg.multires > 0 else 3
+    if cfg.concat_coarse_feature and c_feature_vectors is not None:
+        feats = torch.cat([feats, c_feature_vectors], dim=-1)
+    return _mlp_input(net, x, feats), dfeat, n_pe
+
+
+def _contract(net: ImplicitNet, x: torch.Tensor, dsdf_dinp: torch.Tensor, dfeat, n_pe: int):
+    """dSDF/dx [N,3] from dSDF/d(MLP input) through the positional
+    encoding and the grid's Jacobian (the columns after the grid's, the
+    coarse features, are the caller's)."""
+    grads = positional_encoding_grad_contract(x, net.cfg.multires, dsdf_dinp[:, :n_pe])
+    if dfeat is not None:
+        n_grid = dfeat.shape[1]
+        grads = grads + torch.einsum("nc,ncd->nd", dsdf_dinp[:, n_pe:n_pe + n_grid], dfeat)
+    return grads
+
+
+def implicit_outputs_analytic(net: ImplicitNet, x: torch.Tensor):
+    """(out [N,1+F], dSDF/dx [N,3]) via K1 + an MLP-only autograd.grad."""
+    inp, dfeat, n_pe = _analytic_input(net, x)
     outer = torch.is_grad_enabled()
     with torch.enable_grad():
         if not inp.requires_grad:
@@ -184,10 +215,7 @@ def implicit_outputs_analytic(net: ImplicitNet, x: torch.Tensor):
                                            create_graph=outer)
     if not outer:
         out = out.detach()
-    grads = positional_encoding_grad_contract(x, cfg.multires, dsdf_dinp[:, :n_pe])
-    if dfeat is not None:
-        grads = grads + torch.einsum("nc,ncd->nd", dsdf_dinp[:, n_pe:], dfeat)
-    return out, grads
+    return out, _contract(net, x, dsdf_dinp, dfeat, n_pe)
 
 
 # ---------------------------------------------------------------------------
@@ -219,7 +247,8 @@ def combine_forward(net: CombineNet, x: torch.Tensor, stage: str = "fine"):
     out_c = implicit_forward(net.coarse, x)
     if stage == "coarse":
         return out_c
-    return out_c + implicit_forward(net.fine, x)
+    c_feat = out_c[:, 1:] if net.cfg.fine.concat_coarse_feature else None
+    return out_c + implicit_forward(net.fine, x, c_feature_vectors=c_feat)
 
 
 def combine_sdf(net: CombineNet, x: torch.Tensor, stage: str = "fine"):
@@ -228,12 +257,42 @@ def combine_sdf(net: CombineNet, x: torch.Tensor, stage: str = "fine"):
 
 def combine_get_outputs(net: CombineNet, x: torch.Tensor, stage: str = "fine"):
     """(sdf [N,1], features [N,F], gradients [N,3]), second-order ready."""
+    if net.cfg.fine.concat_coarse_feature and stage != "coarse":
+        return _combine_outputs_concat(net, x)
     out_c, g_c = implicit_outputs_analytic(net.coarse, x)
     if stage == "coarse":
         return out_c[:, :1], out_c[:, 1:], g_c
     out_f, g_f = implicit_outputs_analytic(net.fine, x)
     out = out_c + out_f
     return out[:, :1], out[:, 1:], g_c + g_f
+
+
+def _combine_outputs_concat(net: CombineNet, x: torch.Tensor):
+    """combine_get_outputs with concat_coarse_feature: the fine MLP reads
+    the coarse output's feature rows, so dSDF/dx is the JAX package's
+    whole-network vjp (``combine_get_outputs_vjp``): the fine network's
+    cotangent on those rows, v, joins the coarse SDF's 1 as the coarse
+    output's cotangent [1, v] pulled back through the coarse MLP. Both
+    pullbacks are differentiable (create_graph), so the eikonal, smooth and
+    normal terms differentiate them again."""
+    outer = torch.is_grad_enabled()
+    inp_c, dfeat_c, n_pe_c = _analytic_input(net.coarse, x)
+    with torch.enable_grad():
+        if not inp_c.requires_grad:
+            inp_c = inp_c.detach().requires_grad_(True)
+        out_c = _mlp_forward(net.coarse, inp_c)
+        inp_f, dfeat_f, n_pe_f = _analytic_input(net.fine, x, out_c[:, 1:])
+        out_f = _mlp_forward(net.fine, inp_f)
+        (d_f,) = torch.autograd.grad(out_f[:, 0].sum(), inp_f, create_graph=outer)
+        n_own = inp_f.shape[-1] - (out_c.shape[-1] - 1)
+        cot = torch.cat([torch.ones_like(out_c[:, :1]), d_f[:, n_own:]], dim=-1)
+        (d_c,) = torch.autograd.grad(out_c, inp_c, grad_outputs=cot, create_graph=outer)
+    if not outer:
+        out_c, out_f, d_f = out_c.detach(), out_f.detach(), d_f.detach()
+    grads = (_contract(net.coarse, x, d_c, dfeat_c, n_pe_c)
+             + _contract(net.fine, x, d_f[:, :n_own], dfeat_f, n_pe_f))
+    out = out_c + out_f
+    return out[:, :1], out[:, 1:], grads
 
 
 def combine_gradient(net: CombineNet, x: torch.Tensor, stage: str = "fine"):
@@ -264,7 +323,13 @@ def _implicit_sdf_packed(net: ImplicitNet, packed: torch.Tensor,
 @torch.no_grad()
 def combine_sdf_packed(net: CombineNet, packed: Dict[str, torch.Tensor],
                        x: torch.Tensor, stage: str = "fine") -> torch.Tensor:
-    """SDF [N] with both grids read from ``pack_combine_tables`` (K3)."""
+    """SDF [N] with both grids read from ``pack_combine_tables`` (K3).
+    Not for concat_coarse_feature, whose prepass reads fp32 tables
+    (``combine_sdf``), as in the JAX package."""
+    if net.cfg.fine.concat_coarse_feature:
+        raise ValueError("concat_coarse_feature: the packed bf16 SDF does not take the "
+                         "coarse features (the JAX package's combine_sdf_packed fails there "
+                         "with a shape error); its prepass reads combine_sdf")
     s = _implicit_sdf_packed(net.coarse, packed["coarse"], x)
     if stage == "coarse":
         return s

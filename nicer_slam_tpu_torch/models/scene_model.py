@@ -72,9 +72,14 @@ def scene_config_from_conf(model_conf: Config, img_res, n_images: int) -> SceneC
         prepass_mode=rs.get_string("prepass_mode", "exact"),
         prepass_cache_res=rs.get_int("prepass_cache_res", 128),
     )
+    combine = fields.combine_config_from_conf(model_conf.get_config("implicit_network"), fvs)
+    if combine.fine.concat_coarse_feature and sampler.prepass_mode == "cached":
+        raise ValueError("concat_coarse_feature with prepass_mode = cached: the JAX package "
+                         "cannot build its density cache (build_density_cache fails with a "
+                         "shape error in combine_sdf_packed, whose fine input lacks the coarse "
+                         "features); use prepass_mode = exact")
     return SceneConfig(
-        combine=fields.combine_config_from_conf(
-            model_conf.get_config("implicit_network"), fvs),
+        combine=combine,
         render=fields.rendering_config_from_conf(
             model_conf.get_config("rendering_network"), fvs, n_images=n_images),
         sampler=sampler,

@@ -42,7 +42,8 @@ KERNELS = ("hash_encode_with_grad.fwd", "hash_encode_with_grad.bwd",
            "weights_topk.fwd", "weights_topk.bwd", "topk_rgb.fwd", "topk_rgb.bwd",
            "importance_sample", "importance_sample_given",
            "voxels.scatter", "voxels.beta", "sdf_density.grid", "sdf_density.rays",
-           "tsdf.integrate")
+           "sdf_density_general.grid", "sdf_density_general.rays",
+           "sdf_density_concat.rays", "tsdf.integrate")
 _launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _P = ctypes.c_void_p
@@ -87,6 +88,13 @@ _SIGNATURES = {
     # z, S, counter, vres, -b·1e-4, d, a, c, beta, beta_scale, out, N, stream
     "nsl_sdf_density": [_P] * 8 + [_I] + [_P] * 3 + [_I, _P, _I] + [_F] * 4 + [_P] * 3
                        + [_I64, _P],
+    # desc (host int32 [2, 73]), weights, w_floats, table_c, meta_c, scl_c,
+    # table_f, meta_f, scl_f, f32_tables, xs, res, o, d, z, S, counter, vres,
+    # -b·1e-4, d, a, c, beta, beta_scale, out, N, stream
+    "nsl_sdf_density_general": [_P, _P, _I64] + [_P] * 6 + [_I, _P, _I] + [_P] * 3
+                               + [_I, _P, _I] + [_F] * 4 + [_P] * 3 + [_I64, _P],
+    # desc, w_floats, tile out, bytes out, smem-weight floats out (no stream)
+    "nsl_sdf_density_general_plan": [_P, _I64, _P, _P, _P],
     # tsdf, weight, depth, w2c, K, xs, ys, zs, res, H, W, trunc, depth_max,
     # stream
     "nsl_tsdf_integrate": [_P] * 8 + [_I] * 3 + [_F] * 2 + [_P],

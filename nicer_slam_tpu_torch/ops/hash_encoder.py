@@ -194,11 +194,20 @@ def _level_tables(spec: HashGridSpec, size: float, device: str):
     return (torch.from_numpy(meta).to(device), torch.from_numpy(scl).to(device))
 
 
-def _check_spec(spec: HashGridSpec):
-    if spec.input_dim != 3 or spec.level_dim not in (2, 4, 8) or spec.num_levels > 32:
-        raise ValueError(f"kernel supports input_dim 3, C in (2, 4, 8) and at most "
-                         f"32 levels, got {spec.input_dim}, {spec.level_dim}, "
-                         f"{spec.num_levels}")
+# the K1/K2 kernels' limits: a block is a warp per level (at most 32), and
+# a level's C channels are one row of its tiles (at most 8, so L·C <= 256,
+# the shared memory of the widest tile); K3 (the bf16 rows) takes C in
+# (2, 4, 8)
+MAX_LEVELS, MAX_CHANNELS = 32, 8
+
+
+def _check_spec(spec: HashGridSpec, bf16: bool = False):
+    L, C = spec.num_levels, spec.level_dim
+    ok_c = C in (2, 4, 8) if bf16 else 1 <= C <= MAX_CHANNELS
+    if spec.input_dim != 3 or not ok_c or L > MAX_LEVELS:
+        raise ValueError(f"kernel supports input_dim 3, C in "
+                         f"{'(2, 4, 8)' if bf16 else f'1..{MAX_CHANNELS}'} and at most "
+                         f"{MAX_LEVELS} levels, got {spec.input_dim}, {C}, {L}")
 
 
 def _check_operands(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor):
@@ -354,7 +363,7 @@ def hash_encode_bf16(spec: HashGridSpec, packed: torch.Tensor, x: torch.Tensor,
         return hash_encode_bf16_plain(spec, packed, x, size)
     if x.device.type != "cuda":
         raise ValueError(f"hash_encode_bf16: unsupported device {x.device}")
-    _check_spec(spec)
+    _check_spec(spec, bf16=True)
     N, L, C = x.shape[0], spec.num_levels, spec.level_dim
     _cuda.check(x, "x", torch.float32, (N, 3))
     _cuda.check(packed, "packed", torch.bfloat16, (spec.total_entries, C),

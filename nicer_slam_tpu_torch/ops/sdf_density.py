@@ -15,28 +15,45 @@ Per point x, from the SDF grids' tables rounded to bfloat16
 ``density_grid`` evaluates it at every point of the ``linspace(-1, 1,
 res)³`` grid (the density cache, flat index ``(i·res + j)·res + k``),
 ``density_rays`` at ``o + z·d`` for every ray and prepass z (the exact
-prepass). On a CPU tensor both run ``sdf_density_plain``, the composition
-the port ran before the kernel: K3 through ``fields.combine_sdf_packed``,
-the MLPs, K7's read and the Laplace density. On a CUDA tensor each is one
-launch of ``csrc/sdf_density.cu``, which serves the one SDF network that
-every shipped configuration uses (``check_sdf_network``) and raises for
-any other; it never falls back to the plain version.
+prepass). On a CPU tensor both run ``sdf_density_plain``: plain torch
+(K3's and K7's plain versions, the MLPs, the Laplace density) rounded as
+the kernels round (``sdf_plain``). On a CUDA tensor each is one
+launch of ``csrc/sdf_density.cu``; it never falls back to the plain
+version. ``check_sdf_network`` picks the kernel once per ``pack_sdf``:
 
-The kernel reads the weight-normed layers as their effective weights
-``g·v/‖v‖``, computed once per pack (``pack_sdf_weights``, as
-``WNLinear.forward`` computes them, so the same bits as the plain
-version's) and laid out for its register-blocked products: each hidden
-layer transposed ``[in][64]`` with its units in the order
-``q -> q//4 + 16·(q % 4)`` (a thread's 4 units are one float4), and of
-each last layer only row 0, the SDF. The note at the top of the CUDA
-source has the design and its error budget.
+  * ``shipped``: the one SDF network every shipped configuration uses, a
+    kernel compiled for its shape (launch counters ``sdf_density.grid`` /
+    ``.rays``);
+  * ``general``: any other network the JAX package runs, one kernel that
+    reads the shape from a descriptor (``pack_general``; counters
+    ``sdf_density_general.*``);
+  * ``concat``: ``concat_coarse_feature``, the general kernel on fp32
+    tables (the JAX package's prepass runs fp32 ``combine_sdf`` there),
+    with the coarse network's feature rows fed to the fine network
+    (``sdf_density_concat.*``; ray mode only: the JAX package cannot build a
+    density cache for it).
+
+It raises only for a network the JAX package cannot run either.
+
+The kernels read the weight-normed layers as their effective weights
+``g·v/‖v‖``, computed once per pack (as ``WNLinear.forward`` computes
+them, so the same bits as the plain version's). The shipped kernel's
+layout (``pack_sdf_weights``): each hidden layer transposed ``[in][64]``
+with its units in the order ``q -> q//4 + 16·(q % 4)`` (a thread's 4 units
+are one float4), and of each last layer only row 0, the SDF. The general
+kernel's (``pack_general``): each layer transposed ``[K][N]`` over the
+rows it reads in shared memory, every width padded to a multiple of 4 with
+zero units; the note at the top of the CUDA source has the designs and
+their error budget.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..models import fields
@@ -55,37 +72,75 @@ KERNEL_GRID = {"coarse": (4, 8), "fine": (8, 4)}   # (levels, channels)
 KERNEL_MULTIRES = 6
 # points per chunk of the plain grid build (the build ran in 16 chunks)
 PLAIN_GRID_CHUNKS = 16
+# the general kernel: layers per network, and the ints of one network's
+# descriptor (n, n_pe, multires, L, C, d0, clamp, feat, divide_factor's
+# bits, then per layer K, N, skip and the weights' offset)
+MAX_LAYERS = 16
+DESC_HEAD = 9
+DESC_INTS = DESC_HEAD + 4 * MAX_LAYERS
 
 
 class SdfPack(NamedTuple):
     """What K6 reads of the SDF network, packed once per cache build or per
-    render: the grids' bf16 tables and, on a card, the packed weights."""
+    render: the grids' tables (bf16; fp32 for the concat variant) and, on a
+    card, the packed weights and (general and concat) the descriptor."""
 
     tables: Dict[str, torch.Tensor]        # fields.pack_combine_tables
-    weights: Optional[torch.Tensor]        # pack_sdf_weights (None on the CPU)
+    weights: Optional[torch.Tensor]        # None on the CPU
+    variant: str = "shipped"               # check_sdf_network
+    desc: Optional[np.ndarray] = None      # int32 [2, DESC_INTS] (pack_general)
 
 
-def check_sdf_network(cfg: fields.CombineConfig) -> None:
-    """Raise ValueError unless the kernel serves this SDF network."""
+def _is_shipped(cfg: fields.CombineConfig) -> bool:
     for name in ("coarse", "fine"):
         c = getattr(cfg, name)
-        dims = c.layer_dims
-        hidden = dims[1:-1]
+        hidden = c.layer_dims[1:-1]
         L, C = KERNEL_GRID[name]
-        ok = (c.d_in == 3 and not c.skip_in and c.multires == KERNEL_MULTIRES
-              and c.use_grid_feature and not (c.clamp and name == "fine")
-              and c.divide_factor == 1.0 and c.num_levels == L and c.level_dim == C
-              and len(hidden) == KERNEL_HIDDEN[name]
-              and all(h == KERNEL_WIDTH for h in hidden))
-        if not ok:
-            raise ValueError(
-                f"sdf_density kernel serves the shipped SDF network only; got the "
-                f"{name} network with layer dims {dims}, skip_in {c.skip_in}, "
-                f"multires {c.multires}, grid {c.num_levels} x {c.level_dim} "
-                f"(features {c.use_grid_feature}), divide_factor {c.divide_factor}, "
-                f"clamp {c.clamp}; expected {KERNEL_HIDDEN[name]} hidden layers of "
-                f"{KERNEL_WIDTH}, no skip_in, multires {KERNEL_MULTIRES}, grid "
-                f"{L} x {C}, divide_factor 1, no clamp")
+        if not (not c.skip_in and c.multires == KERNEL_MULTIRES and c.use_grid_feature
+                and not (c.clamp and name == "fine") and not c.concat_coarse_feature
+                and c.divide_factor == 1.0 and c.num_levels == L and c.level_dim == C
+                and len(hidden) == KERNEL_HIDDEN[name]
+                and all(h == KERNEL_WIDTH for h in hidden)):
+            return False
+    return True
+
+
+def check_sdf_network(cfg: fields.CombineConfig) -> str:
+    """The K6 variant for this SDF network: ``shipped`` (the kernel
+    compiled for every shipped configuration's network), ``general`` (any
+    other) or ``concat`` (concat_coarse_feature, fp32 tables). Raises
+    ValueError only for a network the JAX package cannot run either."""
+    for name in ("coarse", "fine"):
+        c = getattr(cfg, name)
+        why = None
+        if c.d_in != 3:
+            why = f"d_in {c.d_in}: its grids and positional encoding take 3-d points"
+        elif 0 in c.skip_in:
+            why = "skip_in holds 0: the first layer's input would be twice its width"
+        elif any(c.layer_dims[l] - (c.layer_dims[0] if l in c.skip_in else 0) < 1
+                 for l in range(1, len(c.layer_dims))):
+            why = (f"layer dims {c.layer_dims} with skip_in {c.skip_in}: a layer before a "
+                   f"skip has no units left beside the {c.layer_dims[0]} input columns")
+        elif name == "coarse" and c.concat_coarse_feature:
+            why = "the coarse network has no coarse features to concatenate"
+        elif (c.use_grid_feature and c.level_dim % 2
+              and not cfg.fine.concat_coarse_feature):
+            why = (f"level_dim {c.level_dim} is odd: the packed bf16 encoder of its "
+                   f"prepass asserts an even level_dim (nicer_slam_tpu/ops/"
+                   f"hash_encoder.py:865)")
+        elif (name == "fine" and c.concat_coarse_feature
+              and cfg.coarse.layer_dims[-1] - 1 != c.feature_vector_size):
+            why = (f"the coarse network's {cfg.coarse.layer_dims[-1] - 1} feature rows "
+                   f"are not the {c.feature_vector_size} its first layer takes")
+        if why is not None:
+            raise ValueError(f"sdf_density: the {name} SDF network runs in neither "
+                             f"package: {why}")
+        if len(c.layer_dims) - 1 > MAX_LAYERS:
+            raise ValueError(f"sdf_density: the {name} SDF network has "
+                             f"{len(c.layer_dims) - 1} layers; the kernel takes {MAX_LAYERS}")
+    if cfg.fine.concat_coarse_feature:
+        return "concat"
+    return "shipped" if _is_shipped(cfg) else "general"
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +208,144 @@ def pack_sdf_weights(net: fields.CombineNet) -> torch.Tensor:
     return flat[_pack_index(dims, str(flat.device))]
 
 
+def _ceil4(v: int) -> int:
+    return (v + 3) // 4 * 4
+
+
+def _n_pe(c: fields.ImplicitNetConfig) -> int:
+    return 3 * (1 + 2 * c.multires) if c.multires > 0 else 3
+
+
+@functools.lru_cache(maxsize=16)
+def _general_layout(cfg: fields.CombineConfig):
+    """(index, desc): for each float of the general kernel's weights its
+    place in both networks' effective layers laid out naturally one after
+    the other (each W [out, in] row-major, then b), -1 for a zero; and the
+    descriptor int32 [2, DESC_INTS].
+
+    A network's input rows X are x and its positional encoding, the grid's
+    L·C features (none without use_grid_feature: those columns are zero)
+    and, for the fine network with concat, the coarse feature rows padded
+    to 4. Layer l reads K rows: X (l = 0), the previous layer's units padded
+    to 4, and after them X again where l is in skip_in. A hidden layer is
+    W [K][N] then b [N] (N its units padded to 4), the last the SDF row
+    [ceil4(K)] and its bias padded to 4, then, for the coarse network with
+    concat, its feature rows W [K][F4] and b [F4]."""
+    concat = cfg.fine.concat_coarse_feature
+    F = cfg.coarse.layer_dims[-1] - 1
+    F4 = _ceil4(F) if concat else 0
+    idx, desc = [], np.zeros((2, DESC_INTS), np.int32)
+    pos = base = 0
+    for i, name in enumerate(("coarse", "fine")):
+        c = getattr(cfg, name)
+        dims, n, n_pe = c.layer_dims, len(c.layer_dims) - 1, _n_pe(c)
+        LC = c.num_levels * c.level_dim
+        xmap = list(range(n_pe)) + (list(range(n_pe, n_pe + LC)) if c.use_grid_feature else [])
+        if name == "fine" and concat:
+            xmap += [n_pe + LC + f if f < F else -1 for f in range(F4)]
+        outs = [dims[l + 1] - (dims[0] if l + 1 in c.skip_in else 0) for l in range(n)]
+        desc[i, :DESC_HEAD] = [n, n_pe, max(c.multires, 0),
+                               c.num_levels if c.use_grid_feature else 0, c.level_dim,
+                               len(xmap), int(c.clamp and name == "fine"),
+                               F4 if name == "coarse" else 0,
+                               np.float32(c.divide_factor).view(np.int32)]
+        n_prev = 0
+        for l in range(n):
+            if l == 0:
+                imap = xmap
+            else:
+                imap = [j if j < outs[l - 1] else -1 for j in range(n_prev)]
+                if l in c.skip_in:
+                    imap += [outs[l - 1] + m if m >= 0 else -1 for m in xmap]
+            imap = np.asarray(imap, np.int64)[:, None]
+            K, k_in, w0 = len(imap), dims[l], base
+            b0 = base + outs[l] * k_in
+            desc[i, DESC_HEAD + l] = K
+            desc[i, DESC_HEAD + 2 * MAX_LAYERS + l] = int(l in c.skip_in)
+            desc[i, DESC_HEAD + 3 * MAX_LAYERS + l] = pos
+            if l < n - 1:
+                N = n_prev = _ceil4(outs[l])
+                desc[i, DESC_HEAD + MAX_LAYERS + l] = N
+                j = np.arange(N)[None, :]
+                idx += [np.where((imap >= 0) & (j < outs[l]), w0 + j * k_in + imap, -1),
+                        np.where(j[0] < outs[l], b0 + j[0], -1)]
+                pos += K * N + N
+            else:
+                row = np.full(_ceil4(K), -1, np.int64)
+                row[:K] = np.where(imap[:, 0] >= 0, w0 + imap[:, 0], -1)
+                idx += [row, np.array([b0, -1, -1, -1])]
+                pos += _ceil4(K) + 4
+                if name == "coarse" and concat:
+                    f = np.arange(F4)[None, :]
+                    idx += [np.where((imap >= 0) & (f < F), w0 + (1 + f) * k_in + imap, -1),
+                            np.where(f[0] < F, b0 + 1 + f[0], -1)]
+                    pos += K * F4 + F4
+            base += outs[l] * k_in + outs[l]
+    index = np.concatenate([a.reshape(-1) for a in idx])
+    assert index.size == pos
+    return np.where(index < 0, base, index), desc
+
+
+def pack_general(net: fields.CombineNet) -> Tuple[torch.Tensor, np.ndarray]:
+    """(weights, desc) of the general kernel: both networks' effective
+    weights in ``_general_layout``'s order (one concatenation and one
+    gather after the weight norms, a trailing 0 for the padding) and the
+    descriptor."""
+    index, desc = _general_layout(net.cfg)
+    flat = torch.cat([t.reshape(-1) for sub in (net.coarse, net.fine)
+                      for layer in effective_layers(sub) for t in layer]
+                     + [torch.zeros(1, device=net.coarse.encoding.device)])
+    return flat[torch.as_tensor(index, device=flat.device)], desc
+
+
+def _grid_input(c: fields.ImplicitNetConfig, spec, table: torch.Tensor, x: torch.Tensor):
+    """The grid features [N, L·C] the kernel reads: from a bf16 table (K3's
+    plain version) or an fp32 one (K2's)."""
+    xd = x / c.divide_factor
+    if table.dtype == torch.bfloat16:
+        return he.hash_encode_bf16_plain(spec, table, xd)
+    return he.hash_encode_plain(spec, table, xd)
+
+
+def sdf_general_reference(net: fields.CombineNet, tables: Dict[str, torch.Tensor],
+                          flat: torch.Tensor, desc: np.ndarray, x: torch.Tensor,
+                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The SDF [N] as the general kernel computes it from ``pack_general``'s
+    weights and descriptor (its rows, padding and skip layout), in ``dtype``
+    (float64: the reference the kernel's rounding is measured against)."""
+    total, feat = None, None
+    for i, name in enumerate(("coarse", "fine")):
+        sub, d = getattr(net, name), desc[i]
+        n, L, F4 = int(d[0]), int(d[3]), int(d[7])
+        parts = [positional_encoding(x, sub.cfg.multires)]
+        if L:
+            parts.append(_grid_input(sub.cfg, sub.spec, tables[name], x))
+        if feat is not None:
+            parts.append(feat)
+        X = torch.cat(parts, -1).to(dtype)
+        h = X
+        for l in range(n):
+            K, N, off = (int(d[DESC_HEAD + l]), int(d[DESC_HEAD + MAX_LAYERS + l]),
+                         int(d[DESC_HEAD + 3 * MAX_LAYERS + l]))
+            assert h.shape[1] == K
+            if l < n - 1:
+                w = flat[off:off + K * N].reshape(K, N).to(dtype)
+                h = softplus_beta100(h @ w + flat[off + K * N:off + K * N + N].to(dtype))
+                if d[DESC_HEAD + 2 * MAX_LAYERS + l + 1]:
+                    h = torch.cat([h, X], -1) / np.float32(np.sqrt(2.0))
+            else:
+                K4 = _ceil4(K)
+                s = h @ flat[off:off + K].to(dtype) + flat[off + K4].to(dtype)
+                if F4:
+                    o = off + K4 + 4
+                    feat = (h @ flat[o:o + K * F4].reshape(K, F4).to(dtype)
+                            + flat[o + K * F4:o + K * F4 + F4].to(dtype))
+        if d[6]:
+            s = torch.tanh(s.float()) * 0.05
+        total = s if total is None else total + s.to(total.dtype)
+    return total
+
+
 def sdf_packed_reference(net: fields.CombineNet, tables: Dict[str, torch.Tensor],
                          flat: torch.Tensor, x: torch.Tensor,
                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -205,14 +398,53 @@ def density_from_sdf(sdf: torch.Tensor, x: torch.Tensor, voxels: Optional[torch.
     return density_ops.laplace_density(sdf[:, None], b)[:, 0]
 
 
+@torch.no_grad()
+def sdf_plain(net: fields.CombineNet, tables: Dict[str, torch.Tensor],
+              x: torch.Tensor) -> torch.Tensor:
+    """The SDF [N] that K6 computes, rounded as its kernels round it: the
+    grids from ``tables`` (bf16, K3's plain version; fp32 with
+    concat_coarse_feature, K2's, as the JAX package's prepass reads
+    ``combine_sdf`` there), float32 hidden layers (the library's
+    products), each last layer's SDF row and the coarse + fine sum in
+    float64, rounded to float32 once (the fine clamp rounds the fine SDF to
+    float32 first). ``fields.combine_sdf_packed`` sums that row in float32:
+    a wide network's row then rounds past the 2e-5 of the largest density
+    that the density's slope leaves (a 256-wide last layer: 2.4e-5)."""
+    total, feat = None, None
+    for name in ("coarse", "fine"):
+        sub = getattr(net, name)
+        c = sub.cfg
+        grid = (_grid_input(c, sub.spec, tables[name], x) if c.use_grid_feature
+                else x.new_zeros((x.shape[0], c.grid_feature_dim)))
+        if feat is not None:
+            grid = torch.cat([grid, feat], -1)
+        inp = fields._mlp_input(sub, x, grid)
+        h = inp
+        for l, lin in enumerate(sub.lins[:-1]):
+            if l in c.skip_in:
+                h = torch.cat([h, inp], dim=-1) / np.sqrt(2.0)
+            h = softplus_beta100(lin(h))
+        if len(sub.lins) - 1 in c.skip_in:
+            h = torch.cat([h, inp], dim=-1) / np.sqrt(2.0)
+        w, b = effective_layers(sub)[-1]
+        s = h.double() @ w[0].double() + b[0].double()
+        if name == "coarse" and net.cfg.fine.concat_coarse_feature:
+            feat = h @ w[1:].T + b[1:]
+        if c.clamp and name == "fine":
+            s = (torch.tanh(s.float()) * 0.05).double()
+        total = s if total is None else total + s
+    return total.float()
+
+
+@torch.no_grad()
 def sdf_density_plain(net: fields.CombineNet, tables: Dict[str, torch.Tensor],
                       x: torch.Tensor, voxels: Optional[torch.Tensor],
                       beta: Optional[torch.Tensor] = None, beta_scale=None,
                       voxel_res: int = 64) -> torch.Tensor:
-    """Plain version of K6 at points x [N, 3]: the SDF from the bf16 tables
-    (K3) and the MLPs, then ``density_from_sdf``."""
-    sdf = fields.combine_sdf_packed(net, tables, x, "fine")
-    return density_from_sdf(sdf, x, voxels, beta, beta_scale, voxel_res)
+    """Plain version of K6 at points x [N, 3]: ``sdf_plain``, then
+    ``density_from_sdf``."""
+    return density_from_sdf(sdf_plain(net, tables, x), x, voxels, beta, beta_scale,
+                            voxel_res)
 
 
 def grid_points(xs: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
@@ -252,13 +484,32 @@ def density_rays_plain(net, tables, o, d, z, voxels, beta=None, beta_scale=None,
 # ---------------------------------------------------------------------------
 
 def pack_sdf(net: fields.CombineNet) -> SdfPack:
-    """The tables (K3's bf16) and, on a card, the packed weights; raises on
-    a card for a network the kernel does not serve."""
-    tables = fields.pack_combine_tables(net)
+    """The tables (K3's bf16; the fp32 tables themselves for the concat
+    variant) and, on a card, the variant's packed weights (and
+    descriptor); raises for a network the JAX package cannot run either."""
+    concat = net.cfg.fine.concat_coarse_feature
+    tables = ({n: getattr(net, n).encoding.detach() for n in ("coarse", "fine")}
+              if concat else fields.pack_combine_tables(net))
     if tables["coarse"].device.type == "cpu":
-        return SdfPack(tables, None)
-    check_sdf_network(net.cfg)
-    return SdfPack(tables, pack_sdf_weights(net))
+        return SdfPack(tables, None, "concat" if concat else "shipped")
+    variant = check_sdf_network(net.cfg)
+    if variant == "shipped":
+        return SdfPack(tables, pack_sdf_weights(net), variant)
+    weights, desc = pack_general(net)
+    return SdfPack(tables, weights, variant, desc)
+
+
+def general_plan(pack: SdfPack) -> Tuple[int, int, int]:
+    """(points per tile, shared-memory bytes, floats of weights held in
+    shared memory) that the general kernel takes for this pack on the
+    current card; (0, -1, 0) when its activations do not fit."""
+    tile, nbytes, w_smem = ctypes.c_int(), ctypes.c_int64(), ctypes.c_int()
+    rc = _cuda.library().nsl_sdf_density_general_plan(
+        np.ascontiguousarray(pack.desc, np.int32).ctypes.data, pack.weights.numel(),
+        ctypes.byref(tile), ctypes.byref(nbytes), ctypes.byref(w_smem))
+    if rc != 0:
+        raise RuntimeError(f"nsl_sdf_density_general_plan: CUDA error {rc}")
+    return tile.value, nbytes.value, w_smem.value
 
 
 @functools.lru_cache(maxsize=8)
@@ -278,18 +529,29 @@ def _scalar(v, dev, name: str) -> Optional[torch.Tensor]:
 
 def _launch(net, pack: SdfPack, N: int, out: torch.Tensor, voxels, beta, beta_scale,
             voxel_res: int, xs=None, res: int = 0, o=None, d=None, z=None, S: int = 0):
-    check_sdf_network(net.cfg)
+    variant = check_sdf_network(net.cfg)
+    if variant != pack.variant:
+        raise ValueError(f"sdf_density: a {pack.variant} pack for a {variant} network")
     dev = out.device
     if pack.weights is None:
         raise ValueError("sdf_density: the pack holds no weights (pack_sdf on the card)")
-    _cuda.check(pack.weights, "weights", torch.float32,
-                (packed_floats(net.cfg.coarse.layer_dims)
-                 + packed_floats(net.cfg.fine.layer_dims),), device=dev)
+    general = pack.variant != "shipped"
+    if general:
+        index, _ = _general_layout(net.cfg)
+        _cuda.check(pack.weights, "weights", torch.float32, (index.size,), device=dev)
+        if general_plan(pack)[0] == 0:
+            raise ValueError("sdf_density: the network's activations do not fit in the "
+                             "general kernel's shared memory at 32 points a tile")
+    else:
+        _cuda.check(pack.weights, "weights", torch.float32,
+                    (packed_floats(net.cfg.coarse.layer_dims)
+                     + packed_floats(net.cfg.fine.layer_dims),), device=dev)
+    tab_dtype = torch.float32 if pack.variant == "concat" else torch.bfloat16
     tabs = {}
     for name in ("coarse", "fine"):
         spec = getattr(net, name).spec
         t = pack.tables[name]
-        _cuda.check(t, f"table {name}", torch.bfloat16,
+        _cuda.check(t, f"table {name}", tab_dtype,
                     (spec.total_entries, spec.level_dim), device=dev)
         if t.data_ptr() % 16:
             raise ValueError(f"table {name}: the row loads need a 16-byte aligned table")
@@ -304,15 +566,21 @@ def _launch(net, pack: SdfPack, N: int, out: torch.Tensor, voxels, beta, beta_sc
             raise ValueError(f"voxel_res {voxel_res} exceeds the kernel's 32-bit index")
         _cuda.check(voxels, "voxels", torch.float32, (voxel_res,) * 3, device=dev)
     (tc, mc, sc), (tf, mf, sf) = tabs["coarse"], tabs["fine"]
-    _cuda.launch("sdf_density.grid" if xs is not None else "sdf_density.rays",
-                 "nsl_sdf_density", N, pack.weights.data_ptr(),
-                 tc.data_ptr(), mc.data_ptr(), sc.data_ptr(), tf.data_ptr(),
-                 mf.data_ptr(), sf.data_ptr(), _cuda.ptr(xs), res, _cuda.ptr(o),
-                 _cuda.ptr(d), _cuda.ptr(z), S,
-                 None if beta_t is not None else voxels.data_ptr(), voxel_res,
-                 density_ops.NEG_B_1E4, density_ops.BETA_D, density_ops.BETA_A,
-                 density_ops.BETA_C, _cuda.ptr(beta_t), _cuda.ptr(scale_t),
-                 out.data_ptr(), N)
+    mode = "grid" if xs is not None else "rays"
+    tail = (_cuda.ptr(xs), res, _cuda.ptr(o), _cuda.ptr(d), _cuda.ptr(z), S,
+            None if beta_t is not None else voxels.data_ptr(), voxel_res,
+            density_ops.NEG_B_1E4, density_ops.BETA_D, density_ops.BETA_A,
+            density_ops.BETA_C, _cuda.ptr(beta_t), _cuda.ptr(scale_t), out.data_ptr(), N)
+    grids = (tc.data_ptr(), mc.data_ptr(), sc.data_ptr(), tf.data_ptr(), mf.data_ptr(),
+             sf.data_ptr())
+    if general:
+        desc = np.ascontiguousarray(pack.desc, np.int32)
+        _cuda.launch(f"sdf_density_{pack.variant}.{mode}", "nsl_sdf_density_general", N,
+                     desc.ctypes.data, pack.weights.data_ptr(), pack.weights.numel(), *grids,
+                     int(pack.variant == "concat"), *tail)
+    else:
+        _cuda.launch(f"sdf_density.{mode}", "nsl_sdf_density", N, pack.weights.data_ptr(),
+                     *grids, *tail)
     return out
 
 
@@ -323,7 +591,12 @@ def density_grid(net: fields.CombineNet, pack: SdfPack, res: int,
     """K6 grid mode: the density [res³] at every point of the
     ``linspace(-1, 1, res)³`` grid, flat index ``(i·res + j)·res + k``.
     ``beta`` (volsdf_laplace's learned β) or else ``voxels``. Plain version
-    on CPU tables, one kernel launch on CUDA ones."""
+    on CPU tables, one kernel launch on CUDA ones. Not for
+    concat_coarse_feature (the JAX package's ``build_density_cache`` fails
+    there with a shape error in ``combine_sdf_packed``)."""
+    if net.cfg.fine.concat_coarse_feature:
+        raise ValueError("density_grid: concat_coarse_feature has no density cache (the JAX "
+                         "package's build_density_cache fails there with a shape error)")
     if not _cuda.on_card("density_grid", pack.tables["coarse"]):
         return density_grid_plain(net, pack.tables, res, voxels, beta, beta_scale, voxel_res)
     dev = pack.tables["coarse"].device

@@ -3,7 +3,7 @@
 
   checkpoints/ModelParameters/latest.npz      model_state_dict/<param path>,
                                               voxels, frame_idx
-  checkpoints/OptimizerParameters/latest.npz  this package's own layout
+  checkpoints/OptimizerParameters/latest.npz  leaf_<i>, keypaths, frame_idx
   checkpoints/PoseParameters/latest.npz       est_keys, est_poses, gt_poses,
                                               frame_idx
 
@@ -13,17 +13,29 @@ the module's state_dict keys with '.' replaced by '/'. The hash-grid tables
 (``.../encoding``) are ``[T, C]`` in this package and ``[C, T]`` in the
 files, as the JAX package holds them: ``jax_layout``/``port_layout``
 transpose at this boundary, for the model file and the Adam moments alike.
-The optimizer file holds torch Adam state keyed by the same paths; reading
-the JAX package's optax state is not supported.
+
+The optimizer file is the JAX package's too: the leaves of its optax state
+(``optax.multi_transform`` over ``state.ADAM_GROUPS`` and the frozen
+group) in jax's flatten order as ``leaf_<i>``, and ``keypaths``, the
+strings ``jax.tree_util.keystr`` gives them (``_opt_state_keypaths``). Per
+group, in name order: its Adam ``count`` (int32), then ``mu`` and ``nu``
+over the group's parameters in the tree's order (dict keys sorted, lists
+by index); the frozen group keeps no state, and an Adam group without
+parameters keeps its count. A torch Adam group is the same Adam (every
+parameter steps on every update, ``state.fill_missing_grads``), so its
+parameters' ``step`` is the group's count. Files of the port's earlier
+layout (``<param path>/{step,exp_avg,exp_avg_sq}``) still load.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from .state import ADAM_GROUPS
 
 _PREFIX = "model_state_dict/"
 
@@ -97,26 +109,84 @@ def _param_paths(model: torch.nn.Module, optimizer: torch.optim.Optimizer):
     return [(names[id(p)], p) for g in optimizer.param_groups for p in g["params"]]
 
 
+def _tree_key(path: str):
+    """Sort key of a param path in jax's flatten order: dict keys as
+    strings, list indices as numbers."""
+    return tuple((0, int(c), "") if c.isdigit() else (1, 0, c) for c in path.split("/"))
+
+
+def keystr(path: str) -> str:
+    """``jax.tree_util.keystr`` of a param path: ``implicit/coarse/lins/0/v``
+    -> ``['implicit']['coarse']['lins'][0]['v']``."""
+    return "".join(f"[{c}]" if c.isdigit() else f"['{c}']" for c in path.split("/"))
+
+
+def optax_layout(model: torch.nn.Module, optimizer: torch.optim.Optimizer
+                 ) -> List[Tuple[str, str, str, object]]:
+    """The JAX package's optimizer state, leaf by leaf in its flatten
+    order: (keypath, group, field, param) with field ``count`` (param None),
+    ``mu`` or ``nu`` (param: (path, tensor))."""
+    names = {id(p): n.replace(".", "/") for n, p in model.named_parameters()}
+    by_group = {g.get("name"): [(names[id(p)], p) for p in g["params"]]
+                for g in optimizer.param_groups}
+    unknown = set(by_group) - set(ADAM_GROUPS)
+    if unknown:
+        raise ValueError(f"optimizer groups {sorted(unknown)} are not the JAX package's "
+                         f"{ADAM_GROUPS}")
+    out = []
+    for group in sorted(ADAM_GROUPS):
+        pre = f".inner_states['{group}'].inner_state[0]"
+        out.append((f"{pre}.count", group, "count", None))
+        params = sorted(by_group.get(group, []), key=lambda t: _tree_key(t[0]))
+        for field in ("mu", "nu"):
+            out += [(f"{pre}.{field}{keystr(path)}", group, field, (path, p))
+                    for path, p in params]
+    return out
+
+
+def _count(optimizer: torch.optim.Optimizer) -> int:
+    """Adam updates taken: every group's count, since every parameter steps
+    on every update."""
+    steps = {int(st["step"]) for st in optimizer.state.values() if "step" in st}
+    if len(steps) > 1:
+        raise ValueError(f"Adam groups at different step counts {sorted(steps)}: the JAX "
+                         f"package's optax state keeps one count per group, all equal")
+    return steps.pop() if steps else 0
+
+
 def save_optimizer(path_dir: str, model: torch.nn.Module,
                    optimizer: torch.optim.Optimizer, frame_idx: int):
+    """The Adam state in the JAX package's optax layout (``leaf_<i>``,
+    ``keypaths``, ``frame_idx``)."""
     os.makedirs(path_dir, exist_ok=True)
-    flat = {"frame_idx": np.asarray(frame_idx)}
-    for name, p in _param_paths(model, optimizer):
-        for k, v in optimizer.state.get(p, {}).items():
-            flat[f"{name}/{k}"] = (np.asarray(v) if not torch.is_tensor(v)
-                                   else v.detach().cpu().numpy() if k == "step"
-                                   else jax_layout(name, v))
+    count = _count(optimizer)
+    flat, keys = {}, []
+    for i, (key, _, field, param) in enumerate(optax_layout(model, optimizer)):
+        keys.append(key)
+        if field == "count":
+            flat[f"leaf_{i}"] = np.asarray(count, np.int32)
+            continue
+        path, p = param
+        st = optimizer.state.get(p, {})
+        moment = st.get("exp_avg" if field == "mu" else "exp_avg_sq")
+        flat[f"leaf_{i}"] = (jax_layout(path, moment) if moment is not None
+                             else jax_layout(path, torch.zeros_like(p)))
+    flat["frame_idx"] = np.asarray(frame_idx)
+    flat["keypaths"] = np.asarray(keys)
     np.savez(os.path.join(path_dir, "latest.npz"), **flat)
 
 
 def load_optimizer(path_dir: str, model: torch.nn.Module,
-                   optimizer: torch.optim.Optimizer, checkpoint: str = "latest") -> bool:
-    """Restore Adam state written by save_optimizer. Returns False, leaving
-    the optimizer fresh, for a file in the JAX package's optax layout."""
+                   optimizer: torch.optim.Optimizer, checkpoint: str = "latest") -> None:
+    """Restore Adam state from a file in the JAX package's optax layout
+    (either package's), or in the port's earlier layout. Raises
+    ValueError, as the JAX package's reader does, when the saved keypaths
+    or a leaf's shape differ from this optimizer's."""
     with np.load(os.path.join(path_dir, f"{checkpoint}.npz")) as data:
         flat = {k: data[k] for k in data.files}
     if "keypaths" in flat:
-        return False
+        _load_optax(flat, model, optimizer)
+        return
     for name, p in _param_paths(model, optimizer):
         keys = [k for k in flat if k.startswith(name + "/")]
         if not keys:
@@ -131,7 +201,38 @@ def load_optimizer(path_dir: str, model: torch.nn.Module,
                                  f"!= {tuple(p.shape)}")
             state[field] = v.to(p.device) if field != "step" else v.to(torch.float32)
         optimizer.state[p] = state
-    return True
+
+
+def _load_optax(flat: Dict[str, np.ndarray], model: torch.nn.Module,
+                optimizer: torch.optim.Optimizer) -> None:
+    layout = optax_layout(model, optimizer)
+    saved = [str(k) for k in flat["keypaths"]]
+    current = [key for key, *_ in layout]
+    if saved != current:
+        first = next((f"{a} != {b}" for a, b in zip(saved, current) if a != b), "leaf count")
+        raise ValueError(
+            "optimizer checkpoint structure mismatch (optimizer config or param tree "
+            "changed since save); refusing to restore misaligned Adam state. saved "
+            f"{len(saved)} leaves vs current {len(current)}; first difference: {first}")
+    counts, moments = {}, {}
+    for i, (key, group, field, param) in enumerate(layout):
+        leaf = flat[f"leaf_{i}"]
+        if field == "count":
+            counts[group] = int(leaf)
+            continue
+        path, p = param
+        want = tuple(p.shape[::-1]) if _is_table(path) else tuple(p.shape)
+        if tuple(leaf.shape) != want:
+            raise ValueError(f"optimizer checkpoint leaf_{i} ({key}) shape {leaf.shape} != "
+                             f"expected {want}")
+        st = moments.setdefault(p, {"step": group})
+        st["exp_avg" if field == "mu" else "exp_avg_sq"] = port_layout(path, leaf).to(p.device)
+    for p, st in moments.items():
+        count = counts[st["step"]]
+        if count > 0:
+            optimizer.state[p] = dict(st, step=torch.tensor(float(count), dtype=torch.float32))
+        else:
+            optimizer.state.pop(p, None)
 
 
 def save_poses(path_dir: str, est_pose_all: Dict[int, np.ndarray],

@@ -284,10 +284,8 @@ class SLAMRunner:
         voxels, self.start_frame_idx = ckpt.load_model(mp, self.model, checkpoint)
         self.voxels = torch.from_numpy(voxels).to(self.device)
         op = os.path.join(self.checkpoints_path, "OptimizerParameters")
-        if (os.path.exists(os.path.join(op, f"{checkpoint}.npz"))
-                and not ckpt.load_optimizer(op, self.model, self.optimizer, checkpoint)):
-            self.log("[warn] optimizer checkpoint is in the JAX package's layout; "
-                     "resuming with a fresh Adam state")
+        if os.path.exists(os.path.join(op, f"{checkpoint}.npz")):
+            ckpt.load_optimizer(op, self.model, self.optimizer, checkpoint)
         est, _, _ = ckpt.load_poses(os.path.join(self.checkpoints_path, "PoseParameters"),
                                     checkpoint)
         self.est_pose_all.update(est)

@@ -35,6 +35,13 @@ import torch
 from ..models.scene_model import SceneModel
 
 
+# the Adam groups of the JAX package's optax.multi_transform (its
+# make_optimizer); its seventh, set_to_zero for the frozen parameters (the
+# fine MLP, the per-image or exposure codes), keeps no state
+ADAM_GROUPS = ("fine_grid", "coarse_grid", "color_grid", "color_mlp", "coarse_mlp",
+               "density")
+
+
 class OptimConfig(NamedTuple):
     learning_rate: float = 0.002
     learning_rate_beta: float = 2.0e-3

@@ -29,6 +29,7 @@ from hypothesis import strategies as st
 
 from nicer_slam_tpu.ops import volume_rendering as jvr
 from nicer_slam_tpu_torch.ops import volume_rendering as tvr
+from _torch_threads import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 

@@ -29,6 +29,7 @@ import os
 
 import numpy as np
 import pytest
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEEDS = (0, 1)

@@ -27,6 +27,7 @@ from nicer_slam_tpu_torch.slam.checkpoint import (jax_layout, params_from_numpy,
                                                  params_to_numpy)
 
 import _torch_tiny
+from _torch_threads import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 

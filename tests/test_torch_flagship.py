@@ -49,6 +49,7 @@ from nicer_slam_tpu_torch.utils import plots as tplots
 import _torch_tiny
 from test_torch_hash_encoder import SPECS
 from test_torch_ops import _match_all_but_one
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T = torch.from_numpy

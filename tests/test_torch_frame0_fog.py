@@ -23,6 +23,7 @@ import pytest
 import torch
 
 import _torch_tiny
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W = 24, 32

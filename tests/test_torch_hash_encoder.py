@@ -21,6 +21,7 @@ import torch
 from nicer_slam_tpu.ops import hash_encoder as jhe
 from nicer_slam_tpu_torch.ops import hash_encoder as the
 from nicer_slam_tpu_torch.slam.checkpoint import jax_layout, port_layout
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SPECS = {
     # fractional per-level scale (allocator vs kernel resolution), all dense
@@ -40,6 +41,12 @@ SPECS = {
     # its big-grid sorted-backward path here (the color grid's)
     "big_c2": dict(num_levels=2, level_dim=2, base_resolution=48,
                    log2_hashmap_size=21, desired_resolution=160),
+    # channel counts no shipped grid has (K1/K2 take 1 to 8): odd, and even
+    # but not a multiple of 4
+    "hashed_c3": dict(num_levels=3, level_dim=3, base_resolution=16,
+                      log2_hashmap_size=10, desired_resolution=64),
+    "mixed_c6": dict(num_levels=3, level_dim=6, base_resolution=8,
+                     log2_hashmap_size=12, desired_resolution=16),
 }
 
 
@@ -95,7 +102,8 @@ def test_hash_encode_matches_jax(name):
     assert oob.any() and np.all(f_t.detach().numpy()[oob] == 0)
 
 
-@pytest.mark.parametrize("name", ["dense_c4", "mixed_c4", "dense_c8", "hashed_c2"])
+@pytest.mark.parametrize("name", ["dense_c4", "mixed_c4", "dense_c8", "hashed_c2",
+                                  "hashed_c3", "mixed_c6"])
 def test_hash_encode_with_grad_matches_jax(name):
     spec_j, spec_t, table, x, g_feat, g_dfeat = _inputs(name)
     (f_j, d_j), vjp = jax.vjp(lambda e, xx: jhe.hash_encode_with_grad(spec_j, e, xx),
@@ -149,6 +157,22 @@ def test_hash_index_uint32_wrap():
         ^ (c[..., 2] * np.uint32(805459861))
     size = spec.offsets[3] - spec.offsets[2]
     np.testing.assert_array_equal(got, want % np.uint32(size) + spec.offsets[2])
+
+
+@pytest.mark.parametrize("L,C,bf16,ok", [
+    (32, 8, False, True), (16, 1, False, True), (8, 3, False, True), (4, 7, False, True),
+    (2, 9, False, False), (33, 2, False, False), (8, 6, True, False), (8, 4, True, True)])
+def test_kernel_spec_limits(L, C, bf16, ok):
+    """K1/K2 take C from 1 to 8 and at most 32 levels (a warp per level, a
+    level's channels one row of its shared-memory tiles); K3 takes C 2, 4,
+    8."""
+    spec = the.make_spec(input_dim=3, num_levels=L, level_dim=C, base_resolution=8,
+                         log2_hashmap_size=10, desired_resolution=64)
+    if ok:
+        the._check_spec(spec, bf16=bf16)
+    else:
+        with pytest.raises(ValueError, match="kernel supports"):
+            the._check_spec(spec, bf16=bf16)
 
 
 def test_cuda_wrapper_rejects_other_devices():

@@ -35,6 +35,7 @@ from nicer_slam_tpu_torch.ops import volume_rendering as tvr
 from nicer_slam_tpu_torch.utils import camera as tcam
 
 from _torch_draws import render_draws
+from _torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 T = torch.from_numpy

@@ -39,6 +39,7 @@ from nicer_slam_tpu_torch.slam.checkpoint import jax_layout
 import _torch_draws
 import _torch_tiny
 from test_torch_ops import _match_all_but_one
+from _torch_threads import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 
@@ -378,12 +379,59 @@ def test_combinations_the_jax_package_cannot_run_raise(mode, per_image, exposure
                              image_indices=jnp.zeros(4, jnp.int32), color_stage="highfreq")
 
 
-def test_concat_coarse_feature_stays_refused():
-    text = _torch_tiny.MODEL_CONF.replace(
+def concat_text() -> str:
+    """The shrunk model with concat_coarse_feature on the fine network and
+    the exact prepass."""
+    text = _torch_tiny.MODEL_CONF.replace("prepass_mode = cached", "prepass_mode = exact").replace(
         "use_grid_feature = true\n            base_size = 8  end_size = 32",
         "use_grid_feature = true  concat_coarse_feature = true\n"
         "            base_size = 8  end_size = 32")
     assert "concat_coarse_feature = true" in text
-    c = jconfig.parse_string(text).get_config("model")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsm.scene_config_from_conf(c, (H, W), N_IMAGES)
+    return text
+
+
+def test_concat_coarse_feature_stays_refused():
+    """concat_coarse_feature is no longer refused: the port's
+    ``combine_get_outputs`` (sdf, features, dSDF/dx through the coarse
+    features' Jacobian) is the JAX package's ``combine_get_outputs_vjp``,
+    and so are the parameter gradients of a loss over all three (the
+    eikonal term's second order included), to the color network's
+    tolerance; the cached prepass raises a ValueError (the JAX package's
+    build_density_cache fails there with a shape error)."""
+    c = jconfig.parse_string(concat_text()).get_config("model")
+    tcfg = tsm.scene_config_from_conf(c, (H, W), N_IMAGES)
+    jcfg = jsm.scene_config_from_conf(c, (H, W), N_IMAGES)
+    assert tcfg.combine.fine.concat_coarse_feature
+    assert tcfg.combine.fine.layer_dims == jcfg.combine.fine.layer_dims
+    jparams, model = _torch_tiny.models(jcfg, tcfg)
+    g = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for name in ("coarse", "fine"):
+            enc = getattr(model.implicit, name).encoding
+            enc.copy_(torch.rand(enc.shape, generator=g) * 0.1 - 0.05)
+            jparams["implicit"][name]["encoding"] = jnp.asarray(enc.numpy().T)
+    rng = np.random.default_rng(3)
+    x = rng.uniform(-0.9, 0.9, (256, 3)).astype(np.float32)
+    wf = rng.standard_normal((256, 8)).astype(np.float32)
+
+    def jloss(p):
+        sdf, feat, grad = jf.combine_get_outputs_vjp(jcfg.combine, p, jnp.asarray(x))
+        eik = ((jnp.linalg.norm(grad, axis=-1) - 1.0) ** 2).mean()
+        return sdf.sum() + (feat * wf).sum() + eik, (sdf, feat, grad)
+
+    (_, (sdf_j, feat_j, grad_j)), gj = jax.value_and_grad(jloss, has_aux=True)(
+        jparams["implicit"])
+    sdf_t, feat_t, grad_t = tf.combine_get_outputs(model.implicit, T(x))
+    eik = ((grad_t.norm(dim=-1) - 1.0) ** 2).mean()
+    (sdf_t.sum() + (feat_t * T(wf)).sum() + eik).backward()
+    for a, b in ((sdf_t, sdf_j), (feat_t, feat_j), (grad_t, grad_j)):
+        _close(a.detach().numpy(), np.asarray(b))
+    flat_j = _flatten_pytree(gj)
+    for name, p in model.implicit.named_parameters():
+        path = name.replace(".", "/")
+        _close(jax_layout(path, p.grad), flat_j[path])
+    with pytest.raises(ValueError, match="build_density_cache"):
+        tsm.scene_config_from_conf(
+            jconfig.parse_string(concat_text().replace("prepass_mode = exact",
+                                                       "prepass_mode = cached")
+                                 ).get_config("model"), (H, W), N_IMAGES)

@@ -31,6 +31,7 @@ from nicer_slam_tpu_torch.slam.checkpoint import params_from_numpy, params_to_nu
 from test_slam_e2e import TINY_CONF
 from test_torch_options import BETA_SCALE, options_configs
 from test_torch_slice import _map_step_case, _track_frame_case, scene  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_exact_map_step_with_ssim_patches_and_exposure_matches_jax(scene):  # noqa: F811

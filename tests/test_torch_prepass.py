@@ -13,8 +13,11 @@ in Python: the weight packer, the grid index map and the shape check.
     kernel's layer order from them reproduces ``combine_sdf_packed`` within
     1e-6 (float32 sums in another order; SDF values up to ~1.5);
   * the grid index map reproduces meshgrid's rows bit for bit;
-  * the shape check refuses what the kernel does not serve and passes
-    every shipped configuration.
+  * the selector (``check_sdf_network``) takes every shipped
+    configuration to the shipped kernel and the networks it refused before
+    the general kernel to the general one, whose plain density is the JAX
+    package's (tests/test_torch_sdf_general.py holds the general kernel's
+    packer and selector over more shapes).
 """
 
 import glob
@@ -27,12 +30,14 @@ import torch
 
 from nicer_slam_tpu.models import fields as jf
 from nicer_slam_tpu.models import scene_model as jsm
+from nicer_slam_tpu.ops import density as jdens
 from nicer_slam_tpu_torch.config import parse_file
 from nicer_slam_tpu_torch.models import fields as tf
 from nicer_slam_tpu_torch.models import scene_model as tsm
 from nicer_slam_tpu_torch.ops import sdf_density as sd
 
 import _torch_tiny
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T = torch.from_numpy
@@ -216,14 +221,44 @@ def _shipped_combine_cfg():
                                        m.get_int("feature_vector_size"))
 
 
-@pytest.mark.parametrize("edits,match", [
-    (dict(dims=(64, 64, 64, 64), skip_in=(2,)), "skip_in"),
-    (dict(dims=(64, 32, 64)), r"layer dims \(71, 64, 32, 64, 65\)"),
-    (dict(dims=(64, 64, 64, 64)), r"layer dims \(71, 64, 64, 64, 64, 65\)"),
-])
-def test_shape_check_raises(edits, match):
-    with pytest.raises(ValueError, match=match):
-        sd.check_sdf_network(_combine_cfg(**edits))
+@pytest.mark.parametrize("edits", [
+    dict(dims=(128, 128, 128, 128), skip_in=(2,)),
+    dict(dims=(64, 32, 64)),
+    dict(dims=(64, 64, 64, 64)),
+], ids=["edits0-skip_in", r"edits1-layer dims \(71, 64, 32, 64, 65\)",
+        r"edits2-layer dims \(71, 64, 64, 64, 64, 65\)"])
+def test_shape_check_raises(edits):
+    """The networks the shape check refused before the general kernel (a
+    skip, other widths, more layers on the flagship's fine network; the
+    skip at width 128, since at 64 its layer 1 would have 64 - 71 units in
+    either package, which the selector refuses): the
+    selector now takes them to the general kernel, and raises for none; the
+    plain density of the exact prepass at their points is the JAX
+    package's within DENSITY_RTOL of the largest."""
+    cfg = _combine_cfg(**edits)
+    assert sd.check_sdf_network(cfg) == "general"
+    jbase = _shipped_combine_cfg_jax()
+    jcfg = jbase._replace(fine=jbase.fine._replace(**edits))
+    net = tf.CombineNet(cfg, np.random.default_rng(0))
+    jparams = jf.init_combine(np.random.default_rng(0), jcfg)
+    rng = np.random.default_rng(8)
+    x = rng.uniform(-1.0, 1.0, (1500, 3)).astype(np.float32)
+    vox = rng.integers(0, 50, (64, 64, 64)).astype(np.float32)
+    sdf = jf.combine_sdf_packed(jcfg, jparams, jf.pack_combine_tables(jcfg, jparams),
+                                jnp.asarray(x), "fine")
+    want = np.asarray(jdens.laplace_density(
+        sdf[:, None], jdens.grid_predefined_beta(jnp.asarray(vox), jnp.asarray(x), 64))[:, 0])
+    pack = sd.pack_sdf(net)
+    got = sd.sdf_density_plain(net, pack.tables, T(x), T(vox)).numpy()
+    _close_density(got, want)
+
+
+def _shipped_combine_cfg_jax():
+    from nicer_slam_tpu import config as jconfig
+    c = jconfig.parse_file(os.path.join(REPO, "confs", "replica", "runconf_replica_2.conf"))
+    m = c.get_config("model")
+    return jf.combine_config_from_conf(m.get_config("implicit_network"),
+                                       m.get_int("feature_vector_size"))
 
 
 def test_shape_check_passes_every_shipped_conf():

@@ -47,6 +47,7 @@ from nicer_slam_tpu_torch.ops import tsdf as ttsdf
 from nicer_slam_tpu_torch.preprocess import extract_flows as tflows
 from nicer_slam_tpu_torch.preprocess import extract_monocular_cues as tcues
 from nicer_slam_tpu_torch.preprocess import tsdf_fusion as tfusion
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MONO_PRIOR = os.path.join(REPO, "mono_prior.npz")

@@ -34,6 +34,7 @@ from nicer_slam_tpu_torch.preprocess import replica_2_volsdf as treplica
 from nicer_slam_tpu_torch.preprocess import replica_eval_2_volsdf as treplica_eval
 from nicer_slam_tpu_torch.preprocess import sevenscenes_2_volsdf as tseven
 from nicer_slam_tpu_torch.utils.ply import write_ply
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD_SCALE = 3.0

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from nicer_slam_tpu_torch.models import losses as tl
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "nicer_slam_tpu_torch")

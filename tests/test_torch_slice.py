@@ -43,6 +43,7 @@ import _torch_draws
 import _torch_tiny
 from test_slam_e2e import FLOW_REGIME_EXTRA, TINY_CONF
 from test_torch_ops import _blocked_cache
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W = 24, 32

@@ -35,6 +35,7 @@ from nicer_slam_tpu_torch.slam import state as tstate
 from nicer_slam_tpu_torch.utils import ply as tply
 
 import _torch_tiny
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "nicer_slam_tpu_torch")
@@ -251,11 +252,13 @@ def test_adam_state_files_keep_the_jax_layout(tmp_path):
     tckpt.save_optimizer(str(tmp_path), model, opt, 3)
     enc = model.render.encoding
     with np.load(tmp_path / "latest.npz") as d:
-        saved = d["render/encoding/exp_avg"]
+        keys = [str(k) for k in d["keypaths"]]
+        mu = ".inner_states['color_grid'].inner_state[0].mu['render']['encoding']"
+        saved = d[f"leaf_{keys.index(mu)}"]
     assert saved.shape == tuple(enc.shape)[::-1]
     np.testing.assert_array_equal(saved, opt.state[enc]["exp_avg"].numpy().T)
     fresh = tstate.make_optimizer(tstate.OptimConfig(), model)
-    assert tckpt.load_optimizer(str(tmp_path), model, fresh)
+    tckpt.load_optimizer(str(tmp_path), model, fresh)
     for p in model.parameters():
         if p in opt.state:
             for k, v in opt.state[p].items():
@@ -288,6 +291,27 @@ def test_preprocess_clis_run_without_the_jax_package():
     helps = out.stdout.split("usage:")[1:]
     assert len(helps) == 2 and "--dataset_folder" in helps[0] and "--scan_dir" in helps[1]
     assert all("--device" in h for h in helps)
+
+
+def test_training_tool_clis_run_without_the_jax_package():
+    """``python -m ...training.pretrain --help`` and
+    ``...training.train_mono_prior --help`` in one process that never
+    imports jax or nicer_slam_tpu: the JAX tools' flags, and --device."""
+    code = _CLI_HELP.replace('"nicer_slam_tpu_torch.preprocess.replica_2_volsdf"',
+                             '"nicer_slam_tpu_torch.training.pretrain"').replace(
+        '"nicer_slam_tpu_torch.preprocess.tsdf_fusion"',
+        '"nicer_slam_tpu_torch.training.train_mono_prior"')
+    assert code != _CLI_HELP
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]
+    helps = out.stdout.split("usage:")[1:]
+    assert len(helps) == 2
+    assert all(f in helps[0] for f in ("--out", "--steps", "--batch", "--lr", "--conf",
+                                       "--cpu", "--device"))
+    assert all(f in helps[1] for f in ("--steps", "--n-scenes", "--frames-per-scene", "--H",
+                                       "--W", "--batch", "--lr", "--out", "--device"))
 
 
 @pytest.mark.parametrize("module", ["common", "colmap", "extract_monocular_cues",

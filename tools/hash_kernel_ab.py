@@ -63,7 +63,10 @@ ENTRIES = ("nsl_hash_encode_fwd", "nsl_hash_encode_bwd", "nsl_hash_encode_bf16_f
            "nsl_importance_sample", "nsl_importance_sample_given", "nsl_weights_topk_fwd",
            "nsl_composite_fwd", "nsl_composite_bwd", "nsl_topk_rgb_fwd", "nsl_topk_rgb_bwd", "nsl_voxel_scatter",
            "nsl_voxel_beta")
-SOURCES = ("hash_encoder.cu", "sampler.cu", "composite.cu", "voxels.cu")
+# (hash_encoder_channels.cu, the K1/K2 channel counts other than 2, 4, 8,
+# where the tree has it)
+SOURCES = ("hash_encoder.cu", "hash_encoder_channels.cu", "sampler.cu", "composite.cu",
+           "voxels.cu")
 
 
 def build_other(other: str) -> ctypes.CDLL:
@@ -74,7 +77,7 @@ def build_other(other: str) -> ctypes.CDLL:
     src = os.path.join(os.path.abspath(other), "nicer_slam_tpu_torch", "csrc")
     cmd = [_cuda.nvcc_path(), *_cuda.ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
            "-fPIC", "-shared", "-o", lib,
-           *(os.path.join(src, f) for f in SOURCES)]
+           *(os.path.join(src, f) for f in SOURCES if os.path.exists(os.path.join(src, f)))]
     subprocess.run(cmd, check=True)
     dll = ctypes.CDLL(lib)
     for name in ENTRIES:
