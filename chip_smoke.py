@@ -3,7 +3,16 @@
 
   python3 chip_smoke.py
 
-Phases, in order (any failure exits non-zero without the final line):
+Phases, in the order of their numbers (any failure exits non-zero
+without the final line); they run in that order except that phase 9's dry
+runs run right after phase 3, while the scans are written; phase 8 and
+then phase 9's sweep run in a child process beside phases 5b to 7; and
+phase 10 runs in a background process beside phases 5b to 9. The times
+of those phases (seconds, s/frame, ms per iteration) are therefore taken
+on a card and host they share with other work: the report marks them
+"contended", and they do not compare with a run of the phase alone. The
+kernels' times (phase 3) and the demo and flagship runs (phases 4 and 5)
+are taken with the card to themselves:
   1. card: require CUDA; print the card's name and power limit. Two
      synthetic scans start generating in the background (processes this
      script waits for): the demo scan (11 frames, 720x1280, flow) and the
@@ -51,7 +60,10 @@ Phases, in order (any failure exits non-zero without the final line):
      K6's general kernel on the networks of GENERAL_NETS (grid and ray
      mode) and an 8 x 256 skip network (a render chunk), its concat
      variant at flagship widths (2580 and 8192 x 640), K1/K2 at the
-     channel counts 1, 3, 5, 6, 7 (100,352 uniform points), and K9
+     channel counts 1, 3, 5, 6, 7 (100,352 uniform points), K1, K2 and K3
+     on grids beyond 32 levels or 8 channels (HASH_WIDE_CASES: 40 x 2,
+     16 x 16, 8 x 12 at a tracking iteration's 100,352 ray-ordered points),
+     and K9
      (tsdf.integrate: one 680x1200 frame into a 256³
      volume that already holds one, bit for bit). The plain versions of K1/K2 run once;
      the K1/K2 backward runs twice more and its table gradient must come
@@ -91,6 +103,13 @@ Phases, in order (any failure exits non-zero without the final line):
      flagship networks (K1 launched, the loss falls, the npz loads into a
      flagship runner) and training/train_mono_prior.py for 20 (finite,
      falling).
+  5d. wide grids: the flagship conf with a 16-level x 16-channel coarse
+     grid, a 40-level fine grid and a 40-level colour grid (2^22 rows a
+     level) for 3 frames through exp_runner (the general K6); it fails on
+     non-finite poses or losses, a grid of the run not wide, a path kernel
+     never launched (K1/K2 forward and backward among them: every grid of
+     the run is wide, so they launched only at wide shapes), or the shipped
+     K6 launched.
   6. eval: the port's checkpoint battery (evaluation/eval_checkpoint.py,
      its CLI's main) on the flagship run's directory, on the card: eval_cam
      (ATE, rotation drift), the mesh at 256³ against the analytic scene
@@ -125,15 +144,31 @@ Phases, in order (any failure exits non-zero without the final line):
      It fails on a non-finite output, a broken contract, K9 not launched
      once per frame, the mono prior or the classical flow off the CPU by
      more than its bound, or a frame-10 flow loss of 0.
-  9. report: per run, translation error against GT per frame, the loss
+  9. parallel: parallel.dryrun at the flagship's full widths (8192 rays,
+     its grids), 2 mapping iterations in the replicated and psum_bf16
+     modes, under NCCL at world size 1 and as two gloo ranks sharing the
+     card, the latter held against the one-process step (the JAX
+     package's multichip bounds, and psum_bf16's all-reduced colour-grid
+     gradient within 4e-2 of the largest; parallel/dryrun.compare); then
+     parallel.sweep on two scans with the demo networks, 6 frames each,
+     both on the card at once, each scene's poses equal to its solo
+     exp_runner run bit for bit.
+  10. long run: evaluation.long_seq_eval with the settings of the JAX
+     package's guarded long run (tools/r5f_queue.sh) for 50 frames at
+     120x160 (mesh battery at 128³); it fails on a non-finite ATE, a cut
+     run or a map with no surface, and prints frame 50's ATE beside the
+     JAX record's 0.0041.
+  11. report: per run, translation error against GT per frame, the loss
      terms of each mapping call's last iteration, launch counts, s/frame,
      ms per track and map iteration, the runner's phase times, peak memory;
      the final model checkpoint is read back and held against the model;
      vis/ must hold rendering_*.png and surface_*.ply. Then one JSON line
      with every kernel (launches by path: demo, flagship, options (both
      runs of phase 5b, vis hooks included), networks (phase 5c's runs and
-     pretrain), eval, and preprocess, which
-     counts phase 8's steps and its SLAM run), the
+     pretrain), eval, preprocess, which
+     counts phase 8's steps and its SLAM run, wide (phase 5d), parallel
+     (the dry runs' sharded steps over their ranks and the swept scenes'
+     processes) and long_run), the
      nvidia-smi line, and the result line.
 
 Float32 matmuls run without TF32 (set explicitly below). Runs repeat bit
@@ -202,6 +237,27 @@ PATHS = {
                           ("num_levels = 8\n            level_dim = 4\n",
                            "num_levels = 8\n            level_dim = 4\n"
                            "            concat_coarse_feature = true\n")]),
+    # the wide-grid phase: the flagship with grids beyond 32 levels or 8
+    # channels (the coarse SDF grid 16 levels x 16 channels, the fine one
+    # 40 levels x 2, the colour grid 40 levels at 2^22 rows a level; its
+    # channels are 2 in both packages), the free-space guard as in the
+    # flagship run; the non-shipped network runs the general K6
+    "wide": dict(conf=os.path.join(ROOT, "confs", "replica", "runconf_replica_2.conf"),
+                 H=680, W=1200, scan_id=2, data_dir='"../Datasets/processed/Replica"',
+                 n_images=2000,
+                 edits=[("    flow_weight = 0.001\n",
+                         "    flow_weight = 0.001\n    cam_freespace_w = 1.0\n"),
+                        ("num_levels = 4\n            level_dim = 8\n",
+                         "num_levels = 16\n            level_dim = 16\n"),
+                        ("num_levels = 8\n            level_dim = 4\n",
+                         "num_levels = 40\n            level_dim = 2\n"),
+                        ("per_image_code = false\n        use_grid_feature = true\n",
+                         "per_image_code = false\n        use_grid_feature = true\n"
+                         "        color_num_levels = 40\n        color_logmap = 22\n"),
+                        # the vis hook's mesh at 128³ (write_conf sets the
+                        # other runs' 256³, which took 52 s of the phase's
+                        # 105 s on these grids)
+                        ("resolution = 256", "resolution = 128")]),
     # then the demo networks with the nerf colour mode (no colour grid) and
     # per-image codes
     "nerf": dict(conf=os.path.join(ROOT, "confs", "runconf_demo_1.conf"), H=720, W=1280,
@@ -264,6 +320,15 @@ PATH_KERNELS["preprocess"] = PATH_KERNELS["demo"] + ("tsdf.integrate",)
 # the vis render only (the loop colours the top-16)
 PATH_KERNELS["options"] = tuple(k for k in PATH_KERNELS["flagship"]
                                 if k not in ("sdf_density.grid", "importance_sample"))
+# the wide-grid run: the flagship's kernels, K6's general variant in place
+# of the shipped one (cache builds and the vis render), and the wide grid
+# shapes through K1 (coarse 16 x 16, fine 40 x 2) and K2 (colour 40 x 2),
+# forward and backward
+PATH_KERNELS["wide"] = tuple(
+    {"sdf_density.grid": "sdf_density_general.grid",
+     "sdf_density.rays": "sdf_density_general.rays"}.get(k, k)
+    for k in PATH_KERNELS["flagship"])
+WIDE_FRAMES = 3
 # the options phase: frames of the flagship options run (mapping + BA at 0
 # and 5) and of the nerf run (mapping at 0)
 OPTIONS_FRAMES = 6
@@ -406,6 +471,16 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # ~1 ms of device clock cycles: longer than any wrapper's host time
 SLEEP_CYCLES = 2_000_000
+
+
+# what each overlapped phase shared the card and host with: its times are
+# contended and do not compare with a run of the phase alone
+CONTENDED = {
+    "dryrun": "contended: the host wrote the scans beside them",
+    "5b-7": "contended: phases 8, 9's sweep and 10 ran beside it",
+    "8-9": "contended: phases 5b to 7 and 10 ran beside it",
+    "10": "contended: phases 5b to 9 ran beside it",
+}
 
 
 def log(*a):
@@ -688,8 +763,9 @@ def check_hash_case(dev, chk: Checks, g, spec, table, jac: bool, x, tag: str):
     torch.cuda.empty_cache()
 
 
-# K1 and K2 at the channel counts no shipped grid has (the kernels take C
-# from 1 to 8 and L <= 32; the shipped grids are C 8, 4, 2):
+# K1 and K2 at the channel counts below 8 that no shipped grid has (the
+# segmented kernels, one segment of C channels; the shipped grids are C
+# 8, 4, 2):
 # (levels, channels, jac) on a tracking iteration's count of uniform points
 HASH_CHANNEL_CASES = ((16, 1, True), (8, 3, True), (6, 5, False), (8, 6, True),
                       (4, 7, True))
@@ -709,6 +785,47 @@ def check_hash_channels(dev, chk: Checks):
         check_hash_case(dev, chk, g, spec, table, jac, uniform_points(g, dev, 1024 * 98),
                         f"[L{L} C{C}/uniform]")
         del table
+        torch.cuda.empty_cache()
+
+
+# K1/K2 (and K3) beyond 32 levels or 8 channels, as the JAX package takes
+# them: (levels, channels) of a 40-level grid (two launches of 20), a
+# 16 x 16 grid (a level in two segments of 8) and an 8 x 12 one (segments
+# of 6), on a tracking iteration's count of ray-ordered points; K1 and K2
+# at each, and K3 from the same table rounded to bf16
+HASH_WIDE_CASES = ((40, 2), (16, 16), (8, 12))
+
+
+def wide_spec(L: int, C: int):
+    from nicer_slam_tpu_torch.ops import hash_encoder as he
+    return he.make_spec(input_dim=3, num_levels=L, level_dim=C, base_resolution=16,
+                        log2_hashmap_size=17, desired_resolution=512)
+
+
+def check_hash_wide(dev, chk: Checks):
+    import torch
+    from nicer_slam_tpu_torch.ops import hash_encoder as he
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    for L, C in HASH_WIDE_CASES:
+        spec = wide_spec(L, C)
+        table = torch.rand((spec.total_entries, C), generator=g, device=dev) * 2 - 1
+        x = ray_points(g, dev, TRACK_RAYS, 98)
+        for jac in (True, False):
+            check_hash_case(dev, chk, g, spec, table, jac, x, f"[L{L} C{C}/ray]")
+        packed = he.pack_table_bf16(table)
+        N = x.shape[0]
+        ko = he.hash_encode_bf16(spec, packed, x)
+        po = he.hash_encode_bf16_plain(spec, packed, x)
+        ms = cuda_time(lambda: he.hash_encode_bf16(spec, packed, x))
+        pms = cuda_time(lambda: he.hash_encode_bf16_plain(spec, packed, x), iters=3,
+                        warmup=1)
+        chk.values(f"hash_encode_bf16[L{L} C{C}/ray]", "nicer_slam_tpu_torch/csrc/"
+                   "hash_encoder.cu", "nicer_slam_tpu/ops/hash_encoder.py:858", [ko], [po],
+                   ms, pms, (f"feats, bit-equal {bool(torch.equal(ko, po))}, {N} points",),
+                   nbytes(x, ko) + touched_rows(spec, x) * C * 2, 2 * C * 8 * L * N)
+        del table, packed, ko, po, x
         torch.cuda.empty_cache()
 
 
@@ -1748,7 +1865,7 @@ def wait_scene(procs, kind: str) -> str:
     return scene_dir(kind)
 
 
-def write_conf(kind: str, data_dir: str, n_frames: int = N_FRAMES) -> str:
+def write_conf(kind: str, data_dir: str, n_frames: int = N_FRAMES, tag: str = "") -> str:
     p = PATHS[kind]
     text = open(p["conf"]).read()
     edits = [(f"data_dir = {p['data_dir']}", f'data_dir = "{data_dir}"'),
@@ -1762,7 +1879,7 @@ def write_conf(kind: str, data_dir: str, n_frames: int = N_FRAMES) -> str:
         text = text.replace(old, new)
     if f"img_res = [\n        {p['H']}\n        {p['W']}\n    ]" not in text:
         raise RuntimeError(f"{kind} conf: unexpected img_res")
-    path = os.path.join(SMOKE_DIR, f"{kind}_{n_frames}_smoke.conf")
+    path = os.path.join(SMOKE_DIR, f"{kind}_{n_frames}{tag}_smoke.conf")
     with open(path, "w") as f:
         f.write(text)
     return path
@@ -2276,6 +2393,252 @@ def report_networks(nw: dict, failures) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 5d: grids beyond 32 levels or 8 channels through the SLAM loop
+# ---------------------------------------------------------------------------
+
+def run_wide(dev, flagship_dir: str) -> dict:
+    """The wide-grid conf through exp_runner for WIDE_FRAMES frames, with
+    its grids' shapes."""
+    r = run_counted(dev, write_conf("wide", flagship_dir, WIDE_FRAMES), "exps_wide",
+                    WIDE_FRAMES)
+    runner = r.pop("runner")
+    comb, rend = runner.scene_cfg.combine, runner.scene_cfg.render
+    r["grids"] = {name: (spec.num_levels, spec.level_dim, spec.total_entries)
+                  for name, spec in (("coarse", comb.coarse.hash_spec()),
+                                     ("fine", comb.fine.hash_spec()),
+                                     ("color", rend.hash_spec()))}
+    del runner
+    return r
+
+
+def report_wide(w: dict, failures) -> None:
+    import torch
+    log("  grids (levels, channels, rows): "
+        + " ".join(f"{k}={v}" for k, v in w["grids"].items()))
+    log("  translation error vs GT per frame: "
+        + " ".join(f"{i}:{e:.4f}" for i, e in enumerate(w["errs"])))
+    log("  " + " ".join(f"{k}={v:.4g}" for k, v in w["stats"].items()))
+    log("  launches: " + " ".join(f"{k}={v}" for k, v in w["counts"].items() if v))
+    for f, terms in w["map_terms"].items():
+        log(f"  loss terms, last iteration of the frame-{f} mapping call: "
+            + " ".join(f"{k}={float(v):.5g}" for k, v in terms.items()))
+    if not all(e == e and e < 1e3 for e in w["errs"]):
+        failures.append("wide: non-finite poses")
+    bad = [(f, k) for f, terms in w["map_terms"].items() for k, v in terms.items()
+           if not torch.isfinite(v).all()]
+    if bad or not w["map_terms"]:
+        failures.append(f"wide: non-finite loss terms {bad} (or no mapping call)")
+    # every grid wide, so that each K1/K2 launch counted here was at a wide
+    # shape
+    narrow = [k for k, (L, C, _) in w["grids"].items() if L <= 32 and C <= 8]
+    never = [k for k in PATH_KERNELS["wide"] if w["counts"][k] == 0]
+    if narrow or never:
+        failures.append(f"wide: grids not wide {narrow}, kernels never launched {never}")
+    if w["counts"]["sdf_density.grid"] or w["counts"]["sdf_density.rays"]:
+        failures.append("wide: the shipped K6 ran a network it was not built for")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: ray-parallel mapping and the scene-parallel sweep
+# ---------------------------------------------------------------------------
+
+# the dry runs: NCCL at world size 1 (the production backend's set-up and
+# collectives), and two gloo ranks sharing the card held against the
+# one-process step, right after phase 3, while the scans are written;
+# both at the flagship's full widths (8192 rays at 680 x 1200, its grids),
+# parallel.dryrun.ITERS mapping iterations in each mode
+NCCL_DRYRUN = ("nccl", 1, [])
+GLOO_DRYRUN = ("gloo", 2, ["--backend", "gloo", "--device", "cuda:0", "--check"])
+# the sweep: two scenes with the demo networks (the demo scan, and the
+# flagship scan at 680 x 1200), both time-sharing the card, SWEEP_FRAMES
+# frames each, each equal to its solo run bit for bit
+SWEEP_FRAMES = 6
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def start_dryrun(backend: str, world: int, extra):
+    """parallel.dryrun under torchrun in a child process (its output to a
+    file, read by finish_dryrun)."""
+    path = os.path.join(SMOKE_DIR, f"dryrun_{backend}.json")
+    log_f = open(os.path.join(SMOKE_DIR, f"dryrun_{backend}.log"), "w")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(world),
+           "--master_addr", "localhost", "--master_port", str(free_port()), "-m",
+           "nicer_slam_tpu_torch.parallel.dryrun", "--full", "--out", path] + extra
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT)
+    return dict(proc=proc, log_f=log_f, path=path, check="--check" in extra,
+                t=time.perf_counter())
+
+
+def finish_dryrun(run: dict) -> dict:
+    rc = run["proc"].wait()
+    run["log_f"].close()
+    with open(run["log_f"].name) as f:
+        text = f.read()
+    res = {"rc": rc, "s": time.perf_counter() - run["t"], "check": run["check"],
+           "lines": [ln for ln in text.splitlines() if ln.startswith("dryrun")],
+           "stderr": text[-3000:]}
+    if rc == 0:
+        with open(run["path"]) as f:
+            res["report"] = json.load(f)
+    return res
+
+
+def sweep_confs(demo_dir: str, flagship_dir: str):
+    """(confs, scan ids) of the sweep's two scenes: the demo conf on the
+    demo scan, and on the flagship scan at its 680 x 1200 (the preprocess
+    run's conf edits)."""
+    return ([write_conf("demo", demo_dir, SWEEP_FRAMES, "_sweep"),
+             write_conf("preprocess", flagship_dir, SWEEP_FRAMES, "_sweep")],
+            [PATHS["demo"]["scan_id"], PATHS["flagship"]["scan_id"]])
+
+
+def run_sweep(dev, demo_dir: str, flagship_dir: str) -> dict:
+    """parallel.sweep on the two scenes (one card, two scenes on it), then
+    each scene alone through exp_runner in this process; the launch counts
+    are the swept scenes' own (each read in its process), not the solo
+    runs'."""
+    import numpy as np
+    import torch
+    from nicer_slam_tpu_torch.ops import _cuda
+    from nicer_slam_tpu_torch.parallel.sweep import sweep
+    from nicer_slam_tpu_torch.training import exp_runner
+
+    confs, scans = sweep_confs(demo_dir, flagship_dir)
+    for d in ("exps_sweep", "exps_solo"):
+        shutil.rmtree(os.path.join(SMOKE_DIR, d), ignore_errors=True)
+    t = time.perf_counter()
+    results = sweep(confs, root_dir=SMOKE_DIR, exps_folder="exps_sweep", scan_ids=scans,
+                    scenes_per_device=2)
+    sweep_s = time.perf_counter() - t
+
+    def poses(run_dir):
+        path = os.path.join(run_dir, "checkpoints", "PoseParameters", "latest.npz")
+        with np.load(path, allow_pickle=True) as z:
+            return z["est_poses"]
+
+    solo_s, same = [], []
+    for conf, scan, r in zip(confs, scans, results):
+        t = time.perf_counter()
+        solo = exp_runner.main(["--conf", conf, "--root_dir", SMOKE_DIR, "--exps_folder",
+                                "exps_solo", "--scan_id", str(scan), "--device", str(dev)])
+        solo_s.append(time.perf_counter() - t)
+        same.append(bool(r.get("ok")) and np.array_equal(poses(r["run_dir"]),
+                                                         poses(solo.rundir)))
+        del solo
+        torch.cuda.empty_cache()
+    counts = {k: sum(r.get("launches", {}).get(k, 0) for r in results)
+              for k in _cuda.launch_counts()}
+    return dict(results=results, sweep_s=sweep_s, solo_s=solo_s, same=same, counts=counts)
+
+
+def report_parallel(dr: dict, sw: dict, failures) -> None:
+    for name, res in dr.items():
+        log(f"  dryrun {name} ({res['s']:.1f} s to its collection, rc {res['rc']}):")
+        for ln in res["lines"]:
+            log(f"    {ln}")
+        rep = res.get("report")
+        if res["rc"] != 0 or rep is None:
+            log(res["stderr"])
+            failures.append(f"parallel: dryrun {name} failed (rc {res['rc']})")
+            continue
+        for mode, m in rep["modes"].items():
+            log(f"    {mode}: losses {m['losses']} ms/iter {m['ms_per_iter']} all-reduce "
+                f"{m['allreduce_bytes']:.0f} B in {m['allreduce_ms']:.2f} ms "
+                f"(bf16 tables {m['bf16_tables']})")
+            if "check" in m and not m["check"]["ok"]:
+                failures.append(f"parallel: {name} {mode} differs from the one-process step "
+                                f"{m['check']}")
+        if res["check"] and "reference" not in rep:
+            failures.append(f"parallel: {name} ran no one-process check")
+    log(f"  sweep: 2 scenes on one card in {sw['sweep_s']:.1f} s (solo runs "
+        f"{' '.join(f'{s:.1f}' for s in sw['solo_s'])} s)")
+    for r, same in zip(sw["results"], sw["same"]):
+        log(f"    ok={r.get('ok')} device={r.get('device')} wall {r.get('wall_s', 0):.1f} s "
+            f"-> {r.get('run_dir')}; poses equal to the solo run bit for bit: {same}")
+        if not r.get("ok"):
+            log(r.get("error", ""))
+    if not all(sw["same"]):
+        failures.append("parallel: a swept scene's poses differ from its solo run")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the long-run evaluation, GUARDED's settings
+# ---------------------------------------------------------------------------
+
+# tools/r5f_queue.sh's guarded command (the JAX package's
+# LONG_SEQ_GUARDED_r05.json) through frame LONG_FRAMES (frames 0 to 50,
+# so that the interim at frame 50 runs); the mesh battery at 128³ on
+# 50,000 points and 2 extrapolated views
+LONG_FRAMES = 50
+LONG_ARGS = ["--frames", str(LONG_FRAMES + 1), "--rad_per_frame", "0.003", "--iters", "60",
+             "--track_iters", "100", "--rays", "4096", "--track_rays", "1024", "--lr", "0.002",
+             "--track_lr", "0.005", "--track_lr_step", "12", "--track_lr_gamma", "0.5",
+             "--motion_prior_spring", "0.1", "--ba_trust_radius", "0.01", "--ba_trust_rot",
+             "1.0", "--cam_freespace_w", "10.0", "--cam_freespace_margin", "0.05", "--ba",
+             "--mef", "5", "--color_topk", "16", "--checkpoint_freq", "50",
+             "--interim_every", "50", "--mesh_res", "128", "--rec_points", "50000",
+             "--n_eval_views", "2"]
+# frame 50 of the JAX record (LONG_SEQ_GUARDED_r05.json) and the bound
+# tests/test_torch_eval_e2e.py holds the port to: max(1.5 x JAX, JAX + 0.01)
+JAX_ATE_AT_50 = 0.004063656575156802
+
+
+def start_long_run():
+    root = os.path.join(SMOKE_DIR, "long_seq")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    log_f = open(os.path.join(SMOKE_DIR, "long_seq.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "nicer_slam_tpu_torch.evaluation.long_seq_eval", *LONG_ARGS,
+         "--root", root], cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT)
+    return proc, log_f, time.perf_counter()
+
+
+def finish_long_run(run) -> dict:
+    proc, log_f, t0 = run
+    rc = proc.wait()
+    log_f.close()
+    out = {"rc": rc, "s": time.perf_counter() - t0}
+    path = os.path.join(SMOKE_DIR, "long_seq", "long_seq_eval.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            out["res"] = json.load(f)
+    return out
+
+
+def report_long_run(lr: dict, failures) -> None:
+    import math
+    res = lr.get("res", {})
+    log(f"  rc {lr['rc']}, {lr['s']:.1f} s to its collection; s/frame "
+        f"{res.get('s_per_frame', float('nan')):.3f}; phases "
+        + " ".join(f"{k}={v:.1f}" for k, v in res.get("phase_s", {}).items()))
+    last = res.get("interim", [{}])[-1] if res.get("interim") else {}
+    ate = last.get("ate_rmse", float("nan"))
+    bound = max(1.5 * JAX_ATE_AT_50, JAX_ATE_AT_50 + 0.01)
+    log(f"  frame {last.get('frame')}: ATE RMSE {ate:.6f} (JAX record {JAX_ATE_AT_50:.6f}, "
+        f"bound {bound:.6f}: {'within' if ate <= bound else 'outside'}), rot drift "
+        f"{last.get('rot_drift_deg', float('nan')):.2f} deg, sdf negative share "
+        f"{last.get('sdf_negfrac')}, frame-0 PSNR {last.get('psnr_frame0')}")
+    for k in ("eval_cam", "eval_rec", "eval_rendering_interpolate",
+              "eval_rendering_extrapolate"):
+        log(f"  {k}: {json.dumps(res.get(k))}")
+    rec = res.get("eval_rec", {})
+    if lr["rc"] != 0 or not math.isfinite(ate) or last.get("frame") != LONG_FRAMES:
+        with open(os.path.join(SMOKE_DIR, "long_seq.log")) as f:
+            log(f.read()[-3000:])
+        failures.append(f"long run: rc {lr['rc']}, ATE at frame {last.get('frame')} {ate}")
+    if "error" in rec or not 0.0 < last.get("sdf_negfrac", 0.0) < 1.0:
+        failures.append(f"long run: the mesh has no surface ({rec}, sdf negative share "
+                        f"{last.get('sdf_negfrac')})")
+
+
+# ---------------------------------------------------------------------------
 # phase 8: preprocessing on the card
 # ---------------------------------------------------------------------------
 
@@ -2561,6 +2924,72 @@ def report_preprocess(pre: dict, failures) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phases 8 and 9's sweep in a child process beside phases 5b to 7: both need
+# only the scans, and no other phase reads what they write
+# ---------------------------------------------------------------------------
+
+LANE_B_OUT = os.path.join(SMOKE_DIR, "lane_b.pkl")
+
+
+def _host(obj):
+    """obj with every tensor moved to the host (for the pickle)."""
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host(v) for v in obj)
+    return obj
+
+
+def lane_b(capture: str, demo_dir: str, flagship_dir: str) -> None:
+    """Phase 8, then phase 9's sweep, on the card; their results pickled to
+    LANE_B_OUT (the SLAM run's runner kept as its plots directory)."""
+    import pickle
+    import types
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t = time.perf_counter()
+    pre = run_preprocess(dev, capture)
+    pre["phase_s"] = time.perf_counter() - t
+    pre["slam"]["runner"] = types.SimpleNamespace(plots_dir=pre["slam"]["runner"].plots_dir)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    sw = run_sweep(dev, demo_dir, flagship_dir)
+    sw["phase_s"] = time.perf_counter() - t
+    with open(LANE_B_OUT + ".tmp", "wb") as f:
+        pickle.dump(_host({"pre": pre, "sw": sw}), f)
+    os.replace(LANE_B_OUT + ".tmp", LANE_B_OUT)
+
+
+def start_lane_b(capture: str, demo_dir: str, flagship_dir: str):
+    if os.path.exists(LANE_B_OUT):
+        os.remove(LANE_B_OUT)
+    log_f = open(os.path.join(SMOKE_DIR, "lane_b.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.lane_b({capture!r}, "
+         f"{demo_dir!r}, {flagship_dir!r})"], cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT)
+    return proc, log_f
+
+
+def finish_lane_b(lane) -> dict:
+    import pickle
+    proc, log_f = lane
+    rc = proc.wait()
+    log_f.close()
+    if rc != 0 or not os.path.exists(LANE_B_OUT):
+        with open(log_f.name) as f:
+            log(f.read()[-6000:])
+        raise RuntimeError(f"phases 8 and 9's sweep failed in their process (rc {rc})")
+    with open(LANE_B_OUT, "rb") as f:
+        return pickle.load(f)
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the evaluation battery on the flagship run
 # ---------------------------------------------------------------------------
 
@@ -2672,15 +3101,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = card_line()
-    log(f"[1/9] card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    log(f"[1/11] card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     procs = start_scenes()
+    long_run = lane = None
     try:
         t = time.perf_counter()
         path = _cuda.build()
         _cuda.library()
-        log(f"[2/9] build: {os.path.relpath(path, ROOT)} in {time.perf_counter() - t:.1f} s")
+        log(f"[2/11] build: {os.path.relpath(path, ROOT)} in {time.perf_counter() - t:.1f} s")
 
-        log(f"[3/9] kernels vs plain versions (tolerance: values {VAL_RTOL:g}·max|ref| "
+        log(f"[3/11] kernels vs plain versions (tolerance: values {VAL_RTOL:g}·max|ref| "
             f"per output, atomic gradients rel L2 {GRAD_REL_L2:g}, sampler {Z_ATOL:g} "
             f"on every ray, the voxel counter bit for bit); each kernel's launch "
             f"alone, mean of 10 after 2; the plain versions of K1/K2 once; bounds at "
@@ -2689,6 +3119,7 @@ def main() -> int:
         chk = Checks()
         check_hash_kernels(dev, chk)
         check_hash_channels(dev, chk)
+        check_hash_wide(dev, chk)
         for (R, S), tag in zip(COMPOSITE_SHAPES, COMPOSITE_TAGS):
             check_demo_kernels(dev, chk, R, S, tag)
         check_hash_tracking(dev, chk)
@@ -2701,25 +3132,49 @@ def main() -> int:
         check_tsdf_kernel(dev, chk)
         torch.cuda.empty_cache()
 
+        # phase 9's dry runs need no scan: they run while the scans are
+        # written
+        log(f"[9/11] parallel (first part, while the scans are written): parallel.dryrun "
+            f"at the flagship's widths, two mapping iterations per mode, under NCCL at "
+            f"world size 1 and as two gloo ranks sharing the card (held against the "
+            f"one-process step)")
+        dryruns = {name: finish_dryrun(start_dryrun(*run))
+                   for name, run in (("ncclx1", NCCL_DRYRUN), ("gloox2", GLOO_DRYRUN))}
+
         runs = {}
         for step, kind in ((4, "demo"), (5, "flagship")):
             t = time.perf_counter()
             data_dir = wait_scene(procs, kind)
             p = PATHS[kind]
-            log(f"[{step}/9] SLAM main path: {kind} configuration, {N_FRAMES} frames, "
+            log(f"[{step}/11] SLAM main path: {kind} configuration, {N_FRAMES} frames, "
                 f"{p['H']}x{p['W']}, global_window_start {GLOBAL_WINDOW_START} "
                 f"(waited {time.perf_counter() - t:.1f} s for the scan)")
             runs[kind] = run_slam(dev, kind, data_dir)
             torch.cuda.empty_cache()
+        log(f"[10/11] long run (in the background, beside phases 5b to 9): "
+            f"evaluation.long_seq_eval with GUARDED's settings through frame {LONG_FRAMES} "
+            f"at 120x160")
+        long_run = start_long_run()
         t = time.perf_counter()
-        log(f"[5b/9] options: the flagship configuration with the exact prepass, warp "
+        capture = wait_scene(procs, "capture")
+        log(f"[8/11] preprocess, then [9/11] parallel.sweep, in a child process beside "
+            f"phases 5b to 7 (waited {time.perf_counter() - t:.1f} s for the capture): a raw "
+            f"Replica-layout capture ({CAPTURE_FRAMES} frames, "
+            f"{PATHS['preprocess']['H']}x{PATHS['preprocess']['W']}) through the port's "
+            f"converter, cue and flow extraction and TSDF fusion on the card, the demo "
+            f"networks on the converted scan; then the demo networks on two scans "
+            f"({SWEEP_FRAMES} frames each, both on the card at once), each held against its "
+            f"solo run")
+        lane = start_lane_b(capture, wait_scene(procs, "demo"), wait_scene(procs, "flagship"))
+        t = time.perf_counter()
+        log(f"[5b/11] options: the flagship configuration with the exact prepass, warp "
             f"patches [1 5] under SSIM and exposure, {OPTIONS_FRAMES} frames; then the demo "
             f"networks in nerf mode with per-image codes, {NERF_FRAMES} frames")
         options = run_options(dev, wait_scene(procs, "flagship"), wait_scene(procs, "demo"))
         options["phase_s"] = time.perf_counter() - t
         torch.cuda.empty_cache()
         t = time.perf_counter()
-        log(f"[5c/9] networks: TINY_CONF's SDF networks ({TINY_FRAMES} frames, "
+        log(f"[5c/11] networks: TINY_CONF's SDF networks ({TINY_FRAMES} frames, "
             f"{TINY_H}x{TINY_W}, the exact prepass; then {TINY_CACHED_FRAMES} with the "
             f"density cache) and the flagship with concat_coarse_feature ({CONCAT_FRAMES} "
             f"frames, the exact prepass); Adam in the optax layout; pretrain "
@@ -2727,45 +3182,56 @@ def main() -> int:
         networks = run_networks(dev, wait_scene(procs, "flagship"))
         networks["phase_s"] = time.perf_counter() - t
         torch.cuda.empty_cache()
-        log("[6/9] eval: the checkpoint battery on the flagship run (eval_cam, mesh "
+        t = time.perf_counter()
+        log(f"[5d/11] wide grids: the flagship configuration with a 16-level x 16-channel "
+            f"coarse grid, a 40-level fine grid and a 40-level colour grid, {WIDE_FRAMES} "
+            f"frames")
+        wide = run_wide(dev, wait_scene(procs, "flagship"))
+        wide["phase_s"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        log("[6/11] eval: the checkpoint battery on the flagship run (eval_cam, mesh "
             f"{MESH_RESOLUTION}^3 vs the analytic scene, depth bias, interpolate view 2, "
             f"{PATHS['flagship']['eval_views']} extrapolated views)")
         ev = run_eval(dev, runs["flagship"], wait_scene(procs, "flagship"))
         torch.cuda.empty_cache()
-        log(f"[7/9] repeat: the demo configuration twice in this process, "
+        log(f"[7/11] repeat: the demo configuration twice in this process, "
             f"{REPEAT_FRAMES} frames each (mapping at frames 0 and 5), same seed and scan")
         repeat_failures = []
         check_repeat(dev, wait_scene(procs, "demo"), repeat_failures)
         torch.cuda.empty_cache()
-        t = time.perf_counter()
-        capture = wait_scene(procs, "capture")
-        log(f"[8/9] preprocess: a raw Replica-layout capture ({CAPTURE_FRAMES} frames, "
-            f"{PATHS['preprocess']['H']}x{PATHS['preprocess']['W']}) through the port's "
-            f"converter, cue and flow extraction and TSDF fusion on the card, then the demo "
-            f"networks on the converted scan (waited {time.perf_counter() - t:.1f} s for the "
-            f"capture)")
-        t = time.perf_counter()
-        pre = run_preprocess(dev, capture)
-        pre["phase_s"] = time.perf_counter() - t
+        lane_b = finish_lane_b(lane)
+        lane = None
+        pre, sw = lane_b["pre"], lane_b["sw"]
+        lr = finish_long_run(long_run)
+        long_run = None
     finally:
-        for proc in procs.values():
+        bg = (list(procs.values()) + ([long_run[0]] if long_run else [])
+              + ([lane[0]] if lane else []))
+        for proc in bg:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
 
-    log("[9/9] report (card: " + card + ")")
+    log("[11/11] report (card: " + card + ")")
     failures = list(chk.failures) + repeat_failures
     for kind, r in runs.items():
         log(f" {kind}:")
         report(kind, r, failures)
-    log(f" options (phase {options['phase_s']:.1f} s):")
+    log(f" options (phase {options['phase_s']:.1f} s; {CONTENDED['5b-7']}):")
     report_options(options, failures)
-    log(f" networks (phase {networks['phase_s']:.1f} s):")
+    log(f" networks (phase {networks['phase_s']:.1f} s; {CONTENDED['5b-7']}):")
     report_networks(networks, failures)
-    log(" eval (the flagship run):")
+    log(f" eval (the flagship run; {CONTENDED['5b-7']}):")
     report_eval(ev, failures)
-    log(f" preprocess (phase {pre['phase_s']:.1f} s):")
+    log(f" preprocess (phase {pre['phase_s']:.1f} s; {CONTENDED['8-9']}):")
     report_preprocess(pre, failures)
+    log(f" wide grids (phase {wide['phase_s']:.1f} s; {CONTENDED['5b-7']}):")
+    report_wide(wide, failures)
+    log(f" parallel (sweep phase {sw['phase_s']:.1f} s; {CONTENDED['8-9']}; the dry runs "
+        f"{CONTENDED['dryrun']}):")
+    report_parallel(dryruns, sw, failures)
+    log(f" long run ({CONTENDED['10']}):")
+    report_long_run(lr, failures)
 
     kernels = []
     for name, r in chk.results.items():
@@ -2775,6 +3241,10 @@ def main() -> int:
         by_path["networks"] = networks["counts"][base]
         by_path["eval"] = ev["counts"][base]
         by_path["preprocess"] = pre["slam"]["counts"][base]
+        by_path["wide"] = wide["counts"][base]
+        by_path["parallel"] = (sw["counts"][base] + sum(
+            d.get("report", {}).get("launches", {}).get(base, 0) for d in dryruns.values()))
+        by_path["long_run"] = lr.get("res", {}).get("launches", {}).get(base, 0)
         kernels.append(dict(r, launches=sum(by_path.values()), launches_by_path=by_path))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -5,10 +5,14 @@
 // gather. K2 replaces hash_encode (:177-263) with its big-grid variant
 // _hash_encode_unified/_grid_corner_values (:601-678, :784-834): features
 // only. Both share one forward and one backward kernel (hash_kernels.cuh),
-// templated on the channel count C and on whether the Jacobian is carried,
-// instantiated here for C in {2, 4, 8} (the shipped grids) and in
-// hash_encoder_channels.cu for the other C from 1 to 8; K3 (below) is the
-// same forward kernel reading a bf16 table.
+// templated on the channel count C and on whether the Jacobian is
+// carried, instantiated here for C in {2, 4, 8} (the shipped grids); K3
+// (below) is the same forward kernel reading a bf16 table. Any L and C:
+// every other C walks a level's channels in segments of CS, the largest
+// divisor of C up to 8 (hash_encoder_segments*.cu; one segment of C
+// channels for C < 8), and a launch covers at
+// most 32 (level, segment) pairs, one warp each, the host launching the
+// slices of a wider grid in turn (hash_kernels.cuh).
 //
 // Semantics (reference hashencoder.cu): level l has scale s_l and
 // resolution r_l; u = (x + size) / (2 size); pos = u s_l; smoothstep
@@ -18,7 +22,7 @@
 // Inputs outside [0,1] give zero features and zero gradients.
 //
 // Table layout is [T, C] fp32 (row-major: a corner's C channels are one
-// row, C from 1 to 8, loaded as float4, float2 or single words); the
+// row, a segment's CS channels loaded as float4, float2 or single words); the
 // checkpoint files keep the JAX package's
 // [C, T] and slam/checkpoint.py transposes at that boundary.
 //
@@ -116,51 +120,56 @@
 
 #include "hash_kernels.cuh"
 
-// K1/K2 at C 1, 3, 5, 6, 7 (hash_encoder_channels.cu)
-extern "C" int nsl_hash_fwd_channels(const float* x, const float* table, const int* meta,
+// K1/K2 at every C other than 2, 4, 8, and K3 at every even C other than
+// those, walked in segments of CS (hash_encoder_segments.cu,
+// hash_encoder_segments_bwd.cu)
+extern "C" int nsl_hash_fwd_segments(const float* x, const float* table, const int* meta,
                                      const float* scl, float* feats, float* dfeat, int64_t N,
-                                     int L, int C, float size, cudaStream_t s);
-extern "C" int nsl_hash_bwd_channels(const float* x, const float* table, const int* meta,
+                                     int L, int C, int CS, float size, cudaStream_t s);
+extern "C" int nsl_hash_bwd_segments(const float* x, const float* table, const int* meta,
                                      const float* scl, const float* g_feat,
                                      const float* g_dfeat, float* g_table, float* g_x,
-                                     long long* acc, int64_t N, int L, int C, float size,
-                                     int64_t T, cudaStream_t s);
+                                     long long* acc, int64_t N, int L, int C, int CS,
+                                     float size, int64_t T, cudaStream_t s);
+extern "C" int nsl_hash_bf16_segments(const float* x, const uint16_t* table, const int* meta,
+                                      const float* scl, float* feats, int64_t N, int L, int C,
+                                      int CS, float size, cudaStream_t s);
 
 extern "C" {
 
 // dfeat == NULL selects K2 (features only); otherwise K1. table is [T, C]
-// fp32 with a 16-byte aligned base, 1 <= C <= 8, L <= 32 (the wrapper
+// fp32 with a 16-byte aligned base, any L >= 1 and C >= 1 (the wrapper
 // checks).
 int nsl_hash_encode_fwd(const void* x, const void* table, const void* meta,
                         const void* scl, void* feats, void* dfeat, int64_t N,
                         int L, int C, float size, void* stream) {
   if (N == 0) return 0;
-  if (L < 1 || L > 32) return (int)cudaErrorInvalidValue;
+  if (L < 1 || C < 1) return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
   auto args = [&](auto launch) {
     return launch((const float*)x, (const float*)table, (const int*)meta,
-                  (const float*)scl, (float*)feats, (float*)dfeat, N, L, size, s);
+                  (const float*)scl, (float*)feats, (float*)dfeat, N, L, C, size, s);
   };
   switch (C) {
-    case 2: return args(launch_fwd<2>);
-    case 4: return args(launch_fwd<4>);
-    case 8: return args(launch_fwd<8>);
+    case 2: return args(launch_fwd<2, false>);
+    case 4: return args(launch_fwd<4, false>);
+    case 8: return args(launch_fwd<8, false>);
     default:
-      return nsl_hash_fwd_channels((const float*)x, (const float*)table, (const int*)meta,
+      return nsl_hash_fwd_segments((const float*)x, (const float*)table, (const int*)meta,
                                    (const float*)scl, (float*)feats, (float*)dfeat, N, L, C,
-                                   size, s);
+                                   segment_width(C), size, s);
   }
 }
 
 // g_dfeat == NULL selects K2. g_table [T, C] (written) and g_x ([N, 3],
 // written) may each be NULL (not needed); with g_table, scratch is
-// [T C + L] int64 whose first T C words are zero on entry, and are zero
+// [T C + 32] int64 whose first T C words are zero on entry, and are zero
 // again on a successful return (the caller keeps it for the next call).
 int nsl_hash_encode_bwd(const void* x, const void* table, const void* meta,
                         const void* scl, const void* g_feat,
                         const void* g_dfeat, void* g_table, void* g_x, void* scratch,
                         int64_t N, int L, int C, float size, int64_t T, void* stream) {
-  if (L < 1 || L > 32) return (int)cudaErrorInvalidValue;
+  if (L < 1 || C < 1) return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
   if (N == 0)
     return g_table == nullptr
@@ -169,38 +178,43 @@ int nsl_hash_encode_bwd(const void* x, const void* table, const void* meta,
   auto args = [&](auto launch) {
     return launch((const float*)x, (const float*)table, (const int*)meta,
                   (const float*)scl, (const float*)g_feat, (const float*)g_dfeat,
-                  (float*)g_table, (float*)g_x, (long long*)scratch, N, L, size, T, s);
+                  (float*)g_table, (float*)g_x, (long long*)scratch, N, L, C, size, T, s);
   };
   switch (C) {
-    case 2: return args(launch_bwd<2>);
-    case 4: return args(launch_bwd<4>);
-    case 8: return args(launch_bwd<8>);
+    case 2: return args(launch_bwd<2, false>);
+    case 4: return args(launch_bwd<4, false>);
+    case 8: return args(launch_bwd<8, false>);
     default:
-      return nsl_hash_bwd_channels((const float*)x, (const float*)table, (const int*)meta,
+      return nsl_hash_bwd_segments((const float*)x, (const float*)table, (const int*)meta,
                                    (const float*)scl, (const float*)g_feat,
                                    (const float*)g_dfeat, (float*)g_table, (float*)g_x,
-                                   (long long*)scratch, N, L, C, size, T, s);
+                                   (long long*)scratch, N, L, C, segment_width(C), size, T,
+                                   s);
   }
 }
 
-// K3: table is [T, C] bfloat16 (C in {2, 4, 8}), 2 C bytes per row, the
-// base aligned to 16 bytes, L <= 32 (the wrapper checks)
+// K3: table is [T, C] bfloat16, any even C (walked in segments of 8, 4 or
+// 2 channels, the widest that divides C), 2 C bytes per row, the base
+// aligned to 16 bytes, any L >= 1 (the wrapper checks)
 int nsl_hash_encode_bf16_fwd(const void* x, const void* table,
                              const void* meta, const void* scl, void* feats,
                              int64_t N, int L, int C, float size,
                              void* stream) {
   if (N == 0) return 0;
-  if (L < 1 || L > 32) return (int)cudaErrorInvalidValue;
+  if (L < 1 || C < 2 || C % 2 != 0) return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
   auto args = [&](auto launch) {
     return launch((const float*)x, (const uint16_t*)table, (const int*)meta,
-                  (const float*)scl, (float*)feats, N, L, size, s);
+                  (const float*)scl, (float*)feats, N, L, C, size, s);
   };
   switch (C) {
-    case 2: return args(launch_bf16_fwd<2>);
-    case 4: return args(launch_bf16_fwd<4>);
-    case 8: return args(launch_bf16_fwd<8>);
-    default: return (int)cudaErrorInvalidValue;
+    case 2: return args(launch_bf16_fwd<2, false>);
+    case 4: return args(launch_bf16_fwd<4, false>);
+    case 8: return args(launch_bf16_fwd<8, false>);
+    default:
+      return nsl_hash_bf16_segments((const float*)x, (const uint16_t*)table,
+                                    (const int*)meta, (const float*)scl, (float*)feats, N, L,
+                                    C, C % 8 == 0 ? 8 : C % 4 == 0 ? 4 : 2, size, s);
   }
 }
 

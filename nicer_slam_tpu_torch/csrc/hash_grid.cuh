@@ -101,18 +101,18 @@ __device__ __forceinline__ float bf16_hi(uint32_t w) {
   return __uint_as_float(w & 0xffff0000u);
 }
 
+// C bf16 values at p (C in {2, 4, 8}; p aligned to 2 C bytes)
 template <int C>
-__device__ __forceinline__ void load_bf16_row(const uint16_t* __restrict__ t,
-                                              uint32_t row, float v[C]) {
+__device__ __forceinline__ void load_bf16_vec(const uint16_t* __restrict__ p, float v[C]) {
   uint32_t ws[C / 2];
   if constexpr (C == 2) {
-    ws[0] = __ldg(reinterpret_cast<const uint32_t*>(t) + row);
+    ws[0] = __ldg(reinterpret_cast<const uint32_t*>(p));
   } else if constexpr (C == 4) {
-    uint2 w = __ldg(reinterpret_cast<const uint2*>(t) + row);
+    uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
     ws[0] = w.x;
     ws[1] = w.y;
   } else {
-    uint4 w = __ldg(reinterpret_cast<const uint4*>(t) + row);
+    uint4 w = __ldg(reinterpret_cast<const uint4*>(p));
     ws[0] = w.x;
     ws[1] = w.y;
     ws[2] = w.z;
@@ -123,6 +123,12 @@ __device__ __forceinline__ void load_bf16_row(const uint16_t* __restrict__ t,
     v[2 * i] = bf16_lo(ws[i]);
     v[2 * i + 1] = bf16_hi(ws[i]);
   }
+}
+
+template <int C>
+__device__ __forceinline__ void load_bf16_row(const uint16_t* __restrict__ t,
+                                              uint32_t row, float v[C]) {
+  load_bf16_vec<C>(t + (size_t)row * C, v);
 }
 
 }  // namespace nsl

@@ -219,7 +219,8 @@ def render_rays(cfg: SceneConfig, model: SceneModel, voxels: torch.Tensor,
                 full_depth: Optional[torch.Tensor] = None,
                 density_cache: Optional[torch.Tensor] = None,
                 sdf_pack: Optional[sdf_density.SdfPack] = None,
-                beta_scale: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                beta_scale: Optional[torch.Tensor] = None,
+                count_sum=None) -> Dict[str, torch.Tensor]:
     """Forward pass over a flat ray batch. With ``is_mapping`` the output
     also holds the updated voxel counter (``voxels``) and the eikonal
     gradients (``grad_theta``, ``grad_theta_nei``), and, with the warp
@@ -230,7 +231,10 @@ def render_rays(cfg: SceneConfig, model: SceneModel, voxels: torch.Tensor,
     reads ``sdf_pack``, the caller's ``sdf_density.pack_sdf`` of the model
     (packed once per mapping iteration, tracked frame or render). With
     ``model_exposure`` the output holds ``rgb_un`` and ``rgb_un_values``,
-    the colours before the exposure and their composite."""
+    the colours before the exposure and their composite. ``count_sum``
+    (ray-parallel mapping, ``parallel.mesh.sum_counts``) takes (the voxel
+    counter, the counter with this batch's visits) to the counter with
+    every rank's visits, which the density then reads."""
     if density_cache is None and sdf_pack is None:
         raise ValueError("the exact prepass reads sdf_pack "
                          "(sdf_density.pack_sdf of the model)")
@@ -259,6 +263,8 @@ def render_rays(cfg: SceneConfig, model: SceneModel, voxels: torch.Tensor,
     points_flat = points.reshape(-1, 3)
     new_voxels = (density_ops.update_voxels(voxels, points_flat, cfg.voxel_res)
                   if is_mapping else voxels)
+    if is_mapping and count_sum is not None:
+        new_voxels = count_sum(voxels, new_voxels)
     dirs_flat = ray_dirs[:, None, :].expand(R, S, 3).reshape(-1, 3)
 
     sdf, feature_vectors, gradients = fields.combine_get_outputs(

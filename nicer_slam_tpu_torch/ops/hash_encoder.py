@@ -33,7 +33,9 @@ accumulator kept per (device, size) that each call leaves zero
 
 On the card K1/K2 are bound by bytes: the Jacobian and cotangent tiles
 they stream and the random corner rows they gather and scatter. A block
-is 32 consecutive points × L levels, one warp per level; its output and
+is 32 consecutive points × L levels, one warp per level (a level of more
+than 8 channels takes a warp per segment of them, and a grid of more than
+32 such warps runs as several launches); its output and
 cotangent tiles pass through shared memory to move as coalesced runs,
 lanes that share a corner row merge their gradients before one row of atomics,
 and the table scatter is skipped when the table needs no gradient
@@ -194,20 +196,23 @@ def _level_tables(spec: HashGridSpec, size: float, device: str):
     return (torch.from_numpy(meta).to(device), torch.from_numpy(scl).to(device))
 
 
-# the K1/K2 kernels' limits: a block is a warp per level (at most 32), and
-# a level's C channels are one row of its tiles (at most 8, so L·C <= 256,
-# the shared memory of the widest tile); K3 (the bf16 rows) takes C in
-# (2, 4, 8)
-MAX_LEVELS, MAX_CHANNELS = 32, 8
+# K1/K2 take any level and channel count: a level's channels are walked in
+# segments of at most 8 (one warp each), and a grid of more than 32
+# (level, segment) pairs runs as several launches, grad_x summed over them
+# in order (csrc/hash_kernels.cuh). K3 (the bf16 rows) takes any even C,
+# as the JAX package's packed encode does.
 
 
 def _check_spec(spec: HashGridSpec, bf16: bool = False):
+    """Raise where the JAX package does: a grid over other than 3 inputs,
+    and an odd channel count for the bf16 encode (hash_encode_packed
+    asserts an even C)."""
     L, C = spec.num_levels, spec.level_dim
-    ok_c = C in (2, 4, 8) if bf16 else 1 <= C <= MAX_CHANNELS
-    if spec.input_dim != 3 or not ok_c or L > MAX_LEVELS:
-        raise ValueError(f"kernel supports input_dim 3, C in "
-                         f"{'(2, 4, 8)' if bf16 else f'1..{MAX_CHANNELS}'} and at most "
-                         f"{MAX_LEVELS} levels, got {spec.input_dim}, {C}, {L}")
+    ok_c = C >= 2 and C % 2 == 0 if bf16 else C >= 1
+    if spec.input_dim != 3 or not ok_c or L < 1:
+        raise ValueError(f"kernel supports input_dim 3, at least one level and "
+                         f"{'an even C' if bf16 else 'C >= 1'}, got {spec.input_dim}, "
+                         f"{C}, {L}")
 
 
 def _check_operands(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor):
@@ -242,14 +247,14 @@ _SCRATCH: Dict[Tuple[str, int], torch.Tensor] = {}
 
 def fixed_point_scratch(spec: HashGridSpec, device) -> torch.Tensor:
     """The K1/K2 backward's fixed-point accumulator of a grid's size:
-    ``[T·C + L]`` int64, kept per (device, size) and zeroed once, when it
+    ``[T·C + 32]`` int64, kept per (device, size) and zeroed once, when it
     is allocated. Each backward launch with a table gradient leaves its
     first T·C words zero (its last pass converts each row's sum and sets
-    the row back to 0); the last L words hold that launch's cotangent
-    maxima and are zeroed at the start of the next. The launches that
-    share it run one after another, on one stream, as the paths run."""
-    key = (str(torch.device(device)),
-           spec.total_entries * spec.level_dim + spec.num_levels)
+    the row back to 0); the last 32 words hold the cotangent maxima of a
+    slice of at most 32 (level, segment) pairs and are zeroed at the start
+    of the next. The launches that share it run one after another, on one
+    stream, as the paths run."""
+    key = (str(torch.device(device)), spec.total_entries * spec.level_dim + 32)
     buf = _SCRATCH.get(key)
     if buf is None:
         buf = _SCRATCH[key] = torch.zeros(key[1], dtype=torch.int64, device=device)

@@ -99,6 +99,20 @@ def perm_rows(perm: torch.Tensor, R: int) -> torch.Tensor:
     return perm.repeat_interleave(R // C, dim=0)
 
 
+def perm_slice(perm: torch.Tensor, R: int, lo: int, hi: int) -> torch.Tensor:
+    """The extra-bin rows of rays lo .. hi - 1 of R: ``perm`` itself when
+    all rays share it ([N_extra]); else the rows of the chunks the slice
+    covers, which must be whole chunks (ray r reads row r // (R /
+    n_chunks) by its global index)."""
+    if perm.dim() == 1:
+        return perm
+    per = R // perm.shape[0]
+    if R % perm.shape[0] or lo % per or hi % per:
+        raise ValueError(f"rays {lo}..{hi} of {R} do not cover whole prepass chunks of "
+                         f"{per} rays: shard the rays in multiples of prepass_ray_chunk")
+    return perm[lo // per:hi // per]
+
+
 def _step(n: int) -> float:
     return float(np.float32(1.0 / (n - 1)))
 

@@ -6,6 +6,13 @@ r // (R // n_valid) (the reference's equal integer split, remainder rays
 masked). Each step samples pixels, gathers ground truth from the device
 FrameStore, renders, evaluates the loss stack, steps the 6-group Adam and,
 with bundle adjustment, takes the fresh-Adam sign step on the slot poses.
+
+With a ``shard`` (``parallel.mesh.RayShard``, the counterpart of the JAX
+package's ``shard_rays``) the step is one rank's part of a ray-parallel
+step: the draws are the global ones, this rank renders its slice of rays,
+the voxel counter's visits and the per-ray outputs are exchanged in the
+forward, and the gradients are summed over the ranks before the Adam and
+BA steps (parallel/mesh.py says how).
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import torch
 from ..models import scene_model as sm
 from ..models.losses import LossConfig, compute_losses
 from ..ops import sdf_density
+from ..ops.ray_sampling import perm_slice
 from ..utils.camera import camera_from_tensor
 from .state import fill_missing_grads, fresh_adam_single_step
 
@@ -85,6 +93,42 @@ def _ray_slots(R: int, n_valid: int, device):
     return slot, r < per * n_valid
 
 
+def shard_render_draws(draws: sm.RenderDraws, R: int, lo: int, hi: int) -> sm.RenderDraws:
+    """The draws of rays lo .. hi - 1 of a mapping step's R: the per-ray
+    rows, the prepass chunks' extra bins, the eikonal points of those rays
+    (uniform points 10 lo .. 10 hi) and their neighbour offsets, which pair
+    with the uniform points and then the rays' near points."""
+    nei = draws.eik_nei
+    return sm.RenderDraws(
+        t_rand=draws.t_rand[lo:hi], perm=perm_slice(draws.perm, R, lo, hi),
+        eik_idx=draws.eik_idx[lo:hi], eik_uniform=draws.eik_uniform[10 * lo:10 * hi],
+        eik_nei=torch.cat([nei[10 * lo:10 * hi], nei[10 * R + lo:10 * R + hi]]))
+
+
+def _gather_outputs(out: Dict[str, torch.Tensor], shard, n: int) -> Dict[str, torch.Tensor]:
+    """The loss stack's inputs over all ranks' rays from this rank's ``out``
+    of n rays: per-ray outputs gathered along their ray axis (the eikonal
+    gradients as the uniform points' then the near points', the global
+    order), the SDF at the cameras marked replicated."""
+    from ..parallel import mesh
+
+    g = {}
+    for k, v in out.items():
+        if k in ("rgb_values", "depth_values", "normal_map", "sdf") or k.startswith(
+                "warp_gt_rgb_"):
+            g[k] = mesh.gather_rays(v, shard, 0)
+        elif k == "flow" or k.startswith(("warp_sampled_rgb_", "warp_mask_")):
+            g[k] = mesh.gather_rays(v, shard, 1)
+        elif k in ("grad_theta", "grad_theta_nei"):
+            g[k] = torch.cat([mesh.gather_rays(v[:10 * n], shard, 0),
+                              mesh.gather_rays(v[10 * n:], shard, 0)])
+        elif k == "cam_sdf":
+            g[k] = mesh.replicated(v, shard)
+        elif k == "voxels":
+            g[k] = v
+    return g
+
+
 class FrameData(NamedTuple):
     """The FrameStore's device arrays."""
 
@@ -102,10 +146,13 @@ def map_step(scene_cfg: sm.SceneConfig, map_cfg: MapConfig,
              draws: MapDraws, density_cache: Optional[torch.Tensor] = None,
              beta_scale: Optional[float] = None, *, stage: str,
              color_stage: str, ba: bool, is_first_frame: bool = False,
-             ) -> tuple:
+             shard=None) -> tuple:
     """One mapping iteration; updates ``model`` in place through
     ``optimizer``. Returns (voxels, poses_q, terms). Without a
-    ``density_cache`` the prepass is exact."""
+    ``density_cache`` the prepass is exact. With a ``shard`` this rank
+    renders its slice of the rays and every rank ends the step with the
+    same parameters and poses; ``terms["allreduce_bytes"]`` holds the
+    bytes of gradient this rank all-reduced."""
     H, W = scene_cfg.H, scene_cfg.W
     R = map_cfg.num_pixels
     Smax = map_cfg.max_slots
@@ -148,17 +195,36 @@ def map_step(scene_cfg: sm.SceneConfig, map_cfg: MapConfig,
     # without a density cache the prepass is exact: the SDF network packed
     # once for this iteration's K6 launch
     pack = sdf_density.pack_sdf(model.implicit) if density_cache is None else None
-    out = sm.render_rays(scene_cfg, model, voxels, batch, draws.render,
-                         stage=stage, color_stage=color_stage, training=True,
-                         is_mapping=True, edges=edges, full_rgb=full_rgb,
-                         full_depth=full_depth, density_cache=density_cache,
-                         sdf_pack=pack, beta_scale=bs)
+    render = dict(stage=stage, color_stage=color_stage, training=True, is_mapping=True,
+                  edges=edges, full_rgb=full_rgb, full_depth=full_depth,
+                  density_cache=density_cache, sdf_pack=pack, beta_scale=bs)
+    if shard is None:
+        out = sm.render_rays(scene_cfg, model, voxels, batch, draws.render, **render)
+    else:
+        from ..parallel import mesh
+
+        lo, hi = shard.rays(R)
+        mine = batch._replace(
+            uv=uv[lo:hi], kf_slot=slot[lo:hi], ray_valid=ray_valid[lo:hi],
+            ray_weight=None if ray_weight is None else ray_weight[lo:hi])
+        out = _gather_outputs(
+            sm.render_rays(scene_cfg, model, voxels, mine,
+                           shard_render_draws(draws.render, R, lo, hi),
+                           count_sum=mesh.sum_counts, **render),
+            shard, hi - lo)
     terms = compute_losses(loss_cfg, out, gt, batch, stage=stage,
                            is_first_frame=is_first_frame, num_slots=Smax,
                            flow_gt=flow_gt, flow_mask=flow_mask, edges=edges)
     optimizer.zero_grad(set_to_none=True)
     terms["loss"].backward()
     fill_missing_grads(optimizer)
+    if shard is not None:
+        params = [p for group in optimizer.param_groups for p in group["params"]]
+        if ba and q.grad is None:
+            q.grad = torch.zeros_like(q)
+        sent = mesh.allreduce_grads(params + ([q] if ba else []), shard,
+                                    mesh.bf16_tables(model, shard))
+        terms["allreduce_bytes"] = torch.tensor(float(sent))
     optimizer.step()
     new_q = poses_q
     if ba:

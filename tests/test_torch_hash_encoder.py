@@ -161,11 +161,12 @@ def test_hash_index_uint32_wrap():
 
 @pytest.mark.parametrize("L,C,bf16,ok", [
     (32, 8, False, True), (16, 1, False, True), (8, 3, False, True), (4, 7, False, True),
-    (2, 9, False, False), (33, 2, False, False), (8, 6, True, False), (8, 4, True, True)])
+    (2, 9, False, True), (33, 2, False, True), (8, 6, True, True), (8, 4, True, True),
+    (8, 3, True, False), (4, 1, True, False)])
 def test_kernel_spec_limits(L, C, bf16, ok):
-    """K1/K2 take C from 1 to 8 and at most 32 levels (a warp per level, a
-    level's channels one row of its shared-memory tiles); K3 takes C 2, 4,
-    8."""
+    """K1/K2 take any level and channel count (a level's channels walked in
+    segments of at most 8, more than 32 (level, segment) pairs in several
+    launches); K3 takes any even C, as the JAX package's packed encode."""
     spec = the.make_spec(input_dim=3, num_levels=L, level_dim=C, base_resolution=8,
                          log2_hashmap_size=10, desired_resolution=64)
     if ok:

@@ -9,7 +9,7 @@ The earlier checkout's csrc/hash_encoder.cu, csrc/sampler.cu,
 csrc/composite.cu and csrc/voxels.cu are built with nvcc into build/parent/
 beside this checkout's library (build/kernels/); every entry point must
 have this checkout's C interface (the hash backward writing its table
-gradient through a [T C + L] int64 scratch, the weights pass writing its
+gradient through a [T C + max(L, 32)] int64 scratch, the weights pass writing its
 top-k values and picks, K5's given mode taking near, far and per-chunk
 extras). Both
 libraries run on the same operands, at chip_smoke.py's shapes:
@@ -63,10 +63,11 @@ ENTRIES = ("nsl_hash_encode_fwd", "nsl_hash_encode_bwd", "nsl_hash_encode_bf16_f
            "nsl_importance_sample", "nsl_importance_sample_given", "nsl_weights_topk_fwd",
            "nsl_composite_fwd", "nsl_composite_bwd", "nsl_topk_rgb_fwd", "nsl_topk_rgb_bwd", "nsl_voxel_scatter",
            "nsl_voxel_beta")
-# (hash_encoder_channels.cu, the K1/K2 channel counts other than 2, 4, 8,
-# where the tree has it)
-SOURCES = ("hash_encoder.cu", "hash_encoder_channels.cu", "sampler.cu", "composite.cu",
-           "voxels.cu")
+# (hash_encoder_channels.cu, which older trees hold for the K1/K2 channel
+# counts below 8 other than 2, 4, 8, and hash_encoder_segments*.cu, the
+# segmented kernels, where the tree has them)
+SOURCES = ("hash_encoder.cu", "hash_encoder_channels.cu", "hash_encoder_segments.cu",
+           "hash_encoder_segments_bwd.cu", "sampler.cu", "composite.cu", "voxels.cu")
 
 
 def build_other(other: str) -> ctypes.CDLL:
@@ -131,7 +132,8 @@ def hash_cases(dev, calls, rows_out):
         # scratch zero on entry and leaves it zero; an earlier one zeroes
         # it itself)
         scratch = {"this": he.fixed_point_scratch(spec, dev),
-                   "earlier": torch.zeros(T * C + L, dtype=torch.int64, device=dev)}
+                   "earlier": torch.zeros(T * C + max(L, 32), dtype=torch.int64,
+                                           device=dev)}
         acc = scratch["this"][:T * C]
         for order in ("ray", "uniform"):
             x = chip_smoke.hash_points(g, dev, kind, order)

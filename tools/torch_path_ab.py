@@ -114,6 +114,8 @@ print("RESULT " + json.dumps(dict(
     phases_s={k: v["total_s"] for k, v in s.items()})))
 """
 
+# the two SLAM main paths (chip_smoke.PATHS holds the other runs too)
+KINDS = ("demo", "flagship")
 METRICS = ("ms_per_map_iter", "ms_per_track_iter", "ms_per_cache_build", "s_per_frame",
            "render_s", "vis_s", "peak_mem_GiB", "vis_peak_mem_GiB", "kernels_per_track_iter",
            "kernels_per_map_iter", "kernels_per_cache_build", "device_ops_per_track_iter",
@@ -144,7 +146,7 @@ def main() -> int:
     trees = {"other": os.path.abspath(opt.other), "this": ROOT}
     procs = chip_smoke.start_scenes()
     try:
-        data = {kind: chip_smoke.wait_scene(procs, kind) for kind in chip_smoke.PATHS}
+        data = {kind: chip_smoke.wait_scene(procs, kind) for kind in KINDS}
     finally:
         for p in procs.values():
             if p.poll() is None:
@@ -152,12 +154,12 @@ def main() -> int:
                 p.wait()
     runs = []
     for i, side in enumerate(("other", "this", "this", "other")):
-        for kind in chip_smoke.PATHS:
+        for kind in KINDS:
             r = one_run(trees[side], kind, data[kind], f"{kind}_{side}_{i}")
             runs.append(dict(side=side, kind=kind, turn=i, **r))
             print(f"turn {i} {side:5s} {kind:8s} " + " ".join(
                 f"{m}={r[m]:.4g}" for m in METRICS), flush=True)
-    for kind in chip_smoke.PATHS:
+    for kind in KINDS:
         for m in METRICS:
             vals = {s: [r[m] for r in runs if r["kind"] == kind and r["side"] == s]
                     for s in trees}
