@@ -63,7 +63,12 @@ are taken with the card to themselves:
      channel counts 1, 3, 5, 6, 7 (100,352 uniform points), K1, K2 and K3
      on grids beyond 32 levels or 8 channels (HASH_WIDE_CASES: 40 x 2,
      16 x 16, 8 x 12 at a tracking iteration's 100,352 ray-ordered points),
-     and K9
+     K2's backward on bf16 rows (the sharded colour encode's, at the
+     flagship's colour grid on 131,072 top-16 and 401,408 demo points: its
+     table gradient the same over 3 launches and equal to K2's), K6 ray
+     mode, K5 given and K4's composite on 2580 rays from a camera outside
+     the cube, whose rays exit it behind the camera (far < near): which
+     entries are finite must agree with the plain versions, and K9
      (tsdf.integrate: one 680x1200 frame into a 256³
      volume that already holds one, bit for bit). The plain versions of K1/K2 run once;
      the K1/K2 backward runs twice more and its table gradient must come
@@ -145,11 +150,17 @@ are taken with the card to themselves:
      once per frame, the mono prior or the classical flow off the CPU by
      more than its bound, or a frame-10 flow loss of 0.
   9. parallel: parallel.dryrun at the flagship's full widths (8192 rays,
-     its grids), 2 mapping iterations in the replicated and psum_bf16
-     modes, under NCCL at world size 1 and as two gloo ranks sharing the
-     card, the latter held against the one-process step (the JAX
-     package's multichip bounds, and psum_bf16's all-reduced colour-grid
-     gradient within 4e-2 of the largest; parallel/dryrun.compare); then
+     its grids), 2 mapping iterations in the replicated, psum_bf16 and
+     sharded modes, under NCCL at world size 1 and as two gloo ranks
+     sharing the card, the latter held against the one-process step (the
+     JAX package's multichip bounds, psum_bf16's all-reduced colour-grid
+     gradient within 4e-2 of the largest, and sharded's loss within 4e-3
+     and every first gradient within 4e-2 of the largest, its table gathered
+     whole; parallel/dryrun.compare). The sharded mode must shard the colour
+     grid at two ranks and launch the bf16-row backward there, and take the
+     replicated path at one (sharded_tables 0); per mode it prints the bytes
+     sent by purpose, the colour grid's persistent bytes per rank and each
+     rank's peak device memory; then
      parallel.sweep on two scans with the demo networks, 6 frames each,
      both on the card at once, each scene's poses equal to its solo
      exp_runner run bit for bit.
@@ -1601,6 +1612,175 @@ def check_bf16_kernels(dev, chk: Checks):
         torch.cuda.empty_cache()
 
 
+# K2's backward on bf16 rows (the sharded colour encode's backward): the
+# flagship's colour grid at the top-16 points of a flagship mapping
+# iteration (8192 x 16) and at the demo's 4096 x 98, ray-ordered
+BF16_BWD_CASES = ("top16", "demo")
+
+
+def check_hash_bf16_bwd(dev, chk: Checks):
+    """The sharded colour encode's backward kernel against its plain
+    version (hash_encode_bf16_bwd_plain: autograd of the plain encode on
+    the widened bf16 table): grad_x within K2's backward bound, the table
+    gradient within it and the same bit for bit over 3 launches and equal
+    to K2's (it does not depend on the table), the kept accumulator zero
+    after each; the bound reads the touched rows in bf16."""
+    import torch
+    from nicer_slam_tpu_torch.ops import hash_encoder as he
+
+    spec = hash_specs()["color"]
+    L, C = spec.num_levels, spec.level_dim
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    packed = he.pack_table_bf16(torch.rand((spec.total_entries, C), generator=g,
+                                           device=dev) * 2 - 1)
+    acc = he.fixed_point_scratch(spec, dev)[:spec.total_entries * C]
+    for kind in BF16_BWD_CASES:
+        x = hash_points(g, dev, kind, "ray")
+        N = x.shape[0]
+        rows = touched_rows(spec, x)
+        gf = torch.randn((N, L * C), generator=g, device=dev)
+        g_table = torch.empty((spec.total_entries, C), device=dev)
+        g_x = torch.empty((N, 3), device=dev)
+
+        def bwd():
+            he.hash_encode_bf16_bwd_launch(spec, packed, x, 1.0, gf, g_table, g_x)
+
+        zero_after = []
+        bwd()
+        zero_after.append(not bool(acc.any()))
+        (pgt, pgx), pms = timed_once(lambda: he.hash_encode_bf16_bwd_plain(spec, packed, x,
+                                                                            gf))
+        ex, et = rel_l2(g_x, pgx), rel_l2(g_table, pgt)
+        err = max(max_abs(g_x, pgx), max_abs(g_table, pgt))
+        del pgt, pgx
+        first = g_table.clone()
+        same = True
+        for _ in range(2):
+            bwd()
+            zero_after.append(not bool(acc.any()))
+            same &= torch.equal(first, g_table)
+        # K2's backward on the float32 table: the same table gradient
+        he.hash_encode_bwd_launch(spec, packed.to(torch.float32), x, 1.0, False, gf, None,
+                                  g_table, None)
+        as_k2 = torch.equal(first, g_table)
+        del first
+        ms = cuda_time(bwd)
+        zero_after.append(not bool(acc.any()))
+        nb, ops = hash_cost(spec, N, rows, False, True)
+        # the touched rows read in bf16 (2 bytes a channel), not float32
+        nb -= rows * C * 2
+        chk.record(f"hash_encode_bf16.bwd[color/{kind}/ray]",
+                   "nicer_slam_tpu_torch/csrc/hash_encoder.cu",
+                   "nicer_slam_tpu/ops/hash_encoder.py:759", err,
+                   ex <= GRAD_REL_L2 and et <= GRAD_REL_L2 and same and as_k2
+                   and all(zero_after), ms, pms, nb, ops,
+                   f"(rel L2: grad_x {ex:.2e}, grad_table {et:.2e}; {N} points, {rows} rows; "
+                   f"the same over 3 launches: {same}; K2's table gradient: {as_k2}; "
+                   f"accumulator zero after each of 3 launches and after the timed ones: "
+                   f"{zero_after})")
+        del x, gf, g_table, g_x
+        torch.cuda.empty_cache()
+    del packed, acc
+    torch.cuda.empty_cache()
+
+
+# rays that leave the cube behind their camera (the long run's held-out
+# cameras from view 4 on stand outside the cube, and their rays, not of
+# unit length, exit it up to 2.1 behind them; PERF.md section 6): a render
+# chunk's 2580 unit rays in every direction from a camera 1.5 beyond the
+# cube's face, 640 unjittered prepass z from near 0 to the cube's far,
+# which is negative (at most -1.5) for the rays that point away from it
+# and meet it behind; the fog's density 1 / (BETA_A + BETA_C) overflows
+# the prepass transmittance where |far| > 88.72 (A + C)
+BEHIND_ORIGIN = (2.5, -0.11, -0.89)
+
+
+def check_behind_cube(dev, chk: Checks):
+    """K6 ray mode, K5 given and K4's composite on rays with near > far
+    against their plain versions: which entries are finite must agree, and
+    the finite entries as in the other checks (K6 within SDF_DENSITY_RTOL
+    of the largest density; K5's rays within Z_ATOL, sampler_agreement;
+    K4 within VAL_RTOL of each output's largest)."""
+    import torch
+    from nicer_slam_tpu_torch.ops import density as dens_ops
+    from nicer_slam_tpu_torch.ops import ray_sampling as rs
+    from nicer_slam_tpu_torch.ops import sdf_density as sd
+    from nicer_slam_tpu_torch.ops import volume_rendering as vr
+
+    R = GIVEN_RAYS
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    d = torch.randn((R, 3), generator=g, device=dev)
+    d = d / d.norm(dim=-1, keepdim=True)
+    o = torch.tensor(BEHIND_ORIGIN, device=dev).expand(R, 3).contiguous()
+    scfg = rs.SamplerConfig(N_samples=64, N_samples_eval=640, N_samples_extra=32)
+    z, near, far = rs.uniform_z_vals(scfg, o, d, None)
+    behind = int((far < near).sum())
+    sigma = 1.0 / (dens_ops.BETA_A + dens_ops.BETA_C)
+    overflow = int((far[:, 0] * -sigma > 88.72).sum())
+
+    def same_finite(a, b):
+        return bool(torch.equal(torch.isfinite(a), torch.isfinite(b)))
+
+    # K6, ray mode, on the flagship networks
+    net, vox = sdf_net(dev)
+    pack = sd.pack_sdf(net)
+    ko = sd.density_rays(net, pack, o, d, z, vox)
+    po = sd.density_rays_plain(net, pack.tables, o, d, z, vox)
+    fin = torch.isfinite(po)
+    err, scale = max_abs(ko[fin], po[fin]), float(po[fin].abs().max())
+    ms = cuda_time(lambda: sd.density_rays(net, pack, o, d, z, vox))
+    pms = cuda_time(lambda: sd.density_rays_plain(net, pack.tables, o, d, z, vox), iters=3,
+                    warmup=1)
+    chk.record(f"sdf_density.rays[behind {R}x640]", "nicer_slam_tpu_torch/csrc/sdf_density.cu",
+               "nicer_slam_tpu/models/scene_model.py:246", err,
+               same_finite(ko, po) and err <= SDF_DENSITY_RTOL * scale, ms, pms,
+               *sdf_density_cost(z.numel(), nbytes(o, d, z, ko)),
+               f"({behind} of {R} rays with far < near; finite entries agree: "
+               f"{same_finite(ko, po)}, {int(fin.sum())} of {po.numel()})")
+    del net, vox, pack, ko, po
+    torch.cuda.empty_cache()
+    # K5 given, the fog's density at every prepass sample
+    dens = torch.full_like(z, sigma)
+    perm = torch.linspace(0, 639, 32, device=dev).to(torch.int64)
+    eik = torch.zeros((R,), dtype=torch.int64, device=dev)
+    ins = (scfg, z, near, far, dens, perm, eik)
+    kz, ke = rs.importance_sample_given(*ins)
+    pz, pe = rs.importance_sample_given_plain(*ins)
+    rows_ok = torch.isfinite(pz).all(1) & torch.isfinite(kz).all(1)
+    a = sampler_agreement(kz[rows_ok], ke[rows_ok], pz[rows_ok], pe[rows_ok], z[rows_ok])
+    nan_rows = int((~torch.isfinite(pz)).any(1).sum())
+    ms = cuda_time(lambda: rs.importance_sample_given(*ins))
+    pms = cuda_time(lambda: rs.importance_sample_given_plain(*ins))
+    ok5 = same_finite(kz, pz) and same_finite(ke, pe) and a["ok"] and nan_rows > 0
+    chk.record(f"importance_sample_given[behind {R}]", "nicer_slam_tpu_torch/csrc/sampler.cu",
+               "nicer_slam_tpu/ops/ray_sampling.py:112", a["max_err"], ok5, ms, pms,
+               nbytes(*ins[1:], kz, ke), R * 640 * 20 + R * kz.shape[1] * 40,
+               f"(rays with a non-finite sample: {nan_rows}, predicted by the overflow "
+               f"{overflow}; finite entries agree: z {same_finite(kz, pz)}, z_eik "
+               f"{same_finite(ke, pe)}; finite rays off by more than {Z_ATOL:g}: "
+               f"{a['n_off']}, at u = 1 alone {a['n_u1']})")
+    # K4's composite on the plain version's samples, the fog's density
+    S = pz.shape[1]
+    zc, dc = pz.contiguous(), torch.full_like(pz, sigma)
+    rgb = torch.rand((R, S, 3), generator=g, device=dev)
+    nrm = torch.randn((R, S, 3), generator=g, device=dev)
+    with torch.no_grad():
+        ko, po = vr.composite(zc, dc, rgb, nrm), vr.composite_plain(zc, dc, rgb, nrm)
+        ms = cuda_time(lambda: vr.composite(zc, dc, rgb, nrm))
+        pms = cuda_time(lambda: vr.composite_plain(zc, dc, rgb, nrm))
+    fin_ok = all(same_finite(k, p) for k, p in zip(ko, po))
+    errs = [max_abs(k[torch.isfinite(p)], p[torch.isfinite(p)]) for k, p in zip(ko, po)]
+    scales = [float(p[torch.isfinite(p)].abs().max()) for p in po]
+    chk.record(f"composite.fwd[behind {R}x{S}]", "nicer_slam_tpu_torch/csrc/composite.cu",
+               "nicer_slam_tpu/ops/volume_rendering.py:15", max(errs),
+               fin_ok and all(e <= VAL_RTOL * sc for e, sc in zip(errs, scales)), ms, pms,
+               nbytes(zc, dc, rgb, nrm, *ko), R * S * 30,
+               f"(finite entries agree: {fin_ok}; rays with a non-finite colour: "
+               f"{int((~torch.isfinite(po[1])).any(1).sum())})")
+
+
 # K7's points: a flagship mapping iteration's 8192 x 98 samples, as the
 # earlier kernel was timed (70 % on a thin shell around the surface they
 # crowd to, the rest anywhere, a few outside; in no order) and ray-ordered
@@ -2548,12 +2728,29 @@ def report_parallel(dr: dict, sw: dict, failures) -> None:
             failures.append(f"parallel: dryrun {name} failed (rc {res['rc']})")
             continue
         for mode, m in rep["modes"].items():
-            log(f"    {mode}: losses {m['losses']} ms/iter {m['ms_per_iter']} all-reduce "
-                f"{m['allreduce_bytes']:.0f} B in {m['allreduce_ms']:.2f} ms "
-                f"(bf16 tables {m['bf16_tables']})")
+            log(f"    {mode}: losses {m['losses']} ms/iter {m['ms_per_iter']} sent "
+                f"{m['allreduce_bytes']:.0f} B {m['sent_bytes']} (gradient all-reduce alone "
+                f"{m['allreduce_ms']:.2f} ms); colour grid {m['color_grid_bytes_per_rank']} B "
+                f"per rank (table and Adam moments); peak device memory per rank "
+                f"{m.get('max_memory_allocated_per_rank')} B (rank 0 per iteration: at its "
+                f"start, peak before and after the Adam step {m.get('memory_per_iter')}); "
+                f"bf16 tables {m['bf16_tables']}, "
+                f"sharded_tables: {m['sharded_tables']} "
+                f"{m.get('collectives_served', '')}")
             if "check" in m and not m["check"]["ok"]:
                 failures.append(f"parallel: {name} {mode} differs from the one-process step "
                                 f"{m['check']}")
+        # the sharded mode shards the flagship's colour grid at two ranks and
+        # takes the replicated path at one (sharded_applies), and its
+        # backward is the bf16-row kernel's
+        sharded = rep["modes"].get("sharded", {})
+        want = 1 if rep["world"] > 1 else 0
+        if sharded.get("sharded_tables") != want:
+            failures.append(f"parallel: {name} sharded_tables {sharded.get('sharded_tables')}, "
+                            f"expected {want}")
+        bwd = rep.get("launches", {}).get("hash_encode_bf16.bwd", 0)
+        if (bwd > 0) != bool(want):
+            failures.append(f"parallel: {name} launched hash_encode_bf16.bwd {bwd} times")
         if res["check"] and "reference" not in rep:
             failures.append(f"parallel: {name} ran no one-process check")
     log(f"  sweep: 2 scenes on one card in {sw['sweep_s']:.1f} s (solo runs "
@@ -3126,7 +3323,9 @@ def main() -> int:
         check_voxel_kernels(dev, chk)
         check_topk_kernels(dev, chk)
         check_bf16_kernels(dev, chk)
+        check_hash_bf16_bwd(dev, chk)
         check_sampler_kernels(dev, chk)
+        check_behind_cube(dev, chk)
         check_sdf_density(dev, chk)
         check_sdf_general(dev, chk)
         check_tsdf_kernel(dev, chk)

@@ -131,6 +131,11 @@ extern "C" int nsl_hash_bwd_segments(const float* x, const float* table, const i
                                      const float* g_dfeat, float* g_table, float* g_x,
                                      long long* acc, int64_t N, int L, int C, int CS,
                                      float size, int64_t T, cudaStream_t s);
+extern "C" int nsl_hash_bf16_bwd_segments(const float* x, const uint16_t* table,
+                                          const int* meta, const float* scl,
+                                          const float* g_feat, float* g_table, float* g_x,
+                                          long long* acc, int64_t N, int L, int C, int CS,
+                                          float size, int64_t T, cudaStream_t s);
 extern "C" int nsl_hash_bf16_segments(const float* x, const uint16_t* table, const int* meta,
                                       const float* scl, float* feats, int64_t N, int L, int C,
                                       int CS, float size, cudaStream_t s);
@@ -215,6 +220,41 @@ int nsl_hash_encode_bf16_fwd(const void* x, const void* table,
       return nsl_hash_bf16_segments((const float*)x, (const uint16_t*)table,
                                     (const int*)meta, (const float*)scl, (float*)feats, N, L,
                                     C, C % 8 == 0 ? 8 : C % 4 == 0 ? 4 : 2, size, s);
+  }
+}
+
+// K2's backward on a [T, C] bfloat16 table (the sharded colour encode:
+// its forward is K3 on the rows the ranks all-gathered in bf16, and this
+// backward reads the same rows for grad_x), any even C as K3, any L >= 1.
+// g_table [T, C] fp32 and g_x [N, 3] as nsl_hash_encode_bwd, either may be
+// NULL; with g_table, scratch is the same [T C + 32] int64 accumulator,
+// zero on entry and on a successful return. The table gradient does not
+// depend on the table, so it is K2's bit for bit.
+int nsl_hash_encode_bf16_bwd(const void* x, const void* table, const void* meta,
+                             const void* scl, const void* g_feat, void* g_table, void* g_x,
+                             void* scratch, int64_t N, int L, int C, float size, int64_t T,
+                             void* stream) {
+  if (L < 1 || C < 2 || C % 2 != 0) return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  if (N == 0)
+    return g_table == nullptr
+        ? 0 : (int)cudaMemsetAsync(g_table, 0, (size_t)(T * C) * sizeof(float), s);
+  if (g_table != nullptr && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  auto args = [&](auto launch) {
+    return launch((const float*)x, (const uint16_t*)table, (const int*)meta,
+                  (const float*)scl, (const float*)g_feat, (float*)g_table, (float*)g_x,
+                  (long long*)scratch, N, L, C, size, T, s);
+  };
+  switch (C) {
+    case 2: return args(launch_bf16_bwd<2, false>);
+    case 4: return args(launch_bf16_bwd<4, false>);
+    case 8: return args(launch_bf16_bwd<8, false>);
+    default:
+      return nsl_hash_bf16_bwd_segments((const float*)x, (const uint16_t*)table,
+                                        (const int*)meta, (const float*)scl,
+                                        (const float*)g_feat, (float*)g_table, (float*)g_x,
+                                        (long long*)scratch, N, L, C,
+                                        C % 8 == 0 ? 8 : C % 4 == 0 ? 4 : 2, size, T, s);
   }
 }
 

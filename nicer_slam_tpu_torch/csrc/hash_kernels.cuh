@@ -372,10 +372,13 @@ __global__ void hash_fwd_kernel(const float* __restrict__ x,
 // acc[row(k), c] += (g_feat[c] w_k + sum_d g_dfeat[c, d] dw_k,d) 2^k_v   (atomic)
 // g_x[n, e] = sum_l sum_k sum_c v_k[c] (g_feat[c] dw_k,e + sum_d g_dfeat[c, d] h_k[d][e])
 // over the slice's L = sl.nv virtual levels (C below is the segment width
-// CS), added to g_x's earlier slices when v0 > 0
-template <int C, bool JAC, bool SEG>
+// CS), added to g_x's earlier slices when v0 > 0. The corner rows v_k
+// come from a fp32 table (K1/K2) or a bf16 one widened (Bf16Rows: the
+// backward of the sharded colour encode, whose forward is K3 on the
+// gathered bf16 rows); the table gradient is the same either way.
+template <int C, bool JAC, typename Rows, bool SEG>
 __global__ void hash_bwd_kernel(const float* __restrict__ x,
-                                const float* __restrict__ table,
+                                const typename Rows::Elem* __restrict__ table,
                                 const int* __restrict__ meta,
                                 const float* __restrict__ scl,
                                 const float* __restrict__ g_feat,
@@ -463,7 +466,7 @@ __global__ void hash_bwd_kernel(const float* __restrict__ x,
       // with a = v . g_feat and b_d = v . g_dfeat[:, d], this corner adds
       // a dw_e + sum_d b_d h[d][e] to grad_x[e]
       float v[C];
-      load_vec<C>(table + row_word<C, SEG>(sl, row, c0), v);
+      Rows::template load<C>(table + row_word<C, SEG>(sl, row, c0), v);
       float a = 0.0f, b[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
       for (int c = 0; c < C; ++c) {
@@ -576,12 +579,14 @@ int launch_bf16_fwd(const float* x, const uint16_t* table, const int* meta,
 // with a table gradient, per slice: zero the maxima, take them, scatter
 // in fixed point, convert and re-zero the slice's rows and columns; acc
 // is [T C + 32] int64 (the last 32 words hold a slice's 2 nv <= 64
-// maxima), its first T C words zero on entry and on exit
-template <int CS, bool SEG>
-int launch_bwd(const float* x, const float* table, const int* meta,
-               const float* scl, const float* g_feat, const float* g_dfeat,
-               float* g_table, float* g_x, long long* acc, int64_t N, int L, int C,
-               float size, int64_t T, cudaStream_t s) {
+// maxima), its first T C words zero on entry and on exit. Rows: the
+// table's rows, fp32 (K1/K2) or bf16 (the sharded colour encode, without
+// the Jacobian)
+template <int CS, bool JAC, typename Rows, bool SEG>
+int launch_bwd_rows(const float* x, const typename Rows::Elem* table, const int* meta,
+                    const float* scl, const float* g_feat, const float* g_dfeat,
+                    float* g_table, float* g_x, long long* acc, int64_t N, int L, int C,
+                    float size, int64_t T, cudaStream_t s) {
   unsigned* maxes = nullptr;
   int count_bits = 0;
   if (g_table != nullptr) {
@@ -590,11 +595,9 @@ int launch_bwd(const float* x, const float* table, const int* meta,
   } else {
     acc = nullptr;
   }
-  const bool jac = g_dfeat != nullptr;
-  auto kern = jac ? hash_bwd_kernel<CS, true, SEG> : hash_bwd_kernel<CS, false, SEG>;
-  static const int maxw_jac = max_warps(hash_bwd_kernel<CS, true, SEG>);
-  static const int maxw = max_warps(hash_bwd_kernel<CS, false, SEG>);
-  return for_slices(L, C, CS, jac ? maxw_jac : maxw, [&](const Slice& sl) {
+  auto kern = hash_bwd_kernel<CS, JAC, Rows, SEG>;
+  static const int maxw = max_warps(kern);
+  return for_slices(L, C, CS, maxw, [&](const Slice& sl) {
     const int LC = sl.nv * CS;
     if (g_table != nullptr) {
       cudaError_t e = cudaMemsetAsync(maxes, 0, (size_t)sl.nv * sizeof(long long), s);
@@ -607,7 +610,7 @@ int launch_bwd(const float* x, const float* table, const int* meta,
       if (e != cudaSuccess) return (int)e;
     }
     const int floats = smem_x() + sl.nv * kPts * (CS + 3) + smem_feat(LC) +
-                       (jac ? smem_dfeat(LC) : 0);
+                       (JAC ? smem_dfeat(LC) : 0);
     const int rc = launch_blocks(kern, N, sl.nv, kPts, floats, s, x, table, meta, scl, g_feat,
                                  g_dfeat, acc, (const unsigned*)maxes, g_x, N, sl, size,
                                  count_bits);
@@ -616,6 +619,26 @@ int launch_bwd(const float* x, const float* table, const int* meta,
                                                          CS, count_bits);
     return (int)cudaGetLastError();
   });
+}
+
+template <int CS, bool SEG>
+int launch_bwd(const float* x, const float* table, const int* meta,
+               const float* scl, const float* g_feat, const float* g_dfeat,
+               float* g_table, float* g_x, long long* acc, int64_t N, int L, int C,
+               float size, int64_t T, cudaStream_t s) {
+  auto launch = g_dfeat != nullptr ? launch_bwd_rows<CS, true, Fp32Rows, SEG>
+                                   : launch_bwd_rows<CS, false, Fp32Rows, SEG>;
+  return launch(x, table, meta, scl, g_feat, g_dfeat, g_table, g_x, acc, N, L, C, size, T, s);
+}
+
+// K2's backward on bf16 rows: the sharded colour encode's backward
+template <int CS, bool SEG>
+int launch_bf16_bwd(const float* x, const uint16_t* table, const int* meta,
+                    const float* scl, const float* g_feat, float* g_table, float* g_x,
+                    long long* acc, int64_t N, int L, int C, float size, int64_t T,
+                    cudaStream_t s) {
+  return launch_bwd_rows<CS, false, Bf16Rows, SEG>(x, table, meta, scl, g_feat, nullptr,
+                                                   g_table, g_x, acc, N, L, C, size, T, s);
 }
 
 // CS for K1/K2: the largest divisor of C up to 8

@@ -45,7 +45,8 @@
 //   * step 5 is Ns binary searches over the warp's cdf row, lane-strided
 //     (2 per lane at Ns = 64);
 //   * step 6 sorts the merged row with a warp bitonic sort in 128 slots
-//     (+inf padding), 4 per lane in registers, exchanging across lanes by
+//     (padding after NaN, which sorts after +inf as torch.sort puts it), 4
+//     per lane in registers as unsigned keys, exchanging across lanes by
 //     shuffles: 28 compare-exchange stages, no shared memory traffic;
 //   * z_vals leaves through the merged row as one coalesced row per ray.
 // The plain version (ops/ray_sampling.py) sums in the same lane-chunked
@@ -140,10 +141,29 @@ __device__ __forceinline__ RayRows ray_rows(float* smem, int Ne) {
   return {base, base + Ne, base + 2 * Ne};
 }
 
-// ascending sort of the 32 * kSlots values of a warp, lane l holding slots
+// The sort's order as unsigned keys: -inf, the finite values and +inf
+// ascending, then NaN, then the padding. torch.sort (the plain version)
+// places NaN last too: a ray whose prepass weights overflow (its z running
+// backwards from a camera outside the cube, PERF.md) keeps its NaN samples
+// at the end of its row, where a float min/max network would drop them and
+// duplicate finite ones.
+constexpr unsigned kNanKey = 0xfffffffeu;
+constexpr unsigned kPadKey = 0xffffffffu;
+
+__device__ __forceinline__ unsigned sort_key(float x) {
+  const unsigned b = __float_as_uint(x);
+  return isnan(x) ? kNanKey : (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(unsigned k) {
+  return k >= kNanKey ? __uint_as_float(0x7fc00000u)
+                      : __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// ascending sort of the 32 * kSlots keys of a warp, lane l holding slots
 // kSlots l .. kSlots l + kSlots - 1: the bitonic network, a partner in the
 // same lane compared in registers, one in another lane read by a shuffle
-__device__ __forceinline__ void warp_bitonic_sort(float v[kSlots], int lane) {
+__device__ __forceinline__ void warp_bitonic_sort(unsigned v[kSlots], int lane) {
 #pragma unroll
   for (int k = 2; k <= kMaxSorted; k <<= 1) {
 #pragma unroll
@@ -154,9 +174,9 @@ __device__ __forceinline__ void warp_bitonic_sort(float v[kSlots], int lane) {
           const int q2 = q ^ j;
           if (q2 > q) {
             const bool up = ((lane * kSlots + q) & k) == 0;
-            const float a = v[q], b = v[q2];
-            v[q] = up ? fminf(a, b) : fmaxf(a, b);
-            v[q2] = up ? fmaxf(a, b) : fminf(a, b);
+            const unsigned a = v[q], b = v[q2];
+            v[q] = up ? min(a, b) : max(a, b);
+            v[q2] = up ? max(a, b) : min(a, b);
           }
         }
       } else {
@@ -164,9 +184,9 @@ __device__ __forceinline__ void warp_bitonic_sort(float v[kSlots], int lane) {
         const bool lower = (lane & lanes) == 0;
 #pragma unroll
         for (int q = 0; q < kSlots; ++q) {
-          const float o = __shfl_xor_sync(kFull, v[q], lanes);
+          const unsigned o = __shfl_xor_sync(kFull, v[q], lanes);
           const bool up = ((lane * kSlots + q) & k) == 0;
-          v[q] = (lower == up) ? fminf(v[q], o) : fmaxf(v[q], o);
+          v[q] = (lower == up) ? min(v[q], o) : max(v[q], o);
         }
       }
     }
@@ -238,18 +258,18 @@ __device__ __forceinline__ void sample_ray(const RayRows& rows, int lane, int Ne
   for (int k = lane; k < Nextra + 2; k += 32)
     rows.merged[Ns + k] = k == 0 ? near : (k == 1 ? far : rows.z[perm[k - 2]]);
   __syncwarp();
-  float v[kSlots];
+  unsigned v[kSlots];
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
     const int e = lane * kSlots + s;
-    v[s] = e < St ? rows.merged[e] : INFINITY;
+    v[s] = e < St ? sort_key(rows.merged[e]) : kPadKey;
   }
   warp_bitonic_sort(v, lane);
   __syncwarp();  // every lane has read its slots before the row is rewritten
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
     const int e = lane * kSlots + s;
-    if (e < St) rows.merged[e] = v[s];
+    if (e < St) rows.merged[e] = key_value(v[s]);
   }
   __syncwarp();
   // 7. the sorted row out, coalesced; the eikonal anchor from it

@@ -489,7 +489,10 @@ def rendering_forward(net: RenderingNet, points: torch.Tensor,
                       image_indices: Optional[torch.Tensor] = None):
     """Color per sample point [N,3] in the configured mode
     (base_networks.py:333-395). In the ``base`` color stage the color grid
-    is detached: K2 runs forward only, under no_grad. ``image_indices``
+    is detached: K2 runs forward only, under no_grad. A render net whose
+    ``color_shard`` is set holds only its rank's rows of the color grid and
+    encodes through ``hash_encode_sharded`` (an all-gather forward, a
+    reduce-scatter in the backward of the ``highfreq`` stage). ``image_indices``
     [N] (each point's frame index) selects the per-image or exposure codes.
     With ``model_exposure`` the result is (sigmoid(R·x + t), sigmoid(x)):
     the exposure-corrected colour and the colour before it."""
@@ -501,11 +504,17 @@ def rendering_forward(net: RenderingNet, points: torch.Tensor,
     if "normals_detached" in RENDER_MODES[cfg.mode]:
         inputs["normals_detached"] = normals.detach()
     if cfg.use_grid_feature:
+        shard = getattr(net, "color_shard", None)
+        if shard is None:
+            encode = lambda: he.hash_encode(net.spec, net.encoding, points)
+        else:
+            # the table is this rank's rows (parallel/mesh.shard_color_grid)
+            encode = lambda: he.hash_encode_sharded(net.spec, net.encoding, points, shard)
         if color_stage == "base":
             with torch.no_grad():
-                inputs["grid"] = he.hash_encode(net.spec, net.encoding, points)
+                inputs["grid"] = encode()
         else:
-            inputs["grid"] = he.hash_encode(net.spec, net.encoding, points)
+            inputs["grid"] = encode()
     x = torch.cat([inputs[k] for k in RENDER_MODES[cfg.mode] if k in inputs], dim=-1)
     if cfg.per_image_code:
         x = torch.cat([x, net.embeddings[image_indices]], dim=-1)

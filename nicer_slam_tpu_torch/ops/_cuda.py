@@ -37,7 +37,7 @@ LINK_FLAGS = ARCH_FLAGS + ["-shared"]
 # kernel name -> launches since the last reset (forward and backward kernels
 # are separate entries)
 KERNELS = ("hash_encode_with_grad.fwd", "hash_encode_with_grad.bwd",
-           "hash_encode.fwd", "hash_encode.bwd", "hash_encode_bf16",
+           "hash_encode.fwd", "hash_encode.bwd", "hash_encode_bf16", "hash_encode_bf16.bwd",
            "composite.fwd", "composite.bwd",
            "weights_topk.fwd", "weights_topk.bwd", "topk_rgb.fwd", "topk_rgb.bwd",
            "importance_sample", "importance_sample_given",
@@ -66,6 +66,9 @@ _SIGNATURES = {
     "nsl_composite_bwd": [_P] * 14 + [_I64, _I, _I, _P],
     # x, table [T, C] bf16, meta, scale, feats, N, L, C, size, stream
     "nsl_hash_encode_bf16_fwd": [_P] * 5 + [_I64, _I, _I, _F, _P],
+    # x, table [T, C] bf16, meta, scale, g_feat, g_table, g_x, scratch,
+    # N, L, C, size, T, stream
+    "nsl_hash_encode_bf16_bwd": [_P] * 8 + [_I64, _I, _I, _F, _I64, _P],
     # z, density, normals, weights, depth_out, normal_out, topk_w, wsum,
     # picks, R, S, Kc, stream
     "nsl_weights_topk_fwd": [_P] * 9 + [_I64, _I, _I, _P],

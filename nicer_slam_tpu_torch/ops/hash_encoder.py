@@ -15,6 +15,11 @@ nicer_slam_tpu/ops/hash_encoder.py): kernels K1 and K2.
     version of K6 (``ops/sdf_density``); on the card K6's kernel gathers
     the same features itself, with K3's row loader and geometry
     (``csrc/hash_grid.cuh``).
+  * ``hash_encode_sharded``: the colour grid under the ``sharded``
+    collective mode (``parallel/mesh.py``), from this rank's rows of the
+    table: K3 on the rows all-gathered in bf16 forward, K2's backward on
+    the same bf16 rows (``hash_encode_bf16_bwd_launch``) and a bf16
+    reduce-scatter of the table gradient backward.
 
 Tables are ``[T, C]`` float32 (a corner's C channels are one row), the
 transpose of the JAX package's ``[C, T]``; ``slam/checkpoint.py``
@@ -23,8 +28,8 @@ transposes at the file boundary, so checkpoints keep the JAX layout.
 All share a plain PyTorch version (``hash_encode_plain``), which the
 wrapper runs for a CPU tensor, and a CUDA kernel (``csrc/hash_encoder.cu``),
 which it launches for a CUDA tensor. The TPU package's row gathers, cell-block tables, sorted
-scatters, uint32 channel-pair packing and ICI modes are TPU workarounds and have no
-counterpart here: on the card the backward is an atomic scatter in 64-bit
+scatters, uint32 channel-pair packing and ICI-only gather modes are TPU workarounds and
+have no counterpart here: on the card the backward is an atomic scatter in 64-bit
 fixed point (integer adds land in any order with the same sum, so the
 table gradient is the same from run to run, as XLA's scatter is), into an
 accumulator kept per (device, size) that each call leaves zero
@@ -368,19 +373,143 @@ def hash_encode_bf16(spec: HashGridSpec, packed: torch.Tensor, x: torch.Tensor,
         return hash_encode_bf16_plain(spec, packed, x, size)
     if x.device.type != "cuda":
         raise ValueError(f"hash_encode_bf16: unsupported device {x.device}")
-    _check_spec(spec, bf16=True)
-    N, L, C = x.shape[0], spec.num_levels, spec.level_dim
-    _cuda.check(x, "x", torch.float32, (N, 3))
-    _cuda.check(packed, "packed", torch.bfloat16, (spec.total_entries, C),
-                device=x.device)
-    if packed.data_ptr() % 16:
-        raise ValueError("packed: the kernel's row loads need a 16-byte aligned table")
+    _check_bf16_operands(spec, packed, x)
     meta, scl = _level_tables(spec, float(size), str(x.device))
+    N, L, C = x.shape[0], spec.num_levels, spec.level_dim
     feats = torch.empty((N, L * C), dtype=torch.float32, device=x.device)
     _cuda.launch("hash_encode_bf16", "nsl_hash_encode_bf16_fwd", N, x.data_ptr(),
                  packed.data_ptr(), meta.data_ptr(), scl.data_ptr(), feats.data_ptr(),
                  N, L, C, float(size))
     return feats
+
+
+def _check_bf16_operands(spec: HashGridSpec, packed: torch.Tensor, x: torch.Tensor):
+    _check_spec(spec, bf16=True)
+    _cuda.check(x, "x", torch.float32, (x.shape[0], 3))
+    _cuda.check(packed, "packed", torch.bfloat16, (spec.total_entries, spec.level_dim),
+                device=x.device)
+    if packed.data_ptr() % 16:
+        raise ValueError("packed: the kernel's row loads need a 16-byte aligned table")
+
+
+# ---------------------------------------------------------------------------
+# The sharded colour encode (the JAX package's "sharded" collective mode,
+# nicer_slam_tpu/ops/hash_encoder.py:681-781): K3 forward and K2's backward
+# on the bf16 rows the ranks all-gathered
+# ---------------------------------------------------------------------------
+
+def hash_encode_bf16_bwd_plain(spec: HashGridSpec, packed: torch.Tensor, x: torch.Tensor,
+                               g_feat: torch.Tensor, size: float = 1.0,
+                               table_grad: bool = True, x_grad: bool = True):
+    """Plain version of K2's backward on bf16 rows: (g_table [T, C]
+    float32, g_x [N, 3]) of ``sum(g_feat · hash_encode_plain(widened
+    table, x))``, either None where not asked for."""
+    with torch.enable_grad():
+        table = packed.detach().to(torch.float32).requires_grad_(table_grad)
+        xx = x.detach().requires_grad_(x_grad)
+        wrt = [t for t, need in ((table, table_grad), (xx, x_grad)) if need]
+        if not wrt:
+            return None, None
+        grads = list(torch.autograd.grad(hash_encode_plain(spec, table, xx, size), wrt,
+                                         g_feat))
+    return (grads.pop(0) if table_grad else None), (grads.pop(0) if x_grad else None)
+
+
+def hash_encode_bf16_bwd_launch(spec: HashGridSpec, packed: torch.Tensor, x: torch.Tensor,
+                                size: float, g_feat: torch.Tensor,
+                                g_table: torch.Tensor | None,
+                                g_x: torch.Tensor | None) -> None:
+    """One launch of K2's backward on a ``[T, C]`` bf16 table into
+    preallocated outputs: ``g_table`` [T, C] float32 (summed in fixed point
+    in ``fixed_point_scratch``, bit for bit run to run) and ``g_x`` [N, 3];
+    either may be None."""
+    _check_bf16_operands(spec, packed, x)
+    N, L, C, T = x.shape[0], spec.num_levels, spec.level_dim, spec.total_entries
+    meta, scl = _level_tables(spec, float(size), str(x.device))
+    _cuda.check(g_feat, "g_feat", torch.float32, (N, L * C), device=x.device)
+    scratch = None
+    if g_table is not None:
+        _cuda.check(g_table, "g_table", torch.float32, (T, C), device=x.device)
+        scratch = fixed_point_scratch(spec, x.device)
+    if g_x is not None:
+        _cuda.check(g_x, "g_x", torch.float32, (N, 3), device=x.device)
+    try:
+        _cuda.launch("hash_encode_bf16.bwd", "nsl_hash_encode_bf16_bwd", N, x.data_ptr(),
+                     packed.data_ptr(), meta.data_ptr(), scl.data_ptr(), g_feat.data_ptr(),
+                     _cuda.ptr(g_table), _cuda.ptr(g_x), _cuda.ptr(scratch), N, L, C,
+                     float(size), T)
+    except RuntimeError:
+        _SCRATCH.clear()
+        raise
+
+
+class _HashEncodeSharded(torch.autograd.Function):
+    """The colour grid from row shards: the forward gathers the whole
+    table in bf16 and encodes with K3; the backward takes K2's backward on
+    the same bf16 rows and reduce-scatters the bf16-rounded table gradient
+    to the shards (the JAX package's _gcv_sharded_fwd / _gcv_sharded_bwd).
+    The gathered table ([T, C] bf16) is the only whole copy of the table on
+    a rank, kept from the forward to the backward's kernel."""
+
+    @staticmethod
+    def forward(ctx, x, shard_table, spec, size, shard):
+        from ..parallel import mesh
+
+        full = mesh.gather_table_rows(shard_table.detach().to(torch.bfloat16), shard)
+        x = x.detach()
+        feats = hash_encode_bf16(spec, full, x, size)
+        ctx.save_for_backward(x)
+        # an intermediate, kept on ctx so that the backward can free it
+        # before the reduce-scatter
+        ctx.full = full
+        ctx.spec, ctx.size, ctx.shard = spec, float(size), shard
+        return feats
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_feat):
+        from ..parallel import mesh
+
+        (x,) = ctx.saved_tensors
+        full, ctx.full = ctx.full, None
+        need_x, need_t = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
+        spec, size = ctx.spec, ctx.size
+        g_feat = g_feat.contiguous()
+        if x.device.type == "cpu":
+            g_table, g_x = hash_encode_bf16_bwd_plain(spec, full, x, g_feat, size,
+                                                      need_t, need_x)
+        else:
+            g_table = (torch.empty((spec.total_entries, spec.level_dim), dtype=torch.float32,
+                                   device=x.device) if need_t else None)
+            g_x = torch.empty_like(x) if need_x else None
+            if need_t or need_x:
+                hash_encode_bf16_bwd_launch(spec, full, x, size, g_feat, g_table, g_x)
+        del full
+        g_shard = None
+        if need_t:
+            # bf16 reduce-scatter straight back to this rank's rows; the
+            # gathered table and the float32 whole are freed first
+            g_bf16 = g_table.to(torch.bfloat16)
+            del g_table
+            g_shard = mesh.reduce_scatter_rows(g_bf16, ctx.shard).to(torch.float32)
+        return g_x, g_shard, None, None, None
+
+
+def hash_encode_sharded(spec: HashGridSpec, shard_table: torch.Tensor, x: torch.Tensor,
+                        shard, size: float = 1.0) -> torch.Tensor:
+    """The colour encode of the ``sharded`` collective mode: ``x`` [N, 3]
+    (this rank's points) -> [N, L·C] from this rank's contiguous rows
+    ``shard_table`` [T / W, C] of a grid split over W = ``shard.world``
+    ranks (``parallel.mesh.shard_color_grid``). Every rank must call it,
+    and its backward, together. Plain versions on CPU, K3 and K2's
+    backward on bf16 rows on CUDA."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"hash_encode_sharded: unsupported device {x.device}")
+    _check_spec(spec, bf16=True)
+    if shard_table.shape[0] * shard.world != spec.total_entries:
+        raise ValueError(f"hash_encode_sharded: {shard_table.shape[0]} rows x {shard.world} "
+                         f"ranks is not the grid's {spec.total_entries}")
+    return _HashEncodeSharded.apply(x, shard_table, spec, float(size), shard)
 
 
 def hash_encode_with_grad(spec: HashGridSpec, table: torch.Tensor,

@@ -19,18 +19,35 @@ the same split is explicit, one process per device:
     (the SDF at the cameras) passes ``replicated``, whose backward divides
     by the world size;
   * after ``backward()`` one sum all-reduce of every parameter gradient
-    and of the BA pose gradient (``allreduce_grads``), so every rank holds
-    the same bits and takes the same Adam and sign steps.
+    (but a row shard's, below) and of the BA pose gradient
+    (``allreduce_grads``), so every rank holds the same bits and takes the
+    same Adam and sign steps.
 
 ``DistributedDataParallel`` would do neither the forward exchanges nor
 the eikonal terms' second-order backward, so it is not used.
 
-Collective modes for the gradient all-reduce (the JAX package's
-``enable_grid_collectives``): ``replicated`` (float32, the JAX default)
-and ``psum_bf16`` (the colour grid's gradient, a table of at least
-``GRID_SHARD_MIN_ENTRIES`` rows, all-reduced in bfloat16 and cast back;
-the SDF grids and the MLPs stay in float32). The JAX package's ``sharded``
-mode (the table and its Adam moments row-sharded) is not ported yet.
+Collective modes for the colour grid (the JAX package's
+``enable_grid_collectives``), each for a table of at least
+``GRID_SHARD_MIN_ENTRIES`` rows: ``replicated`` (the gradients all-reduced
+in float32, the JAX default); ``psum_bf16`` (the colour grid's gradient
+all-reduced in bfloat16 and cast back; the SDF grids and the MLPs stay in
+float32); ``sharded`` (``shard_color_grid``: each rank keeps its
+contiguous T / N rows of the table, so torch's Adam keeps its moments at
+the shard's shape too; the forward all-gathers the rows in bf16 and
+encodes from them with K3, the backward scatters the rank's cotangents
+into a full-size gradient with K2's backward on the bf16 rows and a bf16
+reduce-scatter brings the summed rows to their owners,
+``ops/hash_encoder.hash_encode_sharded``). Where ``sharded_applies`` is
+false (one rank, a table under the threshold, rows or points that do not
+divide over the ranks: 133,023,682 rows at four ranks) the mode takes the
+replicated path, as the JAX package does, and ``shard_color_grid`` says so.
+
+The bytes a rank sends (``sent_bytes``, by purpose) follow a ring: an
+all-reduce of B bytes sends 2 (N - 1) / N B, an all-gather or a
+reduce-scatter of a B-byte whole (N - 1) / N B. NCCL serves the rows'
+all-gather and reduce-scatter with ``all_gather_into_tensor`` and
+``reduce_scatter_tensor``; gloo with a sum all-reduce of a zero-padded
+buffer (``COLLECTIVE_SERVED``), twice the bytes.
 
 The K1/K2 table gradient is summed in 64-bit fixed point on each rank and
 converted to float32 there; the ranks' float32 gradients are then summed
@@ -43,35 +60,50 @@ Process groups: ``init_process_group`` reads the ``torchrun`` environment
 (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT) or takes rank, world size and
 an ``init_method`` (``tcp://localhost:<port>``, ``file://<path>``). NCCL
 serves CUDA ranks, gloo CPU ranks; gloo also takes CUDA tensors for the
-all-reduce, which is the only collective used here, so two gloo ranks can
-share one card. Gathers are all-reduces of zero-padded buffers for that
-reason (a row plus zeros is the row; the rows are small next to the
-gradients).
+all-reduce, which is the only collective used with it, so two gloo ranks
+can share one card. The per-ray gathers are all-reduces of zero-padded
+buffers under either backend (a row plus zeros is the row; the rows are
+small next to the gradients).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Iterable, NamedTuple, Optional
+from typing import Dict, Iterable, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
 
-# the JAX package's collective modes; "sharded" is not ported yet
-COLLECTIVE_MODES = ("replicated", "psum_bf16")
-# the smallest table (rows) whose gradient psum_bf16 all-reduces in bf16
+# the JAX package's collective modes (nicer_slam_tpu/parallel/mesh.py
+# enable_grid_collectives)
+COLLECTIVE_MODES = ("replicated", "psum_bf16", "sharded")
+# the smallest table (rows) that psum_bf16 and sharded take
 # (nicer_slam_tpu/ops/hash_encoder.py GRID_SHARD_MIN_ENTRIES)
 GRID_SHARD_MIN_ENTRIES = 1 << 22
+# backend -> the collective that serves the bf16 rows' all-gather and
+# reduce-scatter
+COLLECTIVE_SERVED = {
+    "nccl": {"all_gather": "all_gather_into_tensor", "reduce_scatter": "reduce_scatter_tensor"},
+    "gloo": {"all_gather": "all_reduce of a zero-padded buffer",
+             "reduce_scatter": "all_reduce, then the rank's rows"},
+}
+# purpose -> bytes this rank sent since reset_sent()
+_SENT: Dict[str, int] = {}
 
 
 def check_mode(mode: str) -> None:
-    if mode == "sharded":
-        raise ValueError("collective mode 'sharded' (the colour grid and its Adam "
-                         "moments row-sharded, bf16 all-gather forward and "
-                         "reduce-scatter backward) is not in the port yet; use "
-                         "'replicated' or 'psum_bf16'")
     if mode not in COLLECTIVE_MODES:
         raise ValueError(f"unknown grid collective mode: {mode}")
+
+
+def sharded_applies(rows: int, n_points: int, world: int,
+                    min_entries: int = GRID_SHARD_MIN_ENTRIES) -> bool:
+    """Whether the ``sharded`` mode shards a table of ``rows`` rows that
+    encodes ``n_points`` points (over all ranks) on ``world`` ranks: the
+    JAX package's ``_collective_mode_applies(spec, "sharded", n_points)``
+    on a mesh of ``world`` devices."""
+    return (world > 1 and rows >= min_entries and n_points % world == 0
+            and rows % world == 0)
 
 
 def init_process_group(rank: Optional[int] = None, world_size: Optional[int] = None,
@@ -113,12 +145,36 @@ def ray_shard(mode: str = "replicated",
     return RayShard(dist.get_rank(), dist.get_world_size(), mode, min_entries)
 
 
-def _sum(t: torch.Tensor) -> torch.Tensor:
+def reset_sent() -> None:
+    _SENT.clear()
+
+
+def sent_bytes() -> Dict[str, int]:
+    """Bytes this rank sent since ``reset_sent``, by purpose: ``grads``
+    (the gradient all-reduce), ``counts`` (the voxel visits), ``rays`` (the
+    per-ray outputs), ``grid_gather`` and ``grid_reduce_scatter`` (the
+    sharded colour grid's rows)."""
+    return dict(_SENT)
+
+
+def _count(purpose: str, t: torch.Tensor, world: int, all_reduce: bool) -> None:
+    nbytes = t.numel() * t.element_size()
+    sent = (2 if all_reduce else 1) * (world - 1) * nbytes // world
+    _SENT[purpose] = _SENT.get(purpose, 0) + sent
+
+
+def _sum(t: torch.Tensor, purpose: str, world: int) -> torch.Tensor:
     dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    _count(purpose, t, world, all_reduce=True)
     return t
 
 
-def all_gather_rows(x: torch.Tensor, shard: RayShard, dim: int = 0) -> torch.Tensor:
+def _native() -> bool:
+    return dist.get_backend() == "nccl"
+
+
+def all_gather_rows(x: torch.Tensor, shard: RayShard, dim: int = 0,
+                    purpose: str = "rays") -> torch.Tensor:
     """The ranks' ``x`` (equal shapes) concatenated along ``dim`` in rank
     order, through a sum all-reduce of a zero-padded buffer."""
     n = x.shape[dim]
@@ -126,7 +182,35 @@ def all_gather_rows(x: torch.Tensor, shard: RayShard, dim: int = 0) -> torch.Ten
     shape[dim] = n * shard.world
     buf = x.new_zeros(shape)
     buf.narrow(dim, shard.rank * n, n).copy_(x)
-    return _sum(buf)
+    return _sum(buf, purpose, shard.world)
+
+
+def gather_table_rows(rows: torch.Tensor, shard: RayShard) -> torch.Tensor:
+    """The whole table ``[N·n, C]`` from each rank's contiguous ``[n, C]``
+    rows, in their dtype (the sharded encode passes bf16):
+    ``all_gather_into_tensor`` under NCCL, else a zero-padded all-reduce."""
+    rows = rows.contiguous()
+    if not _native():
+        return all_gather_rows(rows, shard, 0, "grid_gather")
+    out = rows.new_empty((rows.shape[0] * shard.world, *rows.shape[1:]))
+    dist.all_gather_into_tensor(out, rows)
+    _count("grid_gather", out, shard.world, all_reduce=False)
+    return out
+
+
+def reduce_scatter_rows(full: torch.Tensor, shard: RayShard) -> torch.Tensor:
+    """This rank's ``[T / N, C]`` rows of the sum over the ranks of
+    ``full`` ``[T, C]``, summed in its dtype (the sharded encode passes
+    bf16): ``reduce_scatter_tensor`` under NCCL, else an all-reduce of the
+    whole and the rank's rows of it."""
+    full = full.contiguous()
+    n = full.shape[0] // shard.world
+    if not _native():
+        return _sum(full, "grid_reduce_scatter", shard.world).narrow(0, shard.rank * n, n)
+    out = full.new_empty((n, *full.shape[1:]))
+    dist.reduce_scatter_tensor(out, full, op=dist.ReduceOp.SUM)
+    _count("grid_reduce_scatter", full, shard.world, all_reduce=False)
+    return out
 
 
 class _GatherRays(torch.autograd.Function):
@@ -169,7 +253,7 @@ def replicated(x: torch.Tensor, shard: RayShard) -> torch.Tensor:
 def sum_counts(before: torch.Tensor, after: torch.Tensor) -> torch.Tensor:
     """The voxel counter with every rank's visits: ``before`` plus the sum
     over ranks of ``after - before`` (whole counts: exact)."""
-    return before + _sum((after - before).contiguous())
+    return before + _sum((after - before).contiguous(), "counts", dist.get_world_size())
 
 
 def bf16_tables(model: torch.nn.Module, shard: RayShard) -> set:
@@ -185,21 +269,97 @@ def bf16_tables(model: torch.nn.Module, shard: RayShard) -> set:
     return {id(table)}
 
 
+def _color_grid_rows(model: torch.nn.Module) -> int:
+    """The colour grid's rows, whole (0 without a colour grid)."""
+    render = getattr(model, "render", None)
+    if getattr(render, "encoding", None) is None:
+        return 0
+    return render.spec.total_entries
+
+
+def _shards(model: torch.nn.Module, shard: RayShard) -> bool:
+    # every rank encodes as many points (its equal share of the rays), so
+    # the points over all ranks are a multiple of the world size
+    rows = _color_grid_rows(model)
+    return (shard.mode == "sharded" and rows > 0
+            and sharded_applies(rows, shard.world, shard.world, shard.min_entries))
+
+
+def sharded_tables(model: torch.nn.Module, shard: RayShard) -> set:
+    """The parameters the ``sharded`` mode holds as row shards: the colour
+    grid's table where ``sharded_applies``, else none. Their gradients
+    arrive summed by the reduce-scatter, so ``allreduce_grads`` skips
+    them; ``shard_color_grid`` must have cut the table first."""
+    if not _shards(model, shard):
+        return set()
+    render = model.render
+    if getattr(render, "color_shard", None) is None:
+        raise ValueError("collective mode 'sharded': call mesh.shard_color_grid(model, shard) "
+                         "before building the optimizer")
+    return {id(render.encoding)}
+
+
+def shard_color_grid(model: torch.nn.Module, shard: RayShard) -> int:
+    """Under the ``sharded`` mode, replace the colour grid's ``[T, C]``
+    table by this rank's contiguous ``[T / N, C]`` rows (a new parameter:
+    call before building the optimizer, whose Adam moments then take the
+    shard's shape); the render net's ``color_shard`` routes its encode
+    through ``hash_encode_sharded``. Where ``sharded_applies`` is false the
+    table stays whole and the mode takes the replicated path, as the JAX
+    package does; a line says so. Returns the number of tables sharded
+    (``sharded_tables``' count: 0 or 1)."""
+    if shard.mode != "sharded":
+        return 0
+    rows = _color_grid_rows(model)
+    if not _shards(model, shard):
+        why = ("no colour grid" if rows == 0 else
+               f"{shard.world} rank" if shard.world <= 1 else
+               f"{rows} rows < {shard.min_entries}" if rows < shard.min_entries else
+               f"{rows} rows do not split over {shard.world} ranks")
+        print(f"[mesh] collective mode sharded: sharded_tables: 0 ({why}); the colour grid "
+              f"takes the replicated path", flush=True)
+        return 0
+    render = model.render
+    n = rows // shard.world
+    with torch.no_grad():
+        rows_mine = render.encoding[shard.rank * n:(shard.rank + 1) * n].clone()
+    render.encoding = torch.nn.Parameter(rows_mine)
+    render.color_shard = shard
+    return 1
+
+
+def all_gather_shard(rows: torch.Tensor, shard: RayShard) -> torch.Tensor:
+    """The whole float32 tensor from each rank's rows (the sharded table or
+    its gradient), for the checks: outside the step, not counted."""
+    out = rows.new_zeros((rows.shape[0] * shard.world, *rows.shape[1:]))
+    out.narrow(0, shard.rank * rows.shape[0], rows.shape[0]).copy_(rows.detach())
+    dist.all_reduce(out, op=dist.ReduceOp.SUM)
+    return out
+
+
+def full_color_grid(model: torch.nn.Module, shard: Optional[RayShard] = None) -> torch.Tensor:
+    """The colour grid's whole float32 ``[T, C]`` table: gathered from the
+    ranks where ``shard_color_grid`` cut it (every rank must call), else
+    the parameter itself."""
+    render = model.render
+    if shard is None or getattr(render, "color_shard", None) is None:
+        return render.encoding.detach()
+    return all_gather_shard(render.encoding, shard)
+
+
 def allreduce_grads(params: Iterable[torch.Tensor], shard: RayShard,
-                    bf16: Optional[set] = None) -> int:
+                    bf16: Optional[set] = None, skip: Optional[set] = None) -> int:
     """Sum every parameter's gradient over the ranks, in place (``bf16``:
-    ids of the parameters all-reduced in bfloat16); returns the bytes each
-    rank contributed."""
-    sent = 0
+    ids of the parameters all-reduced in bfloat16; ``skip``: ids of the
+    row shards, whose gradients the reduce-scatter summed); returns the
+    bytes this rank sent."""
+    before = _SENT.get("grads", 0)
     for p in params:
         g = p.grad
-        if g is None:
+        if g is None or (skip and id(p) in skip):
             continue
         if bf16 and id(p) in bf16:
-            h = _sum(g.to(torch.bfloat16))
-            g.copy_(h.to(g.dtype))
-            sent += h.numel() * h.element_size()
+            g.copy_(_sum(g.to(torch.bfloat16), "grads", shard.world).to(g.dtype))
         else:
-            _sum(g)
-            sent += g.numel() * g.element_size()
-    return sent
+            _sum(g, "grads", shard.world)
+    return _SENT.get("grads", 0) - before

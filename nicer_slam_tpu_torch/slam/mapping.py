@@ -152,7 +152,10 @@ def map_step(scene_cfg: sm.SceneConfig, map_cfg: MapConfig,
     ``density_cache`` the prepass is exact. With a ``shard`` this rank
     renders its slice of the rays and every rank ends the step with the
     same parameters and poses; ``terms["allreduce_bytes"]`` holds the
-    bytes of gradient this rank all-reduced."""
+    bytes this rank sent in the step's collectives (``mesh.sent_bytes()``
+    has them by purpose). Under the ``sharded`` mode the colour grid is
+    this rank's rows (``mesh.shard_color_grid``, before the optimizer is
+    built) and its gradient arrives summed by the reduce-scatter."""
     H, W = scene_cfg.H, scene_cfg.W
     R = map_cfg.num_pixels
     Smax = map_cfg.max_slots
@@ -204,6 +207,7 @@ def map_step(scene_cfg: sm.SceneConfig, map_cfg: MapConfig,
         from ..parallel import mesh
 
         lo, hi = shard.rays(R)
+        mesh.reset_sent()
         mine = batch._replace(
             uv=uv[lo:hi], kf_slot=slot[lo:hi], ray_valid=ray_valid[lo:hi],
             ray_weight=None if ray_weight is None else ray_weight[lo:hi])
@@ -222,9 +226,10 @@ def map_step(scene_cfg: sm.SceneConfig, map_cfg: MapConfig,
         params = [p for group in optimizer.param_groups for p in group["params"]]
         if ba and q.grad is None:
             q.grad = torch.zeros_like(q)
-        sent = mesh.allreduce_grads(params + ([q] if ba else []), shard,
-                                    mesh.bf16_tables(model, shard))
-        terms["allreduce_bytes"] = torch.tensor(float(sent))
+        mesh.allreduce_grads(params + ([q] if ba else []), shard,
+                             mesh.bf16_tables(model, shard), mesh.sharded_tables(model, shard))
+        # every collective of the step: gathers and reduce-scatters too
+        terms["allreduce_bytes"] = torch.tensor(float(sum(mesh.sent_bytes().values())))
     optimizer.step()
     new_q = poses_q
     if ba:

@@ -18,7 +18,11 @@ JAX package; the fine MLP's weights come from the pretrain file. The reference's
 iteration, a zero gradient included, so momentum keeps moving a group that
 got no gradient (the color grid in the ``base`` color stage, the fine grid
 in the ``coarse`` stage); ``fill_missing_grads`` gives torch's Adam, which
-skips a parameter whose ``.grad`` is None, the same behaviour.
+skips a parameter whose ``.grad`` is None, the same behaviour. Under the
+``sharded`` collective mode (``parallel/mesh.shard_color_grid``, called
+before the optimizer is built) the color grid group holds this rank's
+rows of the table, so its moments and filled gradients take the shard's
+shape; its learning rate stays the group's.
 
 Tracking uses a hand-rolled Adam (torch defaults betas=(0.9, 0.999),
 eps=1e-8) whose learning rate changes per step; BA uses a fresh Adam

@@ -76,10 +76,13 @@ def port_configs():
 def port_step(a: dict, draws, shard=None, device="cpu") -> dict:
     """The port's map_step with BA on the case, fresh seed-0 weights:
     {"terms", "params" (after the step), "grads" (as the Adam step read
-    them), "q", "voxels"} as numpy."""
+    them), "q", "voxels"} as numpy; with a shard also "sent" (the bytes
+    the rank sent, by purpose) and "sharded_tables", a sharded colour grid's
+    parameter and gradient gathered whole."""
     import torch
 
     from nicer_slam_tpu_torch.models import scene_model as tsm
+    from nicer_slam_tpu_torch.parallel import mesh
     from nicer_slam_tpu_torch.slam import mapping as tmap
     from nicer_slam_tpu_torch.slam import state as tstate
 
@@ -87,13 +90,16 @@ def port_step(a: dict, draws, shard=None, device="cpu") -> dict:
     dev = torch.device(device)
     T = lambda x: torch.from_numpy(np.asarray(x)).to(dev)
     model = tsm.SceneModel(tcfg, np.random.default_rng(0)).to(dev)
+    n_sharded = mesh.shard_color_grid(model, shard) if shard is not None else 0
     opt = tstate.make_optimizer(tstate.OptimConfig(**OPTIM), model)
     grads = {}
 
     def keep(_opt, _args, _kwargs):
         for n, p in model.named_parameters():
             if p.grad is not None:
-                grads[n] = p.grad.detach().cpu().numpy().copy()
+                g = (mesh.all_gather_shard(p.grad, shard)
+                     if n_sharded and n == "render.encoding" else p.grad)
+                grads[n] = g.detach().cpu().numpy().copy()
 
     hook = opt.register_step_pre_hook(keep)
     refs = tmap.MapBatchRefs(
@@ -109,9 +115,14 @@ def port_step(a: dict, draws, shard=None, device="cpu") -> dict:
         opt, T(a["vox"]), T(a["q"]), refs, store, draws, T(a["cache"].reshape(-1)), None,
         stage="fine", color_stage="highfreq", ba=True, is_first_frame=False, shard=shard)
     hook.remove()
-    return {"terms": {k: v.cpu().numpy() for k, v in terms.items()},
-            "params": {n: p.detach().cpu().numpy() for n, p in model.named_parameters()},
-            "grads": grads, "q": q.cpu().numpy(), "voxels": vox.cpu().numpy()}
+    out = {"terms": {k: v.cpu().numpy() for k, v in terms.items()},
+           "params": {n: p.detach().cpu().numpy() for n, p in model.named_parameters()},
+           "grads": grads, "q": q.cpu().numpy(), "voxels": vox.cpu().numpy()}
+    if shard is not None:
+        out["sent"] = mesh.sent_bytes()
+        out["sharded_tables"] = n_sharded
+        out["params"]["render.encoding"] = mesh.full_color_grid(model, shard).cpu().numpy()
+    return out
 
 
 def worker(rank: int, world: int, init_method: str, in_path: str, out_dir: str,

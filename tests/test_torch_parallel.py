@@ -61,7 +61,8 @@ def runs(tmp_path_factory):
     torch.save({"arrays": arrays, "draws": draws}, blob)
     out = {"one": case.port_step(arrays, draws), "arrays": arrays, "key": key,
            "tmp": tmp}
-    for mode, repeats, rows in (("replicated", 2, 1 << 22), ("psum_bf16", 1, BF16_MIN_ROWS)):
+    for mode, repeats, rows in (("replicated", 2, 1 << 22), ("psum_bf16", 1, BF16_MIN_ROWS),
+                                ("sharded", 1, BF16_MIN_ROWS)):
         d = tmp / mode
         d.mkdir()
         out[mode] = case.run_ranks(blob, str(d), 2, mode, rows, repeats)
@@ -118,7 +119,8 @@ def test_two_ranks_match_one_rank_replicated(runs):
     for k in ("flow_loss", "warp_loss", "eikonal_loss", "depth_loss", "rgb_loss"):
         assert float(two["terms"][k]) > 0, k
     n_grad = sum(g.size for g in runs["one"]["grads"].values())
-    assert float(two["terms"]["allreduce_bytes"]) == 4 * (n_grad + case.SMAX * 7)
+    assert two["sent"]["grads"] == 4 * (n_grad + case.SMAX * 7)
+    assert float(two["terms"]["allreduce_bytes"]) == sum(two["sent"].values())
 
 
 def test_two_ranks_match_one_rank_psum_bf16(runs):
@@ -134,9 +136,56 @@ def test_two_ranks_match_one_rank_psum_bf16(runs):
 
 
 def test_ranks_hold_equal_parameters_and_poses(runs):
-    for mode in ("replicated", "psum_bf16"):
+    for mode in ("replicated", "psum_bf16", "sharded"):
         r0, r1 = runs[mode]
         _same(r0[0], r1[0])
+
+
+def test_two_ranks_match_one_rank_sharded(runs):
+    """The colour grid and its Adam moments row-sharded: each rank held
+    half the table, and the step matches the one-process step under the
+    JAX collective-modes test's bounds (tests/_grid_collectives_main.py:
+    91-92; the forward reads the table in bf16): the loss within 4e-3 ·
+    max(|loss|, 1), every gradient within 4e-2 of its largest entry; the
+    poses and the voxel counter as in the other modes."""
+    two, one = runs["sharded"][0][0], runs["one"]
+    assert two["sharded_tables"] == 1
+    assert two["params"]["render.encoding"].shape == one["params"]["render.encoding"].shape
+    l1, l2 = float(one["terms"]["loss"]), float(two["terms"]["loss"])
+    assert abs(l2 - l1) <= 4e-3 * max(abs(l1), 1.0)
+    np.testing.assert_allclose(two["q"], one["q"], rtol=1e-3, atol=1e-6)
+    np.testing.assert_array_equal(two["voxels"], one["voxels"])
+    assert set(two["grads"]) == set(one["grads"])
+    for n, g1 in one["grads"].items():
+        np.testing.assert_allclose(two["grads"][n], g1, rtol=0,
+                                   atol=4e-2 * np.abs(g1).max(), err_msg=n)
+    # the shards took the Adam step: the gathered table moved
+    assert np.any(two["params"]["render.encoding"] != _initial_params()["render.encoding"])
+
+
+@pytest.mark.parametrize("mode", ["replicated", "psum_bf16", "sharded"])
+def test_sent_bytes_match_the_tensors(runs, mode):
+    """allreduce_bytes is every byte the rank sent in the step (a ring:
+    an all-reduce of B bytes sends 2 (N - 1) / N B, B at two ranks),
+    gathers included, against the tensors' sizes: the gradients (float32;
+    psum_bf16's colour grid in bf16; sharded's colour grid not at all), the
+    voxel counter's increment, and sharded's bf16 row gather and
+    reduce-scatter (each a gloo all-reduce of the [T, C] bf16 table); the
+    per-ray outputs' gathers are the same in every mode."""
+    two, one = runs[mode][0][0], runs["one"]
+    sent = two["sent"]
+    n_grad = sum(g.size for g in one["grads"].values())
+    table = one["params"]["render.encoding"].size
+    grads = {"replicated": 4 * n_grad, "psum_bf16": 4 * n_grad - 2 * table,
+             "sharded": 4 * (n_grad - table)}[mode]
+    assert sent["grads"] == grads + 4 * case.SMAX * 7
+    assert sent["counts"] == 4 * runs["arrays"]["vox"].size
+    assert sent["rays"] > 0 and sent["rays"] == runs["replicated"][0][0]["sent"]["rays"]
+    grid = {k: sent.get(k, 0) for k in ("grid_gather", "grid_reduce_scatter")}
+    assert grid == ({"grid_gather": 2 * table, "grid_reduce_scatter": 2 * table}
+                    if mode == "sharded" else {"grid_gather": 0, "grid_reduce_scatter": 0})
+    assert set(sent) <= {"grads", "counts", "rays", "grid_gather", "grid_reduce_scatter"}
+    assert float(two["terms"]["allreduce_bytes"]) == sum(sent.values())
 
 
 def test_two_rank_step_repeats_bit_for_bit(runs):
@@ -165,8 +214,10 @@ def test_shard_slices_the_global_draws():
     with pytest.raises(ValueError, match="whole prepass chunks"):
         shard_render_draws(d._replace(perm=torch.zeros((8, 3), dtype=torch.int64)[:3]),
                            9, 2, 5)
-    with pytest.raises(ValueError, match="not in the port yet"):
-        mesh.check_mode("sharded")
+    for mode in ("replicated", "psum_bf16", "sharded"):
+        mesh.check_mode(mode)
+    with pytest.raises(ValueError, match="unknown grid collective mode"):
+        mesh.check_mode("ici")
     with pytest.raises(ValueError, match="do not split"):
         mesh.RayShard(0, 3).rays(8)
 
