@@ -59,7 +59,8 @@ are taken with the card to themselves:
      kernel's),
      K6's general kernel on the networks of GENERAL_NETS (grid and ray
      mode) and an 8 x 256 skip network (a render chunk), its concat
-     variant at flagship widths (2580 and 8192 x 640), K1/K2 at the
+     variant at flagship widths (2580, 8192 and 1024 x 640, and a ragged
+     1001 x 601: GENERAL_CASES), K1/K2 at the
      channel counts 1, 3, 5, 6, 7 (100,352 uniform points), K1, K2 and K3
      on grids beyond 32 levels or 8 channels (HASH_WIDE_CASES: 40 x 2,
      16 x 16, 8 x 12 at a tracking iteration's 100,352 ray-ordered points),
@@ -1392,6 +1393,23 @@ GENERAL_NETS = {
             base_size = 16  end_size = 512  logmap = 16
             num_levels = 16  level_dim = 2  divide_factor = 1.5
         }"""),
+    "odd-widths": (16, """
+        coarse {
+            d_in = 3  d_out = 1  dims = [ 20 ]
+            geometric_init = true  bias = 0.9  skip_in = []
+            weight_norm = true  multires = 2  inside_outside = true
+            use_grid_feature = true
+            base_size = 16  end_size = 16  logmap = 15
+            num_levels = 2  level_dim = 4  divide_factor = 1.0
+        }
+        fine {
+            d_in = 3  d_out = 1  dims = [ 36 36 36 ]
+            geometric_init = false  bias = 0.9  skip_in = [ 2 ]
+            weight_norm = true  multires = 1  inside_outside = true
+            use_grid_feature = true
+            base_size = 16  end_size = 64  logmap = 17
+            num_levels = 3  level_dim = 6  divide_factor = 1.0
+        }"""),
 }
 GENERAL_RES = 128
 
@@ -1438,80 +1456,104 @@ def general_density_f64(net, pack, x, voxels, chunk=131072):
     return torch.cat(out)
 
 
+# the cases of check_sdf_general and tools/sdf_density_ab.py: (network,
+# mode, rays, z a ray, jittered): the GENERAL_NETS in grid mode (128³) and
+# ray mode (a render chunk, 2580 x 640), the 8 x 256 network on a render
+# chunk, and the concat variant at flagship widths on a render chunk, a
+# flagship mapping iteration's 8192 x 640 and a tracking iteration's 1024
+# x 640 jittered z, and a ragged launch of 1001 x 601 jittered z (601,601
+# points: a multiple of no tile)
+GENERAL_CASES = ([(w, m, GIVEN_RAYS if m == "rays" else 0, 640, False)
+                  for w in GENERAL_NETS for m in ("grid", "rays")]
+                 + [("volsdf-8x256", "rays", GIVEN_RAYS, 640, False),
+                    ("concat", "rays", GIVEN_RAYS, 640, False),
+                    ("concat", "rays", 8192, 640, True),
+                    ("concat", "rays", 1024, 640, True),
+                    ("concat", "rays", 1001, 601, True)])
+
+
+def general_case(dev, g, case):
+    """The operands of one GENERAL_CASES entry (rays drawn from g, in the
+    list's order): a namespace with net, vox, pack (this checkout's), tag,
+    mode, kw (the kernel's mode operands: xs and res, or o, d, z and S), x
+    (the points), run() (this checkout's launch), plain(), cost (bytes,
+    operations) and a note."""
+    import types
+    import torch
+    from nicer_slam_tpu_torch.ops import ray_sampling as rs
+    from nicer_slam_tpu_torch.ops import sdf_density as sd
+    which, mode, R, S, jitter = case
+    net, vox = general_net(dev, which)
+    c = types.SimpleNamespace(net=net, vox=vox, pack=sd.pack_sdf(net), mode=mode)
+    if mode == "grid":
+        xs = torch.linspace(-1.0, 1.0, GENERAL_RES, device=dev)
+        c.kw = dict(xs=xs, res=GENERAL_RES)
+        c.x = sd.grid_points(xs, torch.arange(GENERAL_RES ** 3, device=dev))
+        c.tag = f"{which} {GENERAL_RES}^3"
+        c.run = lambda: sd.density_grid(net, c.pack, GENERAL_RES, vox)
+        c.plain = lambda: sd.density_grid_plain(net, c.pack.tables, GENERAL_RES, vox)
+        c.cost = sdf_density_cost(GENERAL_RES ** 3, 4 * GENERAL_RES + 4 * GENERAL_RES ** 3,
+                                  comb=net.cfg)
+    else:
+        scfg = rs.SamplerConfig(N_samples=64, N_samples_eval=640, N_samples_extra=32)
+        o, d = _sampler_rays(g, dev, R)
+        t_rand = torch.rand((R, 640), generator=g, device=dev) if jitter else None
+        z = rs.uniform_z_vals(scfg, o, d, t_rand)[0][:, :S].contiguous()
+        c.kw = dict(o=o, d=d, z=z, S=S)
+        c.x = sd.ray_points(o, d, z)
+        c.tag = f"{which} {'train ' if jitter else ''}{R}x{S}"
+        c.run = lambda: sd.density_rays(net, c.pack, o, d, z, vox)
+        c.plain = lambda: sd.density_rays_plain(net, c.pack.tables, o, d, z, vox)
+        c.cost = sdf_density_cost(z.numel(), nbytes(o, d, z) + 4 * z.numel(), comb=net.cfg)
+    c.note = f"{c.x.shape[0]} points" + ("; jittered z" if jitter else "")
+    return c
+
+
 def check_sdf_general(dev, chk: Checks):
     """The general K6 and its concat variant against their plain versions
-    (each one launch and no other kernel; within SDF_DENSITY_RTOL of the
-    largest density; both versions also measured against float64): the
-    GENERAL_NETS in grid mode (128³) and ray mode (a render chunk, 2580 x
-    640), the 8 x 256 network on a render chunk, and the concat variant
-    at flagship widths on a render chunk and a flagship mapping
-    iteration's 8192 x 640 jittered z."""
+    on GENERAL_CASES (each one launch and no other kernel; within
+    SDF_DENSITY_RTOL of the largest density; both versions also measured
+    against float64)."""
     import torch
     from nicer_slam_tpu_torch.ops import _cuda
-    from nicer_slam_tpu_torch.ops import ray_sampling as rs
     from nicer_slam_tpu_torch.ops import sdf_density as sd
 
     src = "nicer_slam_tpu_torch/csrc/sdf_density.cu"
     g = torch.Generator(device=dev)
     g.manual_seed(7)
-    scfg = rs.SamplerConfig(N_samples=64, N_samples_eval=640, N_samples_extra=32)
-
-    def one(net, vox, pack, tag, mode, fn, plain, x, cost, extra):
-        kname = f"sdf_density_{pack.variant}.{mode}"
+    for case in GENERAL_CASES:
+        c = general_case(dev, g, case)
+        want = "concat" if case[0] == "concat" else "general"
+        if c.pack.variant != want:
+            chk.failures.append(f"sdf_density: {case[0]} got the {c.pack.variant} variant")
+            continue
+        kname = f"sdf_density_{c.pack.variant}.{c.mode}"
         _cuda.reset_launch_counts()
-        ko = fn()
+        ko = c.run()
         counts = {k: v for k, v in _cuda.launch_counts().items() if v}
         _cuda.reset_launch_counts()
         single = counts == {kname: 1}
-        po = plain()
-        exact = general_density_f64(net, pack, x, vox,
-                                    32768 if max(net.cfg.fine.dims) > 64 else 131072)
+        po = c.plain()
+        exact = general_density_f64(c.net, c.pack, c.x, c.vox,
+                                    32768 if max(c.net.cfg.fine.dims) > 64 else 131072)
         exact = exact.reshape(po.shape)
         err, scale = max_abs(ko, po), float(po.abs().max())
         ek = float((ko.double() - exact).abs().max()) / scale
         ep = float((po.double() - exact).abs().max()) / scale
-        ms = cuda_time(fn)
-        pms = cuda_time(plain, iters=3, warmup=1)
-        tile, smem, w_smem = sd.general_plan(pack)
-        chk.record(f"{kname}[{tag}]", src, "nicer_slam_tpu/models/scene_model.py:"
-                   + ("108" if mode == "grid" else "246"), err,
-                   err <= SDF_DENSITY_RTOL * scale and single, ms, pms, *cost,
+        ms = cuda_time(c.run)
+        pms = cuda_time(c.plain, iters=3, warmup=1)
+        tile, smem, w_smem = sd.general_plan(c.pack)
+        w_floats = c.pack.weights.numel()
+        chk.record(f"{kname}[{c.tag}]", src, "nicer_slam_tpu/models/scene_model.py:"
+                   + ("108" if c.mode == "grid" else "246"), err,
+                   err <= SDF_DENSITY_RTOL * scale and single, ms, pms, *c.cost,
                    f"(err {err / scale:.2e} of max {scale:.4g}, tolerance "
                    f"{SDF_DENSITY_RTOL:g}; against float64: kernel {ek:.2e}, plain "
                    f"{ep:.2e}; one launch and no other: {single} {counts}; tile {tile} "
                    f"points, {smem} B shared, weights "
-                   f"{'in shared memory' if w_smem else 'through L1/L2'} "
-                   f"({pack.weights.numel()} floats); {extra})")
-
-    cases = [(w, m) for w in GENERAL_NETS for m in ("grid", "rays")]
-    cases += [("volsdf-8x256", "rays"), ("concat", "rays"), ("concat", "train")]
-    for which, mode in cases:
-        net, vox = general_net(dev, which)
-        pack = sd.pack_sdf(net)
-        want = "concat" if which == "concat" else "general"
-        if pack.variant != want:
-            chk.failures.append(f"sdf_density: {which} got the {pack.variant} variant")
-            continue
-        if mode == "grid":
-            xs = torch.linspace(-1.0, 1.0, GENERAL_RES, device=dev)
-            x = sd.grid_points(xs, torch.arange(GENERAL_RES ** 3, device=dev))
-            one(net, vox, pack, f"{which} {GENERAL_RES}^3", "grid",
-                lambda: sd.density_grid(net, pack, GENERAL_RES, vox),
-                lambda: sd.density_grid_plain(net, pack.tables, GENERAL_RES, vox), x,
-                sdf_density_cost(GENERAL_RES ** 3, 4 * GENERAL_RES + 4 * GENERAL_RES ** 3,
-                                 comb=net.cfg), f"{x.shape[0]} points")
-        else:
-            R = 8192 if mode == "train" else GIVEN_RAYS
-            o, d = _sampler_rays(g, dev, R)
-            t_rand = torch.rand((R, 640), generator=g, device=dev) if mode == "train" else None
-            z, _, _ = rs.uniform_z_vals(scfg, o, d, t_rand)
-            one(net, vox, pack, f"{which} {'train ' if t_rand is not None else ''}{R}x640",
-                "rays", lambda: sd.density_rays(net, pack, o, d, z, vox),
-                lambda: sd.density_rays_plain(net, pack.tables, o, d, z, vox),
-                sd.ray_points(o, d, z), sdf_density_cost(z.numel(), nbytes(o, d, z) + 4 * z.numel(),
-                                                       comb=net.cfg),
-                f"{z.numel()} points" + ("; jittered z" if t_rand is not None else ""))
-        del net, vox, pack
+                   f"{'resident' if w_smem == w_floats else f'streamed through a ring of {w_smem} floats'}"
+                   f" ({w_floats} floats); {c.note})")
+        del c, ko, po, exact
         torch.cuda.empty_cache()
 
 

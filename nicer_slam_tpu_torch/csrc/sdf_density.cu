@@ -78,27 +78,65 @@
 // any number of layers and widths, skip_in ([h, inp] / sqrt(2) before a
 // layer), multires 0 (x alone) or more, a grid of any L x C (or none:
 // use_grid_feature = false drops its zero columns, exactly), divide_factor
-// (x / divide_factor before the grid, rounded as the plain version
-// rounds it) and the fine clamp (tanh(sdf) 0.05). Its concat variant
+// (x / divide_factor before the grid) and the fine clamp (tanh(sdf) 0.05);
+// both divisions rounded as the plain version rounds them on the card, a
+// product with the float32 reciprocal (torch's division by a scalar
+// there). Its concat variant
 // (concat_coarse_feature) reads fp32 tables, as the JAX package's prepass
 // does there (models/scene_model.py:247-257, fp32 combine_sdf), computes the
 // coarse network's whole last layer (the SDF row and the feature rows) and
-// feeds the feature rows to the fine network's first layer. Its design is
-// the simple one, not the fast one:
-//   * a tile of TP points (128, 64 or 32: the largest whose activations fit)
-//     and 256 threads; the activations live transposed in shared memory,
-//     one row per input column: X (the net's input: x and its positional
-//     encoding, the grid features, the coarse features), and two hidden
-//     buffers that the layers write in turns;
+// feeds the feature rows to the fine network's first layer. Its design:
+//   * the activations live transposed in shared memory, one row per input
+//     column, rows tile + 4 floats apart: X (x and its encoding, the grid
+//     features, the coarse features) and one or two hidden buffers;
+//   * a network whose packed weights fit beside them keeps the pack
+//     resident (one cp.async.bulk a block) and runs blocks of 256 threads
+//     on 128 points, three an SM where they fit (80 registers a thread),
+//     else two, with two hidden buffers in turns: such a network is
+//     narrow, its time goes to the gathers, the encodings and the
+//     barriers, and the other blocks overlap them;
+//   * a wider one streams its weights through a ring of 3 stages: each
+//     layer's [K][N] weights and bias row are slices of as many rows as fit
+//     (64 .. 4 at the widest layer), copied by cp.async.bulk from L2
+//     (thread 0, an mbarrier a stage) two slices ahead of the multiply-adds
+//     that read them, across layers, networks and tiles; one barrier a
+//     slice frees its stage. No network's weights need to fit, and the
+//     shared memory goes to the largest tile, since each slice then serves
+//     the most points: one block of 512 threads on 256 points (16 warps an
+//     SM, as the kernel above), else two of 256 on 128, one of 512 on 128,
+//     ... 32;
 //   * every width is padded to a multiple of 4 with zero units (exact: a
-//     padded unit's outgoing weights are 0), and a layer is a loop over
-//     (8 points x 4 units) items, one float4 of weights and two of inputs
-//     per input row: 32 fused multiply-adds per 3 loads;
-//   * the weights sit in shared memory when they fit beside the
-//     activations, else every block reads them through L1/L2 (a VolSDF-like
-//     fine network of 8 x 256 with a skip is ~2 MB);
-//   * the SDF row of each last layer is summed in float64 as above, and the
-//     coarse and fine SDF stay in float64 until their sum is rounded once.
+//     padded unit's outgoing weights are 0), and each layer picks the
+//     smallest register block, P points x 4 units J times (P 4 or 8; J 1
+//     wherever a plan allows it, 2 only for layers wider than 512 units),
+//     whose items all fit in the block's threads at once: every thread is
+//     busy at 64 units (128 points and 256 threads, or 256 and 512), and
+//     every item is in registers when the layer's last slice has been read,
+//     so a streaming layer writes its outputs over its inputs (one hidden
+//     buffer). The packer
+//     puts a thread's 4 units q, q + N/4, q + N/2, q + 3N/4 in one float4,
+//     so the lanes of a warp read consecutive weights and store
+//     consecutive rows;
+//   * a streamed layer sums each unit's inputs in blocks of 16, each block
+//     a chain of fused multiply-adds added to the total (nearer float64
+//     than one long chain, as a resident layer, in 80 registers, and the
+//     plain version's products take it);
+//   * the SDF row of each last layer is split over the T / tile lanes of
+//     each point and summed in float64 with shuffles, and the coarse and
+//     fine SDF stay in float64 until their sum is rounded once;
+//   * the grid features as K3 (bf16) or K2 (fp32) compute them, a warp on
+//     consecutive points of one level, each corner row read in loads of
+//     up to 16 bytes.
+// Measured on an H100 80GB HBM3 at 700 W (tools/sdf_density_ab.py in turns
+// against the earlier design, the weights resident or read through L1/L2
+// by 256 threads on 128 or 64 points; PERF.md §6): concat 3.77 ms for a
+// 2580 x 640 render chunk and 11.97 for a mapping iteration's 8192 x 640
+// (34 % of the operation bound; 7.58 and 24.05 before), a VolSDF-like 8 x
+// 256 fine network 49.0 ms for a render chunk (47 %; 118.0 before), the
+// narrow test networks 17-28 % (12-18 % before). What bounds concat now
+// is the products themselves with a barrier every 16-row slice (32
+// multiply-adds a thread per 3 shared loads at 64 units, one block an
+// SM); the gathers take 10 % (tools/sdf_density_ablate.py).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -401,14 +439,20 @@ __global__ void __launch_bounds__(kThreads, 1) sdf_density_kernel(const Args a) 
 // the general kernel: any network the JAX package runs
 // ---------------------------------------------------------------------------
 
-constexpr int kGThreads = 256;
 constexpr int kMaxLayers = 16;
 // ints of one network's descriptor (ops/sdf_density.pack_general):
 // n, n_pe, multires, L, C, d0, clamp, feat, divide_factor's bits, then
 // per layer K, N, skip and the weights' offset
 constexpr int kDescHead = 9;
 constexpr int kDescInts = kDescHead + 4 * kMaxLayers;
-constexpr float kSqrt2 = 1.41421356237309505f;
+// torch on the card divides by a scalar as a product with its float32
+// reciprocal: the plain version's / sqrt(2) and / divide_factor
+constexpr float kInvSqrt2 = 1.0f / 1.41421356237309505f;
+constexpr int kStages = 3;                       // slices of weights in flight
+constexpr int kMaxSegs = 2 * (kMaxLayers + 1);   // + the concat feature rows
+constexpr int kMaxThreads = 512;
+constexpr int kTailFloats = 16;                  // the mbarriers and the cursor
+constexpr int kSumBlock = 16;                    // inputs a partial sum (streaming)
 
 struct NetDesc {
   int n;                  // linear layers
@@ -419,89 +463,299 @@ struct NetDesc {
   int clamp;              // the fine clamp, tanh(sdf) 0.05
   int feat;               // concat: the coarse last layer's feature rows (padded)
   float df;               // divide_factor
+  float inv_df;           // 1 / divide_factor in float32 (torch's division by it)
   int K[kMaxLayers];      // input rows of layer l
   int N[kMaxLayers];      // output units of hidden layer l (a multiple of 4)
   int skip[kMaxLayers];   // layer l reads [h, inp] / sqrt(2)
   int off[kMaxLayers];    // float offset of layer l's weights
 };
 
+// one stretch of the packed weights that the block streams through its
+// ring (or reads in place, resident), in the order the block reads them
+// for each tile: rows of n floats
+// (a dense layer: its K weight rows [K][N] and then its bias row; an SDF
+// row: one row of ceil4(K) + 4 floats), ks rows per slice. mode: the dense
+// layer's register block (kBlocks), -1 for an SDF row
+struct Seg {
+  int off, rows, n, ks, mode;
+};
+
+// a thread's register block in a dense layer: P points x 4 units, J times
+constexpr int kBlocks[4][2] = {{4, 1}, {8, 1}, {4, 2}, {8, 2}};
+
 struct GArgs {
   Args p;                 // points, beta and output (weights: the general pack)
   NetDesc net[2];         // coarse, fine
   int tile, ld;           // points per tile, row stride of the activations
   int x_rows, h_rows;     // rows of X and of each hidden buffer
-  int w_smem;             // floats of weights held in shared memory (0: none)
+  int stage;              // floats of one ring stage
+  int resident;           // the whole pack in shared memory, copied once
+  int buffers;            // hidden buffers: 2 (in turns) or 1 (in place)
+  int64_t w_floats;       // floats of the pack
+  int nseg;
+  Seg seg[kMaxSegs];
 };
 
 __host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
 
-// the floats of shared memory a block needs (every part a multiple of 4)
-__host__ inline int64_t general_smem_floats(int tile, int x_rows, int h_rows, int w_smem) {
-  const int ld = tile + 4;
-  return (int64_t)w_smem + (int64_t)(x_rows + 2 * h_rows) * ld + 4 * tile;  // + points, beta
+// --- the weight ring: cp.async.bulk into kStages stages, an mbarrier each
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <bool kSmemW>
-__device__ __forceinline__ float4 load_w4(const float* w) {
-  if constexpr (kSmemW) return *reinterpret_cast<const float4*>(w);
-  else return __ldg(reinterpret_cast<const float4*>(w));
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
 }
 
-template <bool kSmemW>
-__device__ __forceinline__ float load_w(const float* w) {
-  if constexpr (kSmemW) return *w;
-  else return __ldg(w);
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
-// out rows [0, N) = act(in[0, K) . W + b) over the tile, W [K][N] then
-// b [N] at w; act: softplus (hidden) or none (the coarse feature rows);
-// halve: / sqrt(2), the next layer's skip concat
-template <bool kSmemW>
-__device__ void dense_general(const float* in, int K, const float* w, int N, float* out,
-                              bool act, bool halve, int tile, int ld) {
-  const int pgs = tile >> 3, items = pgs * (N >> 2);
-  for (int it = threadIdx.x; it < items; it += kGThreads) {
-    const int pg = it % pgs, q = it / pgs;
-    float acc[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-    const float* xi = in + pg * 8;
-    const float* wi = w + q * 4;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(xi + k * ld);
-      const float4 b = *reinterpret_cast<const float4*>(xi + k * ld + 4);
-      const float4 c = load_w4<kSmemW>(wi + k * N);
-      const float xv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-      const float wv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
-    }
-    const float4 bv = load_w4<kSmemW>(w + K * N + q * 4);
-    const float bj[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float v[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        v[i] = acc[i][j] + bj[j];
-        if (act) v[i] = softplus100(v[i]);
-        if (halve) v[i] = __fdiv_rn(v[i], kSqrt2);
-      }
-      float* r = out + (q * 4 + j) * ld + pg * 8;
-      *reinterpret_cast<float4*>(r) = make_float4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<float4*>(r + 4) = make_float4(v[4], v[5], v[6], v[7]);
+// bytes from global src to shared dst, completing on the mbarrier bar
+// (thread 0; the stage's earlier reads are done: the caller's barrier)
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// the cursor of the next slice to copy; thread 0's, in shared memory
+struct Cursor {
+  int64_t tile;   // the tile it belongs to
+  int seg, row;   // its segment and first row
+  int issued;     // slices copied so far
+};
+
+// thread 0: copy the next slice of the block's stream into its stage
+__device__ __forceinline__ void issue_slice(const GArgs& g, float* ring, uint64_t* full,
+                                            Cursor* cur, int64_t tiles) {
+  if (cur->tile >= tiles) return;
+  const Seg& s = g.seg[cur->seg];
+  const int r1 = min(cur->row + s.ks, s.rows);
+  const uint32_t bytes = (uint32_t)((r1 - cur->row) * s.n) * 4u;
+  const int st = cur->issued % kStages;
+  bulk_copy(ring + st * g.stage, g.p.weights + s.off + (int64_t)cur->row * s.n, bytes,
+            full + st);
+  cur->issued += 1;
+  cur->row = r1;
+  if (r1 == s.rows) {
+    cur->row = 0;
+    if (++cur->seg == g.nseg) {
+      cur->seg = 0;
+      cur->tile += gridDim.x;
     }
   }
 }
 
+// what every thread of the block shares
+struct Block {
+  float* ring;
+  uint64_t* full;
+  Cursor* cur;
+  int64_t tiles;
+  uint32_t slice;   // slices read so far (the same in every thread)
+  int seg;          // the segment being read
+};
+
+// the slice of segment b.seg that starts at row r0, once it is in (R: the
+// pack is resident)
+template <bool R>
+__device__ __forceinline__ const float* slice_wait(const GArgs& g, const Block& b, int r0) {
+  if constexpr (R) {
+    mbar_wait(b.full, 0);
+    const Seg& s = g.seg[b.seg];
+    return b.ring + s.off + r0 * s.n;
+  }
+  const int st = b.slice % kStages;
+  mbar_wait(b.full + st, (b.slice / kStages) & 1);
+  return b.ring + st * g.stage;
+}
+
+// the slice is read; streaming: once every thread has read it, its stage
+// takes the slice kStages on
+template <bool R>
+__device__ __forceinline__ void slice_done(const GArgs& g, Block& b) {
+  if constexpr (!R) {
+    __syncthreads();
+    if (threadIdx.x == 0) issue_slice(g, b.ring, b.full, b.cur, b.tiles);
+  }
+  ++b.slice;
+}
+
+// --- the layers
+
+// out rows [0, N) = act(in[0, K) . W + b) over the tile (act: softplus;
+// halve: / sqrt(2), the next layer's skip concat), W and b from segment
+// b.seg. Thread t holds item q = t % Q (and q + Q when J = 2) of points
+// (t / Q) P .. + P: the float4 at 4 q of each weight row, which the packer
+// fills with units q, q + N/4, q + N/2, q + 3N/4, so that the threads of a
+// warp store consecutive rows. Every item is in registers when the last
+// slice has been read, so out may overlap in (in_place; streaming passes
+// a barrier after each slice anyway)
+// part[i][m] += in[k][i] w[k][m] over rows k in [k0, k1) in order: the
+// thread's P points at xi (rows ld apart) and its float4 of weights at wq
+// (rows N apart)
+template <int P, int U>
+__device__ __forceinline__ void fma_rows(float (&part)[P][4], const float* xi, int ld,
+                                         const float* wq, int N, int k0, int k1) {
+#pragma unroll(U)
+  for (int k = k0; k < k1; ++k) {
+    float xv[P];
+#pragma unroll
+    for (int i = 0; i < P; i += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(xi + k * ld + i);
+      xv[i] = a.x;
+      xv[i + 1] = a.y;
+      xv[i + 2] = a.z;
+      xv[i + 3] = a.w;
+    }
+    const float4 c = *reinterpret_cast<const float4*>(wq + k * N);
+    const float wv[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+#pragma unroll
+      for (int m = 0; m < 4; ++m) part[i][m] = fmaf(xv[i], wv[m], part[i][m]);
+  }
+}
+
+// out rows [0, N) = act(in[0, K) . W + b) over the tile (act: softplus;
+// halve: / sqrt(2), the next layer's skip concat), W and b from segment
+// b.seg. Thread t holds item q = t % Q (and q + Q when J = 2) of points
+// (t / Q) P .. + P: the float4 at 4 q of each weight row, which the packer
+// fills with units q, q + N/4, q + N/2, q + 3N/4, so that the threads of a
+// warp store consecutive rows. Streaming (R false), each item's sum is
+// taken in blocks of kSumBlock inputs added in turn (blocked summation:
+// nearer float64 than one long chain, as the plain version's products
+// take it); a resident pack's layers (J 1, 80 registers) in one chain.
+// Every item is in registers when the last slice has been read, so out may
+// overlap in (in_place; streaming passes a barrier after each slice anyway)
+template <int P, int J, bool R>
+__device__ __forceinline__ void dense(const GArgs& g, Block& b, const float* in, int K,
+                                      int N, float* out, bool act, bool halve, bool in_place) {
+  const Seg& s = g.seg[b.seg];
+  const int ld = g.ld, N4 = N >> 2, Q = (N4 + J - 1) / J;
+  const int t = threadIdx.x, qq = t % Q, pg = t / Q;
+  const bool busy = pg < g.tile / P;
+  int q[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) q[j] = min(qq + j * Q, N4 - 1);
+  float acc[J][P][4];
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+#pragma unroll
+      for (int m = 0; m < 4; ++m) acc[j][i][m] = 0.0f;
+  const float* xi = in + pg * P;
+  for (int r0 = 0; r0 < s.rows; r0 += s.ks) {
+    const float* w = slice_wait<R>(g, b, r0);
+    const int r1 = min(r0 + s.ks, s.rows), k1 = min(r1, K);
+    if (busy) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const float* wq = w - r0 * N + 4 * q[j];   // row k at wq + k N
+        if constexpr (R) {
+          fma_rows<P, 2>(acc[j], xi, ld, wq, N, r0, k1);
+        } else {
+          for (int kb = r0; kb < k1; kb += kSumBlock) {
+            float part[P][4];
+#pragma unroll
+            for (int i = 0; i < P; ++i)
+#pragma unroll
+              for (int m = 0; m < 4; ++m) part[i][m] = 0.0f;
+            fma_rows<P, J == 1 ? 4 : 1>(part, xi, ld, wq, N, kb, min(kb + kSumBlock, k1));
+#pragma unroll
+            for (int i = 0; i < P; ++i)
+#pragma unroll
+              for (int m = 0; m < 4; ++m) acc[j][i][m] += part[i][m];
+          }
+        }
+      }
+      if (r1 > K) {   // the bias row
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const float4 c = *reinterpret_cast<const float4*>(w + (K - r0) * N + 4 * q[j]);
+          const float bv[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+          for (int i = 0; i < P; ++i)
+#pragma unroll
+            for (int m = 0; m < 4; ++m) acc[j][i][m] += bv[m];
+        }
+      }
+    }
+    slice_done<R>(g, b);
+  }
+  ++b.seg;
+  if constexpr (R) {
+    if (in_place) __syncthreads();   // every read of in is done
+  }
+  if (!busy) return;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    if (j > 0 && qq + j * Q >= N4) break;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      float v[P];
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        v[i] = acc[j][i][m];
+        if (act) v[i] = softplus100(v[i]);
+        if (halve) v[i] = __fmul_rn(v[i], kInvSqrt2);
+      }
+      float* r = out + (q[j] + N4 * m) * ld + pg * P;
+#pragma unroll
+      for (int i = 0; i < P; i += 4)
+        *reinterpret_cast<float4*>(r + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+    }
+  }
+}
+
+template <bool R>
+__device__ __forceinline__ void dense_any(const GArgs& g, Block& b, const float* in, int K,
+                                          int N, float* out, bool act, bool halve,
+                                          bool in_place) {
+  // a resident pack has one item a thread: its kernel holds no two-item code
+  const int mode = g.seg[b.seg].mode;
+  if (mode == 0) dense<4, 1, R>(g, b, in, K, N, out, act, halve, in_place);
+  else if (R || mode == 1) dense<8, 1, R>(g, b, in, K, N, out, act, halve, in_place);
+  else if (mode == 2) dense<4, 2, R>(g, b, in, K, N, out, act, halve, in_place);
+  else dense<8, 2, R>(g, b, in, K, N, out, act, halve, in_place);
+}
+
+// the SDF row of a last layer with K inputs, in float64: the T / tile
+// lanes of each point (point t / parts) take every parts-th input and sum
+// over one another with shuffles; every lane returns its point's SDF
+template <bool R>
+__device__ __forceinline__ double sdf_row(const GArgs& g, Block& b, const float* in, int K) {
+  const int parts = blockDim.x / g.tile;
+  const int p = threadIdx.x / parts, part = threadIdx.x % parts;
+  const float* w = slice_wait<R>(g, b, 0);
+  double s = 0.0;
+  for (int k = part; k < K; k += parts) s = fma((double)in[k * g.ld + p], (double)w[k], s);
+  for (int off = 1; off < parts; off <<= 1) s += __shfl_xor_sync(kFull, s, off);
+  s += (double)w[round4(K)];
+  slice_done<R>(g, b);
+  ++b.seg;
+  return s;
+}
+
 // X rows 0 .. n_pe - 1: x, then sin and cos of x 2^f, f < M
 __device__ void pe_rows_general(int M, const float* s_pts, float* s_x, int tile, int ld) {
-  for (int task = threadIdx.x; task < tile * (M + 1); task += kGThreads) {
+  for (int task = threadIdx.x; task < tile * (M + 1); task += blockDim.x) {
     const int p = task % tile, f = task / tile;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -518,192 +772,329 @@ __device__ void pe_rows_general(int M, const float* s_pts, float* s_x, int tile,
   }
 }
 
+// CV channels of a corner row at channel c0 of row r: float32 (CV 1, 2, 4)
+// or bf16 (CV 2, 4, 8) in one load
+template <bool kF32, int CV>
+__device__ __forceinline__ void load_chunk(const void* table, uint32_t r, int C, int c0,
+                                           float v[CV]) {
+  if constexpr (kF32) {
+    const float* p = reinterpret_cast<const float*>(table) + (size_t)r * C + c0;
+    if constexpr (CV == 4) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+      v[0] = a.x;
+      v[1] = a.y;
+      v[2] = a.z;
+      v[3] = a.w;
+    } else if constexpr (CV == 2) {
+      const float2 a = __ldg(reinterpret_cast<const float2*>(p));
+      v[0] = a.x;
+      v[1] = a.y;
+    } else {
+      v[0] = __ldg(p);
+    }
+  } else {
+    nsl::load_bf16_vec<CV>(reinterpret_cast<const uint16_t*>(table) + (size_t)r * C + c0, v);
+  }
+}
+
+// the 8 corners' rows summed in order, CV channels at a time
+template <bool kF32, int CV>
+__device__ __forceinline__ void gather_level(const void* table, const uint32_t rows[8],
+                                             const float wk[8], int C, float* dst, int ld) {
+  for (int c0 = 0; c0 < C; c0 += CV) {
+    float v[8][CV];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) load_chunk<kF32, CV>(table, rows[k], C, c0, v[k]);
+    float acc[CV];
+#pragma unroll
+    for (int c = 0; c < CV; ++c) acc[c] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+#pragma unroll
+      for (int c = 0; c < CV; ++c) acc[c] += wk[k] * v[k][c];
+#pragma unroll
+    for (int c = 0; c < CV; ++c) dst[(c0 + c) * ld] = acc[c];
+  }
+}
+
 // X rows n_pe .. n_pe + L C - 1: the grid's features of each point at
 // x / divide_factor, from a bf16 (K3's arithmetic) or an fp32 table [T, C]
 // (K2's); one task per (point, level), a warp on consecutive points of one
-// level, the 8 corners summed in order for each channel
+// level, each corner row read in vector loads of up to 16 bytes, the 8
+// corners summed in order for each channel
 template <bool kF32>
 __device__ void grid_rows_general(const NetDesc& nd, const void* table, const int* meta,
                                   const float* scl, const float* s_pts, float* s_x, int tile,
                                   int ld) {
   const int L = nd.L, C = nd.C;
-  for (int task = threadIdx.x; task < tile * L; task += kGThreads) {
+  for (int task = threadIdx.x; task < tile * L; task += blockDim.x) {
     const int p = task % tile, l = task / tile;
     float xp[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c)
-      xp[c] = nd.df == 1.0f ? s_pts[p * 3 + c] : __fdiv_rn(s_pts[p * 3 + c], nd.df);
+      xp[c] = nd.df == 1.0f ? s_pts[p * 3 + c] : __fmul_rn(s_pts[p * 3 + c], nd.inv_df);
     float* dst = s_x + (nd.n_pe + l * C) * ld + p;
-    nsl::LevelGeom g;
-    if (nsl::level_geom(xp, 1.0f, __ldg(scl + 2 * l), 0.0f, g)) {
+    nsl::LevelGeom geo;
+    if (nsl::level_geom(xp, 1.0f, __ldg(scl + 2 * l), 0.0f, geo)) {
       for (int c = 0; c < C; ++c) dst[c * ld] = 0.0f;
       continue;
     }
     uint32_t rows[8];
-    nsl::corner_rows(g, (uint32_t)__ldg(meta + 4 * l + 2), (uint32_t)__ldg(meta + 4 * l + 1),
+    nsl::corner_rows(geo, (uint32_t)__ldg(meta + 4 * l + 2), (uint32_t)__ldg(meta + 4 * l + 1),
                      (uint32_t)__ldg(meta + 4 * l), __ldg(meta + 4 * l + 3) != 0, rows);
     float wk[8];
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       float dw[3];
-      nsl::corner_weights(g, k, wk[k], dw);
+      nsl::corner_weights(geo, k, wk[k], dw);
     }
     if constexpr (kF32) {
-      const float* t = reinterpret_cast<const float*>(table);
-      for (int c = 0; c < C; ++c) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int k = 0; k < 8; ++k) acc += wk[k] * __ldg(t + (size_t)rows[k] * C + c);
-        dst[c * ld] = acc;
-      }
+      if (C % 4 == 0) gather_level<true, 4>(table, rows, wk, C, dst, ld);
+      else if (C % 2 == 0) gather_level<true, 2>(table, rows, wk, C, dst, ld);
+      else gather_level<true, 1>(table, rows, wk, C, dst, ld);
     } else {
-      const uint32_t* t = reinterpret_cast<const uint32_t*>(table);
-      const int half = C >> 1;
-      for (int c2 = 0; c2 < half; ++c2) {
-        float lo = 0.0f, hi = 0.0f;
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const uint32_t v = __ldg(t + (size_t)rows[k] * half + c2);
-          lo += wk[k] * nsl::bf16_lo(v);
-          hi += wk[k] * nsl::bf16_hi(v);
-        }
-        dst[(2 * c2) * ld] = lo;
-        dst[(2 * c2 + 1) * ld] = hi;
-      }
+      if (C % 8 == 0) gather_level<false, 8>(table, rows, wk, C, dst, ld);
+      else if (C % 4 == 0) gather_level<false, 4>(table, rows, wk, C, dst, ld);
+      else gather_level<false, 2>(table, rows, wk, C, dst, ld);
     }
   }
 }
 
-// one network over the tile in s_x: its hidden layers through hb[0] and
-// hb[1] in turns, then its last layer: the SDF row of point p in float64
-// into sdf (thread p < tile), and, for the concat coarse network, the
-// feature rows into the hidden buffer the last layer does not read.
-// Returns that buffer.
-template <bool kSmemW>
-__device__ float* run_net_general(const NetDesc& nd, const float* W, float* s_x, float* hb0,
-                                  float* hb1, int tile, int ld, double& sdf) {
-  float* hb[2] = {hb0, hb1};
+// one network over the tile in s_x: its hidden layers through s_h (in
+// place) or s_h and s_h2 in turns (g.buffers), then
+// its last layer: every lane's point's SDF row in float64, and, for the
+// concat coarse network, the feature rows into X at feat_row. Ends with a
+// barrier: X and the hidden rows are free
+template <bool R>
+__device__ double run_net_general(const GArgs& g, Block& b, const NetDesc& nd, float* s_x,
+                                  float* s_h, float* s_h2, int feat_row) {
+  const int tile = g.tile, ld = g.ld;
   const float* in = s_x;
-  int cur = 0;
   for (int l = 0; l + 1 < nd.n; ++l) {
-    float* out = hb[cur];
     const bool skip = nd.skip[l + 1] != 0;
-    dense_general<kSmemW>(in, nd.K[l], W + nd.off[l], nd.N[l], out, true, skip, tile, ld);
+    float* out = R && g.buffers == 2 && (l & 1) ? s_h2 : s_h;
+    dense_any<R>(g, b, in, nd.K[l], nd.N[l], out, true, skip, in == out);
     if (skip) {
       // [h, inp] / sqrt(2): the input's rows after the layer's padded units
       float* dst = out + nd.N[l] * ld;
-      for (int i = threadIdx.x; i < nd.d0 * tile; i += kGThreads) {
+      for (int i = threadIdx.x; i < nd.d0 * tile; i += blockDim.x) {
         const int r = i / tile, p = i % tile;
-        dst[r * ld + p] = __fdiv_rn(s_x[r * ld + p], kSqrt2);
+        dst[r * ld + p] = __fmul_rn(s_x[r * ld + p], kInvSqrt2);
       }
     }
     __syncthreads();
     in = out;
-    cur ^= 1;
   }
-  const int l = nd.n - 1, K = nd.K[l];
-  const float* w = W + nd.off[l];
-  if (threadIdx.x < tile) {
-    const int p = threadIdx.x;
-    double s = 0.0;
-    for (int k = 0; k < K; ++k) s = fma((double)in[k * ld + p], (double)load_w<kSmemW>(w + k), s);
-    sdf = s + (double)load_w<kSmemW>(w + round4(K));
-  }
-  if (nd.feat)
-    dense_general<kSmemW>(in, K, w + round4(K) + 4, nd.feat, hb[cur], false, false, tile, ld);
-  return hb[cur];
+  const int K = nd.K[nd.n - 1];
+  const double sdf = sdf_row<R>(g, b, in, K);
+  float* feat = s_x + feat_row * ld;
+  if (nd.feat) dense_any<R>(g, b, in, K, nd.feat, feat, false, false, in == s_x);
+  __syncthreads();
+  return sdf;
 }
 
-template <bool kF32Tab, bool kSmemW>
-__global__ void __launch_bounds__(kGThreads) sdf_density_general_kernel(const GArgs g) {
+// kF32Tab: fp32 tables (concat), else bf16; R: the pack is resident
+// (g.resident: 256 threads, one item a thread, registers for three blocks
+// an SM), else streamed (up to 512 threads, 16 warps)
+template <bool kF32Tab, bool R>
+__global__ void __launch_bounds__(R ? 256 : kMaxThreads, R ? 3 : 1)
+    sdf_density_general_kernel(const __grid_constant__ GArgs g) {
   const Args& a = g.p;
   const NetDesc& nc = g.net[0];
   const NetDesc& nf = g.net[1];
   const int tile = g.tile, ld = g.ld;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  float* s_x = sm + g.w_smem;
-  float* s_h0 = s_x + g.x_rows * ld;
-  float* s_h1 = s_h0 + g.h_rows * ld;
-  float* s_pts = s_h1 + g.h_rows * ld;
+  Block b;
+  b.ring = sm;
+  float* s_x = sm + (R ? g.w_floats : kStages * g.stage);
+  float* s_h = s_x + g.x_rows * ld;
+  float* s_h2 = s_h + g.h_rows * ld;
+  float* s_pts = s_h + g.buffers * g.h_rows * ld;
   float* s_beta = s_pts + 3 * tile;
-  const float* W = kSmemW ? sm : a.weights;
-  if (kSmemW)
-    for (int i = threadIdx.x; i < g.w_smem / 4; i += kGThreads)
-      smem4[i] = __ldg(reinterpret_cast<const float4*>(a.weights) + i);
+  b.full = reinterpret_cast<uint64_t*>(s_beta + tile);
+  b.cur = reinterpret_cast<Cursor*>(b.full + kStages);
+  b.tiles = (a.N + tile - 1) / tile;
+  b.slice = 0;
   const int t = threadIdx.x;
-  const int64_t tiles = (a.N + tile - 1) / tile;
-  for (int64_t ti = blockIdx.x; ti < tiles; ti += gridDim.x) {
+  if (t == 0) {
+    for (int i = 0; i < kStages; ++i) mbar_init(b.full + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if constexpr (R) {
+      bulk_copy(b.ring, a.weights, (uint32_t)g.w_floats * 4u, b.full);
+    } else {
+      *b.cur = Cursor{(int64_t)blockIdx.x, 0, 0, 0};
+      for (int i = 0; i < kStages; ++i) issue_slice(g, b.ring, b.full, b.cur, b.tiles);
+    }
+  }
+  const int parts = blockDim.x / tile, p = t / parts;
+  for (int64_t ti = blockIdx.x; ti < b.tiles; ti += gridDim.x) {
     const int64_t n0 = ti * tile;
-    __syncthreads();   // the previous tile's last reads (and the weights) are done
+    __syncthreads();   // the mbarriers, or the previous tile's last reads
+    b.seg = 0;
     if (t < tile) {
-      float p[3];
-      point_of(a, n0 + t, p);
-      s_pts[t * 3] = p[0];
-      s_pts[t * 3 + 1] = p[1];
-      s_pts[t * 3 + 2] = p[2];
-      s_beta[t] = beta_at(a, p);
+      float pt[3];
+      point_of(a, n0 + t, pt);
+      s_pts[t * 3] = pt[0];
+      s_pts[t * 3 + 1] = pt[1];
+      s_pts[t * 3 + 2] = pt[2];
+      s_beta[t] = beta_at(a, pt);
     }
     __syncthreads();
     pe_rows_general(nc.M, s_pts, s_x, tile, ld);
     grid_rows_general<kF32Tab>(nc, a.table_c, a.meta_c, a.scl_c, s_pts, s_x, tile, ld);
     __syncthreads();
-    // thread p < tile owns point p's coarse and fine SDF rows
-    double sdf_c = 0.0, sdf_f = 0.0;
-    const float* feat = run_net_general<kSmemW>(nc, W, s_x, s_h0, s_h1, tile, ld, sdf_c);
-    __syncthreads();   // the coarse network's reads of X are done
+    const int feat_row = nf.n_pe + nf.L * nf.C;
+    const double sdf_c = run_net_general<R>(g, b, nc, s_x, s_h, s_h2, feat_row);
     if (nf.M != nc.M) pe_rows_general(nf.M, s_pts, s_x, tile, ld);
     grid_rows_general<kF32Tab>(nf, a.table_f, a.meta_f, a.scl_f, s_pts, s_x, tile, ld);
-    if (nc.feat) {
-      float* dst = s_x + (nf.n_pe + nf.L * nf.C) * ld;
-      for (int i = t; i < nc.feat * tile; i += kGThreads)
-        dst[(i / tile) * ld + i % tile] = feat[(i / tile) * ld + i % tile];
-    }
     __syncthreads();
-    run_net_general<kSmemW>(nf, W, s_x, s_h0, s_h1, tile, ld, sdf_f);
-    if (t < tile && n0 + t < a.N) {
+    double sdf_f = run_net_general<R>(g, b, nf, s_x, s_h, s_h2, 0);
+    if (t % parts == 0 && n0 + p < a.N) {
       // the fine clamp rounds the fine SDF to float32 first, as the plain
       // version does
       if (nf.clamp) sdf_f = (double)__fmul_rn(tanhf((float)sdf_f), 0.05f);
-      a.out[n0 + t] = laplace((float)(sdf_c + sdf_f), s_beta[t]);
+      a.out[n0 + p] = laplace((float)(sdf_c + sdf_f), s_beta[p]);
     }
   }
 }
 
+// --- the host's plan
 
-// the rows of X and of each hidden buffer that the two networks of desc
-// need
-__host__ inline void general_rows(const int* desc, int& x_rows, int& h_rows) {
-  x_rows = h_rows = 4;
+// parse and check desc (2 networks of kDescInts ints)
+__host__ inline bool parse_desc(const int* desc, NetDesc net[2]) {
   for (int i = 0; i < 2; ++i) {
     const int* q = desc + i * kDescInts;
-    const int n = q[0], d0 = q[5], feat = q[7];
-    for (int l = 0; l + 1 < n && l + 1 < kMaxLayers; ++l)
-      h_rows = std::max(h_rows, q[kDescHead + kMaxLayers + l] +
-                                    (q[kDescHead + 2 * kMaxLayers + l + 1] ? d0 : 0));
-    h_rows = std::max(h_rows, feat);
-    x_rows = std::max(x_rows, round4(d0));
+    NetDesc& nd = net[i];
+    nd.n = q[0];
+    nd.n_pe = q[1];
+    nd.M = q[2];
+    nd.L = q[3];
+    nd.C = q[4];
+    nd.d0 = q[5];
+    nd.clamp = q[6];
+    nd.feat = q[7];
+    memcpy(&nd.df, q + 8, sizeof(float));
+    nd.inv_df = 1.0f / nd.df;
+    if (nd.n < 1 || nd.n > kMaxLayers || nd.n_pe != 3 * (1 + 2 * nd.M) || nd.M > 30 ||
+        nd.feat % 4 != 0 || (i == 1 && nd.feat != 0) || nd.C < 1)
+      return false;
+    for (int l = 0; l < nd.n; ++l) {
+      nd.K[l] = q[kDescHead + l];
+      nd.N[l] = q[kDescHead + kMaxLayers + l];
+      nd.skip[l] = q[kDescHead + 2 * kMaxLayers + l];
+      nd.off[l] = q[kDescHead + 3 * kMaxLayers + l];
+      if (nd.off[l] % 4 != 0 || nd.K[l] < 1 || (l + 1 < nd.n && (nd.N[l] % 4 != 0 || nd.N[l] < 4)))
+        return false;
+    }
   }
+  return true;
 }
 
-// the largest tile (128, 64, 32 points) with the weights in shared memory,
-// else the largest with the weights read through the caches; false when
-// none fits in optin bytes
-__host__ inline bool general_plan(int x_rows, int h_rows, int64_t w_floats, int optin,
-                                  int& tile, int& w_smem) {
-  const int tiles_try[3] = {128, 64, 32};
-  for (int pass = 0; pass < 2; ++pass)
-    for (int tt : tiles_try) {
-      const int64_t ws = pass == 0 ? w_floats : 0;
-      if (general_smem_floats(tt, x_rows, h_rows, (int)ws) * (int64_t)sizeof(float) <= optin) {
-        tile = tt;
-        w_smem = (int)ws;
-        return true;
-      }
+// the first register block (kBlocks, fewest multiply-adds a thread; J at
+// most max_j) whose items all fit in the block's threads at once; -1 if
+// none does
+__host__ inline int pick_block(int N, int tile, int threads, int max_j) {
+  for (int m = 0; m < 4; ++m) {
+    const int P = kBlocks[m][0], J = kBlocks[m][1], Q = (N / 4 + J - 1) / J;
+    if (J <= max_j && Q * (tile / P) <= threads) return m;
+  }
+  return -1;
+}
+
+// the plan for threads a block and tile points a tile, ks weight rows a
+// slice at the widest layer (0: the whole pack resident, each segment one
+// slice), at most max_j items a thread (1 for a resident pack); false if a
+// layer has no register block
+__host__ inline bool plan_for(const NetDesc net[2], int threads, int tile, int ks, int max_j,
+                              GArgs& g) {
+  int x_rows = 4, h_rows = 4, nmax = 4, row_max = 8;
+  for (int i = 0; i < 2; ++i) {
+    const NetDesc& nd = net[i];
+    for (int l = 0; l + 1 < nd.n; ++l) {
+      h_rows = std::max(h_rows, nd.N[l] + (nd.skip[l + 1] ? nd.d0 : 0));
+      nmax = std::max(nmax, nd.N[l]);
     }
+    nmax = std::max(nmax, nd.feat);
+    row_max = std::max(row_max, round4(nd.K[nd.n - 1]) + 4);
+    x_rows = std::max(x_rows, round4(nd.d0));
+  }
+  g.tile = tile;
+  g.ld = tile + 4;
+  g.x_rows = x_rows;
+  g.h_rows = h_rows;
+  g.resident = ks == 0;
+  g.stage = g.resident ? 0 : round4(std::max(ks * nmax, row_max));
+  g.nseg = 0;
+  for (int i = 0; i < 2; ++i) {
+    const NetDesc& nd = net[i];
+    auto dense_seg = [&](int off, int K, int N) {
+      const int mode = pick_block(N, tile, threads, g.resident ? 1 : max_j);
+      g.seg[g.nseg++] = Seg{off, K + 1, N, g.resident ? K + 1 : std::max(1, g.stage / N), mode};
+      return mode >= 0;
+    };
+    for (int l = 0; l + 1 < nd.n; ++l)
+      if (!dense_seg(nd.off[l], nd.K[l], nd.N[l])) return false;
+    const int l = nd.n - 1, K = nd.K[l];
+    g.seg[g.nseg++] = Seg{nd.off[l], 1, round4(K) + 4, 1, -1};
+    if (nd.feat && !dense_seg(nd.off[l] + round4(K) + 4, K, nd.feat)) return false;
+  }
+  return true;
+}
+
+__host__ inline int64_t general_smem_bytes(const GArgs& g) {
+  return 4 * ((g.resident ? g.w_floats : (int64_t)kStages * g.stage) +
+              (int64_t)(g.x_rows + g.buffers * g.h_rows) * g.ld + 4 * g.tile +
+              kTailFloats);
+}
+
+// the first plan that fits, with one item a thread where any plan allows
+// it, else two (two re-read each input: on an H100, a 256-unit network
+// took 51.4 ms with two items on 128 points, 48.6 with one on 64). A pack
+// that fits beside its activations stays
+// resident: blocks of 256 threads on 128 (or 64) points, three an SM where
+// they fit, else two, with two hidden buffers in turns (one barrier a
+// layer), else one in place: such a network is narrow, its time goes to
+// the gathers, the encodings and the barriers, and the other blocks
+// overlap them. Else the weights stream, at the largest tile (each slice
+// then serves the most points): one block of 512 threads on 256 points,
+// two of 256 on 128, one of 512 on 128, ... 32; with the most weight rows
+// a slice (64 .. 4) that fit. g.w_floats: the pack's floats; smem_sm and
+// reserved: the SM's shared memory and what each block costs beside its own
+__host__ inline bool general_plan(const NetDesc net[2], int smem_sm, int reserved, int optin,
+                                  GArgs& g, int& threads) {
+  // threads, tile, hidden buffers of a resident pack (0: streamed), blocks an SM
+  const int cand[12][4] = {{256, 128, 2, 3}, {256, 128, 1, 3}, {256, 128, 2, 2},
+                           {256, 128, 1, 2}, {256, 64, 2, 2},  {256, 64, 1, 2},
+                           {512, 256, 0, 1}, {256, 128, 0, 2}, {512, 128, 0, 1},
+                           {256, 64, 0, 2},  {512, 64, 0, 1},  {512, 32, 0, 1}};
+  for (int max_j = 1; max_j <= 2; ++max_j)
+    for (const auto& c : cand)
+      for (int ks : {64, 32, 16, 8, 4}) {
+        const int limit = std::min(optin, smem_sm / c[3] - reserved);
+        const bool fits = plan_for(net, c[0], c[1], c[2] ? 0 : ks, max_j, g);
+        g.buffers = std::max(c[2], 1);
+        if (fits && general_smem_bytes(g) <= limit) {
+          threads = c[0];
+          return true;
+        }
+        if (c[2]) break;
+      }
   return false;
 }
 
+__host__ inline cudaError_t device_limits(int& sms, int& smem_sm, int& reserved, int& optin) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  return e;
+}
 }  // namespace
 
 extern "C" {
@@ -747,8 +1138,7 @@ int nsl_sdf_density(const void* weights, const void* table_c, const void* meta_c
 // desc, a HOST array of 2 kDescInts ints (ops/sdf_density.pack_general:
 // coarse, then fine), w_floats the packed weights' floats (16-byte
 // aligned); f32_tables: the tables are [T, C] float32 (the concat
-// variant), else bfloat16. It takes the largest tile whose activations,
-// and then the weights, fit in shared memory.
+// variant), else bfloat16. It takes general_plan's first plan that fits.
 int nsl_sdf_density_general(const int* desc, const void* weights, int64_t w_floats,
                             const void* table_c, const void* meta_c, const void* scl_c,
                             const void* table_f, const void* meta_f, const void* scl_f,
@@ -768,79 +1158,62 @@ int nsl_sdf_density_general(const int* desc, const void* weights, int64_t w_floa
              (const float*)scl_f, (const float*)xs, res, (const float*)o, (const float*)d,
              (const float*)z, S, (const float*)counter, vres, neg_b_1e4, vd, va, vc,
              (const float*)beta, (const float*)beta_scale, (float*)out, N};
-  for (int i = 0; i < 2; ++i) {
-    const int* q = desc + i * kDescInts;
-    NetDesc& nd = g.net[i];
-    nd.n = q[0];
-    nd.n_pe = q[1];
-    nd.M = q[2];
-    nd.L = q[3];
-    nd.C = q[4];
-    nd.d0 = q[5];
-    nd.clamp = q[6];
-    nd.feat = q[7];
-    memcpy(&nd.df, q + 8, sizeof(float));
-    if (nd.n < 1 || nd.n > kMaxLayers || nd.n_pe != 3 * (1 + 2 * nd.M) || nd.M > 30 ||
-        nd.feat % 4 != 0 || (nd.L > 0 && !f32_tables && nd.C % 2 != 0))
-      return (int)cudaErrorInvalidValue;
-    for (int l = 0; l < nd.n; ++l) {
-      nd.K[l] = q[kDescHead + l];
-      nd.N[l] = q[kDescHead + kMaxLayers + l];
-      nd.skip[l] = q[kDescHead + 2 * kMaxLayers + l];
-      nd.off[l] = q[kDescHead + 3 * kMaxLayers + l];
-      if (nd.off[l] % 4 != 0 || (l + 1 < nd.n && nd.N[l] % 4 != 0))
-        return (int)cudaErrorInvalidValue;
-    }
-  }
-  int x_rows, h_rows, tile = 0, w_smem = 0;
-  general_rows(desc, x_rows, h_rows);
-  int dev = 0, sms = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (!parse_desc(desc, g.net)) return (int)cudaErrorInvalidValue;
+  for (const NetDesc& nd : g.net)
+    if (nd.L > 0 && !f32_tables && nd.C % 2 != 0) return (int)cudaErrorInvalidValue;
+  int sms = 0, smem_sm = 0, reserved = 0, optin = 0, threads = 0;
+  cudaError_t e = device_limits(sms, smem_sm, reserved, optin);
   if (e != cudaSuccess) return (int)e;
-  if (!general_plan(x_rows, h_rows, w_floats, optin, tile, w_smem))
+  g.w_floats = w_floats;
+  if (!general_plan(g.net, smem_sm, reserved, optin, g, threads))
     return (int)cudaErrorInvalidConfiguration;
-  g.tile = tile;
-  g.ld = tile + 4;
-  g.x_rows = x_rows;
-  g.h_rows = h_rows;
-  g.w_smem = w_smem;
+  for (int i = 0; i < g.nseg; ++i)
+    if ((int64_t)g.seg[i].off + (int64_t)g.seg[i].rows * g.seg[i].n > w_floats)
+      return (int)cudaErrorInvalidValue;
   void (*kern)(const GArgs);
   if (f32_tables)
-    kern = w_smem ? sdf_density_general_kernel<true, true> : sdf_density_general_kernel<true, false>;
+    kern = g.resident ? sdf_density_general_kernel<true, true>
+                      : sdf_density_general_kernel<true, false>;
   else
-    kern = w_smem ? sdf_density_general_kernel<false, true> : sdf_density_general_kernel<false, false>;
-  const size_t bytes =
-      (size_t)general_smem_floats(tile, x_rows, h_rows, w_smem) * sizeof(float);
+    kern = g.resident ? sdf_density_general_kernel<false, true>
+                      : sdf_density_general_kernel<false, false>;
+  const size_t bytes = (size_t)general_smem_bytes(g);
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return (int)e;
   int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kGThreads, bytes);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, bytes);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int64_t tiles = (N + tile - 1) / tile;
+  const int64_t tiles = (N + g.tile - 1) / g.tile;
   const int64_t most = (int64_t)sms * per_sm;
   const unsigned blocks = (unsigned)(tiles < most ? tiles : most);
-  kern<<<blocks, kGThreads, bytes, (cudaStream_t)stream>>>(g);
+  kern<<<blocks, threads, bytes, (cudaStream_t)stream>>>(g);
   return (int)cudaGetLastError();
 }
 
-// the tile and shared-memory bytes the general kernel takes for desc (0
-// and -1 where nothing fits); a probe for the wrapper and chip_smoke.py
+// the tile, the shared-memory bytes a block and the floats of weights in
+// shared memory (the whole pack, or its ring) that the general kernel takes
+// for desc (0, -1 and 0 where nothing fits); a probe for the wrapper and
+// chip_smoke.py
 int nsl_sdf_density_general_plan(const int* desc, int64_t w_floats, int* tile_out,
                                  int64_t* bytes_out, int* w_smem_out) {
-  int x_rows, h_rows, dev = 0, optin = 0, tile = 0, w_smem = 0;
-  general_rows(desc, x_rows, h_rows);
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  GArgs g{};
+  g.w_floats = w_floats;
+  int sms = 0, smem_sm = 0, reserved = 0, optin = 0, threads = 0;
+  *tile_out = 0;
+  *bytes_out = -1;
+  *w_smem_out = 0;
+  if (!parse_desc(desc, g.net)) return 0;
+  cudaError_t e = device_limits(sms, smem_sm, reserved, optin);
   if (e != cudaSuccess) return (int)e;
-  const bool fits = general_plan(x_rows, h_rows, w_floats, optin, tile, w_smem);
-  *tile_out = fits ? tile : 0;
-  *bytes_out = fits ? general_smem_floats(tile, x_rows, h_rows, w_smem) * 4 : -1;
-  *w_smem_out = w_smem;
+  if (general_plan(g.net, smem_sm, reserved, optin, g, threads)) {
+    *tile_out = g.tile;
+    *bytes_out = general_smem_bytes(g);
+    *w_smem_out = g.resident ? (int)w_floats : kStages * g.stage;
+  }
   return 0;
 }
 

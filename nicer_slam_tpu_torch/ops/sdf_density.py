@@ -43,8 +43,8 @@ with its units in the order ``q -> q//4 + 16·(q % 4)`` (a thread's 4 units
 are one float4), and of each last layer only row 0, the SDF. The general
 kernel's (``pack_general``): each layer transposed ``[K][N]`` over the
 rows it reads in shared memory, every width padded to a multiple of 4 with
-zero units; the note at the top of the CUDA source has the designs and
-their error budget.
+zero units, the units in ``unit_order``; the note at the top of the CUDA
+source has the designs and their error budget.
 """
 
 from __future__ import annotations
@@ -149,8 +149,9 @@ def check_sdf_network(cfg: fields.CombineConfig) -> str:
 
 def unit_order(width: int) -> torch.Tensor:
     """The packed position q holds unit q//4 + (width/4)·(q % 4): thread og
-    of the kernel's 16 reads its units og, og + 16, og + 32, og + 48 as one
-    float4 at 4·og."""
+    of the shipped kernel's 16 reads its units og, og + 16, og + 32, og + 48
+    as one float4 at 4·og, and a thread of the general kernel its units q,
+    q + width/4, q + width/2, q + 3·width/4 at 4·q."""
     q = torch.arange(width)
     return q // 4 + (width // 4) * (q % 4)
 
@@ -228,9 +229,12 @@ def _general_layout(cfg: fields.CombineConfig):
     and, for the fine network with concat, the coarse feature rows padded
     to 4. Layer l reads K rows: X (l = 0), the previous layer's units padded
     to 4, and after them X again where l is in skip_in. A hidden layer is
-    W [K][N] then b [N] (N its units padded to 4), the last the SDF row
-    [ceil4(K)] and its bias padded to 4, then, for the coarse network with
-    concat, its feature rows W [K][F4] and b [F4]."""
+    W [K][N] then b [N] (N its units padded to 4, in ``unit_order(N)``: the
+    float4 at 4q holds units q, q + N/4, q + N/2, q + 3N/4), the last the
+    SDF row [ceil4(K)] and its bias padded to 4, then, for the coarse
+    network with concat, its feature rows W [K][F4] and b [F4] (in
+    ``unit_order(F4)``). Each layer's outputs land in the kernel's rows in
+    natural unit order."""
     concat = cfg.fine.concat_coarse_feature
     F = cfg.coarse.layer_dims[-1] - 1
     F4 = _ceil4(F) if concat else 0
@@ -266,7 +270,7 @@ def _general_layout(cfg: fields.CombineConfig):
             if l < n - 1:
                 N = n_prev = _ceil4(outs[l])
                 desc[i, DESC_HEAD + MAX_LAYERS + l] = N
-                j = np.arange(N)[None, :]
+                j = unit_order(N).numpy()[None, :]
                 idx += [np.where((imap >= 0) & (j < outs[l]), w0 + j * k_in + imap, -1),
                         np.where(j[0] < outs[l], b0 + j[0], -1)]
                 pos += K * N + N
@@ -276,7 +280,7 @@ def _general_layout(cfg: fields.CombineConfig):
                 idx += [row, np.array([b0, -1, -1, -1])]
                 pos += _ceil4(K) + 4
                 if name == "coarse" and concat:
-                    f = np.arange(F4)[None, :]
+                    f = unit_order(F4).numpy()[None, :]
                     idx += [np.where((imap >= 0) & (f < F), w0 + (1 + f) * k_in + imap, -1),
                             np.where(f[0] < F, b0 + 1 + f[0], -1)]
                     pos += K * F4 + F4
@@ -307,6 +311,13 @@ def _grid_input(c: fields.ImplicitNetConfig, spec, table: torch.Tensor, x: torch
     return he.hash_encode_plain(spec, table, xd)
 
 
+def _natural(hq: torch.Tensor) -> torch.Tensor:
+    """Columns in ``unit_order`` (the packed order) -> natural unit order."""
+    h = torch.empty_like(hq)
+    h[:, unit_order(hq.shape[1]).to(hq.device)] = hq
+    return h
+
+
 def sdf_general_reference(net: fields.CombineNet, tables: Dict[str, torch.Tensor],
                           flat: torch.Tensor, desc: np.ndarray, x: torch.Tensor,
                           dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -330,7 +341,7 @@ def sdf_general_reference(net: fields.CombineNet, tables: Dict[str, torch.Tensor
             assert h.shape[1] == K
             if l < n - 1:
                 w = flat[off:off + K * N].reshape(K, N).to(dtype)
-                h = softplus_beta100(h @ w + flat[off + K * N:off + K * N + N].to(dtype))
+                h = _natural(softplus_beta100(h @ w + flat[off + K * N:off + K * N + N].to(dtype)))
                 if d[DESC_HEAD + 2 * MAX_LAYERS + l + 1]:
                     h = torch.cat([h, X], -1) / np.float32(np.sqrt(2.0))
             else:
@@ -338,8 +349,8 @@ def sdf_general_reference(net: fields.CombineNet, tables: Dict[str, torch.Tensor
                 s = h @ flat[off:off + K].to(dtype) + flat[off + K4].to(dtype)
                 if F4:
                     o = off + K4 + 4
-                    feat = (h @ flat[o:o + K * F4].reshape(K, F4).to(dtype)
-                            + flat[o + K * F4:o + K * F4 + F4].to(dtype))
+                    feat = _natural(h @ flat[o:o + K * F4].reshape(K, F4).to(dtype)
+                                    + flat[o + K * F4:o + K * F4 + F4].to(dtype))
         if d[6]:
             s = torch.tanh(s.float()) * 0.05
         total = s if total is None else total + s.to(total.dtype)
@@ -500,9 +511,10 @@ def pack_sdf(net: fields.CombineNet) -> SdfPack:
 
 
 def general_plan(pack: SdfPack) -> Tuple[int, int, int]:
-    """(points per tile, shared-memory bytes, floats of weights held in
-    shared memory) that the general kernel takes for this pack on the
-    current card; (0, -1, 0) when its activations do not fit."""
+    """(points per tile, shared-memory bytes a block, floats of weights in
+    shared memory: the whole pack when it stays resident, else its ring's)
+    that the general kernel takes for this pack on the current card; (0,
+    -1, 0) when its activations do not fit."""
     tile, nbytes, w_smem = ctypes.c_int(), ctypes.c_int64(), ctypes.c_int()
     rc = _cuda.library().nsl_sdf_density_general_plan(
         np.ascontiguousarray(pack.desc, np.int32).ctypes.data, pack.weights.numel(),
@@ -541,7 +553,8 @@ def _launch(net, pack: SdfPack, N: int, out: torch.Tensor, voxels, beta, beta_sc
         _cuda.check(pack.weights, "weights", torch.float32, (index.size,), device=dev)
         if general_plan(pack)[0] == 0:
             raise ValueError("sdf_density: the network's activations do not fit in the "
-                             "general kernel's shared memory at 32 points a tile")
+                             "general kernel's shared memory at 32 points a tile, or a "
+                             "layer is wider than its 512 threads hold (1024 units)")
     else:
         _cuda.check(pack.weights, "weights", torch.float32,
                     (packed_floats(net.cfg.coarse.layer_dims)

@@ -5,13 +5,16 @@ shipped kernel does not serve, on the CPU against the JAX package:
   * ``check_sdf_network`` names the variant of each network (chip_smoke.py's
     GENERAL_NETS: the JAX package's end-to-end test conf, the port's
     parity-test networks, one with skip_in, the fine clamp, divide_factor
-    1.5, multires 0 and a 16 x 2 grid; one without grid features; the
+    1.5, multires 0 and a 16 x 2 grid; one whose widths are no multiple of 8
+    (coarse 20, fine 36 x 3 with skip_in [2], multires 2 and 1, a 3 x 6
+    grid); one without grid features; the
     flagship's networks with an 8 x 256 fine network with skip_in [4], and
     with concat_coarse_feature) and raises only for networks the JAX package
     cannot run either;
   * the SDF computed from ``pack_general``'s weights and descriptor in the
-    general kernel's row layout (``sdf_general_reference``: padding, skip
-    rows, dropped zero grid columns, the coarse feature rows of concat)
+    general kernel's row layout (``sdf_general_reference``: padding, the
+    interleaved unit order, skip rows, dropped zero grid columns, the coarse
+    feature rows of concat)
     reproduces the plain version ``sdf_plain`` within 1e-6 of the largest
     |SDF| in float32 (other summation orders) and 2e-6 in float64 (the
     plain version's float32 hidden layers);
@@ -46,8 +49,8 @@ DENSITY_RTOL = 2e-5
 
 # network -> the variant the selector picks
 NETS = {"tiny-jax": "general", "tiny-port": "general", "skip-clamp": "general",
-        "no-grid": "general", "volsdf-8x256": "general", "concat": "concat",
-        "shipped": "shipped"}
+        "odd-widths": "general", "no-grid": "general", "volsdf-8x256": "general",
+        "concat": "concat", "shipped": "shipped"}
 
 
 def _configs(which: str):
