@@ -205,6 +205,10 @@ N_FRAMES = 11
 GLOBAL_WINDOW_START = 10
 # the two runs: conf, the scan's image size and scan id, the conf's dataset
 # line, and the run's own conf edits (beside those of write_conf)
+# the vis hook's mesh at 128³ in the phases beside phases 8-10 (write_conf
+# sets 256³; the mesh is most of a vis call, and these phases are the
+# smoke's longest lane)
+VIS_MESH_128 = ("resolution = 256", "resolution = 128")
 PATHS = {
     "demo": dict(conf=os.path.join(ROOT, "confs", "runconf_demo_1.conf"), H=720, W=1280,
                  scan_id=1, data_dir='"../Datasets/processed/Demo"', n_images=200,
@@ -235,7 +239,8 @@ PATHS = {
                             "mapping_patchsizes = [\n        1\n        5\n    ]"),
                            ('warp_loss_type = "l1"', 'warp_loss_type = "ssim"'),
                            ("per_image_code = false",
-                            "per_image_code = false\n        model_exposure = true")]),
+                            "per_image_code = false\n        model_exposure = true"),
+                           VIS_MESH_128]),
     # the networks phase: the flagship with concat_coarse_feature (the fine
     # network reads the coarse network's feature rows) and the exact
     # prepass (the JAX package cannot cache it), the free-space guard as in
@@ -248,7 +253,8 @@ PATHS = {
                           ("prepass_mode = cached", "prepass_mode = exact"),
                           ("num_levels = 8\n            level_dim = 4\n",
                            "num_levels = 8\n            level_dim = 4\n"
-                           "            concat_coarse_feature = true\n")]),
+                           "            concat_coarse_feature = true\n"),
+                          VIS_MESH_128]),
     # the wide-grid phase: the flagship with grids beyond 32 levels or 8
     # channels (the coarse SDF grid 16 levels x 16 channels, the fine one
     # 40 levels x 2, the colour grid 40 levels at 2^22 rows a level; its
@@ -266,17 +272,27 @@ PATHS = {
                         ("per_image_code = false\n        use_grid_feature = true\n",
                          "per_image_code = false\n        use_grid_feature = true\n"
                          "        color_num_levels = 40\n        color_logmap = 22\n"),
-                        # the vis hook's mesh at 128³ (write_conf sets the
-                        # other runs' 256³, which took 52 s of the phase's
-                        # 105 s on these grids)
-                        ("resolution = 256", "resolution = 128")]),
+                        # the vis hook's mesh at 128³ (256³ took 52 s of the
+                        # phase's 105 s on these grids)
+                        VIS_MESH_128]),
+    # the limits phase: the demo configuration at its full width with
+    # sampler counts past the kernels' old limits (1280 prepass samples,
+    # 128 + 64 + 2 = 194 sorted and composited a ray)
+    "limits": dict(conf=os.path.join(ROOT, "confs", "runconf_demo_1.conf"), H=720, W=1280,
+                   scan_id=1, data_dir='"../Datasets/processed/Demo"', n_images=200,
+                   edits=[("        N_samples = 64\n        N_samples_eval = 640\n"
+                           "        N_samples_extra = 32\n",
+                           "        N_samples = 128\n        N_samples_eval = 1280\n"
+                           "        N_samples_extra = 64\n"),
+                          VIS_MESH_128]),
     # then the demo networks with the nerf colour mode (no colour grid) and
     # per-image codes
     "nerf": dict(conf=os.path.join(ROOT, "confs", "runconf_demo_1.conf"), H=720, W=1280,
                  scan_id=1, data_dir='"../Datasets/processed/Demo"', n_images=200,
                  edits=[('mode = "idr"\n        d_in = 9', 'mode = "nerf"\n        d_in = 3'),
                         ("per_image_code = false\n        use_grid_feature = true",
-                         "per_image_code = true\n        use_grid_feature = false")]),
+                         "per_image_code = true\n        use_grid_feature = false"),
+                        VIS_MESH_128]),
     # the preprocess phase's run: the demo networks and schedule at 680x1200
     # on the scan that the port's Replica converter wrote (data_dir is set to
     # the converter's output by write_conf)
@@ -341,6 +357,10 @@ PATH_KERNELS["wide"] = tuple(
      "sdf_density.rays": "sdf_density_general.rays"}.get(k, k)
     for k in PATH_KERNELS["flagship"])
 WIDE_FRAMES = 3
+# the limits run's frames (mapping at 0 and 5) and the kernels it must
+# launch: the demo's, at the wider sampler counts
+LIMITS_FRAMES = 6
+PATH_KERNELS["limits"] = PATH_KERNELS["demo"]
 # the options phase: frames of the flagship options run (mapping + BA at 0
 # and 5) and of the nerf run (mapping at 0)
 OPTIONS_FRAMES = 6
@@ -445,6 +465,11 @@ model {{
 }}
 """
 TINY_FRAMES, TINY_H, TINY_W, TINY_ITERS = 9, 60, 80, 12
+# then TINY_CONF with a 20-layer fine network (19 hidden layers of 8 units:
+# past the general kernel's old 16 layers), frame 0's mapping and frame 1's
+# tracking
+TINY_DEEP_FRAMES = 2
+TINY_DEEP_FINE = "d_in = 3  d_out = 1  dims = [ " + " ".join(["8"] * 19) + " ]"
 # then with prepass_mode = cached (mapping at 0 and 4)
 TINY_CACHED_FRAMES = 5
 # the training tools: pretrain's steps on the flagship networks (its
@@ -1422,8 +1447,8 @@ def general_net(dev, which: str):
     import torch
     from nicer_slam_tpu_torch.config import parse_string
     from nicer_slam_tpu_torch.models import fields
-    if which in GENERAL_NETS:
-        fvs, text = GENERAL_NETS[which]
+    if which in GENERAL_NETS or which in LIMIT_NETS:
+        fvs, text = {**GENERAL_NETS, **LIMIT_NETS}[which]
         comb = fields.combine_config_from_conf(
             parse_string(f"implicit_network {{{text}\n}}").get_config("implicit_network"), fvs)
     else:
@@ -1509,11 +1534,12 @@ def general_case(dev, g, case):
     return c
 
 
-def check_sdf_general(dev, chk: Checks):
+def check_sdf_general(dev, chk: Checks, cases=GENERAL_CASES, strict: bool = False):
     """The general K6 and its concat variant against their plain versions
     on GENERAL_CASES (each one launch and no other kernel; within
     SDF_DENSITY_RTOL of the largest density; both versions also measured
-    against float64)."""
+    against float64), or on ``cases``; ``strict``: the kernel must also be
+    no further from float64 than the plain version."""
     import torch
     from nicer_slam_tpu_torch.ops import _cuda
     from nicer_slam_tpu_torch.ops import sdf_density as sd
@@ -1521,7 +1547,7 @@ def check_sdf_general(dev, chk: Checks):
     src = "nicer_slam_tpu_torch/csrc/sdf_density.cu"
     g = torch.Generator(device=dev)
     g.manual_seed(7)
-    for case in GENERAL_CASES:
+    for case in cases:
         c = general_case(dev, g, case)
         want = "concat" if case[0] == "concat" else "general"
         if c.pack.variant != want:
@@ -1544,9 +1570,17 @@ def check_sdf_general(dev, chk: Checks):
         pms = cuda_time(c.plain, iters=3, warmup=1)
         tile, smem, w_smem = sd.general_plan(c.pack)
         w_floats = c.pack.weights.numel()
+        if c.pack.act_floats:
+            c.note += (f"; activations in device memory ({c.pack.act_floats} floats for the "
+                       f"blocks the card runs at once)")
+        if c.pack.ext is not None:
+            c.note += f"; {c.pack.ext.numel()} ints of layers and segments past the parameters"
+        if strict:
+            c.note += f"; kernel no further from float64 than plain: {ek <= ep}"
         chk.record(f"{kname}[{c.tag}]", src, "nicer_slam_tpu/models/scene_model.py:"
                    + ("108" if c.mode == "grid" else "246"), err,
-                   err <= SDF_DENSITY_RTOL * scale and single, ms, pms, *c.cost,
+                   err <= SDF_DENSITY_RTOL * scale and single and (ek <= ep or not strict),
+                   ms, pms, *c.cost,
                    f"(err {err / scale:.2e} of max {scale:.4g}, tolerance "
                    f"{SDF_DENSITY_RTOL:g}; against float64: kernel {ek:.2e}, plain "
                    f"{ep:.2e}; one launch and no other: {single} {counts}; tile {tile} "
@@ -1555,6 +1589,114 @@ def check_sdf_general(dev, chk: Checks):
                    f" ({w_floats} floats); {c.note})")
         del c, ko, po, exact
         torch.cuda.empty_cache()
+
+
+# phase 3's cases past the kernels' old limits (the JAX package has none):
+# networks for the general K6, the tiny-port networks with a deeper or a
+# wider fine network: 20 layers of 8 units, one layer of 1280 units (column
+# slices, tiles of 16 points) and one of 3072 (its activations in device
+# memory)
+LIMIT_NETS = {
+    name: (8, GENERAL_NETS["tiny-port"][1].replace(
+        "d_in = 3  d_out = 1  dims = [ 16 16 ]", f"d_in = 3  d_out = 1  dims = [ {dims} ]"))
+    for name, dims in (("deep-20", " ".join(["8"] * 19)), ("wide-1280", "1280 64"),
+                       ("wide-3072", "3072 64"))}
+LIMIT_SDF_CASES = [("deep-20", "grid", 0, 640, False),
+                   ("deep-20", "rays", GIVEN_RAYS, 640, False),
+                   ("wide-1280", "rays", 256, 640, False),
+                   ("wide-3072", "rays", 256, 640, False)]
+# K5 (both modes) at 1024 rays: prepass counts past 1024 (40,000 keeps a
+# ray's rows in the global scratch) and sorted counts St = Ns + 2 + Nextra
+# of 162, 300 and 1100 (8 and 16 keys a lane, the sort in the row);
+# K4's composite at 600 and 1100 samples, weights_topk at 1100
+LIMIT_RAYS = 1024
+LIMIT_SAMPLER = ((1280, 64, 32), (4096, 64, 32), (40_000, 64, 32), (640, 128, 32),
+                 (640, 200, 98), (640, 1000, 98))
+LIMIT_COMPOSITE = (600, 1100)
+LIMIT_TOPK = ((1100, 16),)
+# the shipped shapes' times on record (PERF.md section 6; NVIDIA H100 80GB
+# HBM3, 700 W), printed beside the cases past the limits
+RECORD_MS = {
+    "K5": "importance_sample 0.0190 / 0.0371 / 0.0632 ms at 1024 / 4096 / 8192 rays, given "
+          "0.0124 / 0.0372 ms at 1024 / 8192 (Ne 640, St 98)",
+    "K4": "composite.fwd 0.0092 ms at 4096 x 98, weights_topk.fwd 0.0093 / 0.0173 ms at "
+          "1024 / 8192 x 98",
+    "K6": "sdf_density 2.716 ms for the 128^3 cache, concat 3.770 ms for 2580 x 640",
+    "K9": "tsdf.integrate 0.0974 ms (the first design, a thread a voxel)",
+}
+
+
+def check_sampler_limits(dev, chk: Checks):
+    """K5 in both modes past its old limits (LIMIT_SAMPLER at LIMIT_RAYS
+    rays), each against its plain version: bit for bit on every ray, and
+    within the sampler's agreement rule."""
+    import torch
+    from nicer_slam_tpu_torch.ops import _cuda
+    from nicer_slam_tpu_torch.ops import density as dens_ops
+    from nicer_slam_tpu_torch.ops import ray_sampling as rs
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    cache = shell_cache(dev)
+    R = LIMIT_RAYS
+    log(f"  on record for the shipped shapes: {RECORD_MS['K5']}")
+    for Ne, Ns, Nx in LIMIT_SAMPLER:
+        scfg = rs.SamplerConfig(N_samples=Ns, N_samples_eval=Ne, N_samples_extra=Nx,
+                                prepass_mode="cached", prepass_cache_res=128)
+        St = scfg.total_samples
+        o, d = _sampler_rays(g, dev, R)
+        t_rand = torch.rand((R, Ne), generator=g, device=dev)
+        perm = torch.randperm(Ne, generator=g, device=dev)[:Nx]
+        eik = torch.randint(0, St, (R,), generator=g, device=dev)
+        where = ("rows in the global scratch"
+                 if _cuda.library().nsl_importance_sample_rows(Ne, Ns, Nx) > 0
+                 else "rows in shared memory")
+        z_pre, near, far = rs.uniform_z_vals(scfg, o, d, t_rand)
+        tag = f"[{R} Ne{Ne} St{St}]"
+        kz, ke = rs.importance_sample(scfg, o, d, cache, t_rand, perm, eik)
+        pz, pe = rs.importance_sample_plain(scfg, o, d, cache, t_rand, perm, eik)
+        same = torch.equal(kz, pz) and torch.equal(ke, pe)
+        ms = cuda_time(lambda: rs.importance_sample(scfg, o, d, cache, t_rand, perm, eik))
+        pms = cuda_time(lambda: rs.importance_sample_plain(scfg, o, d, cache, t_rand, perm,
+                                                          eik), iters=3, warmup=1)
+        vox = touched_voxels(128, (o[:, None, :] + z_pre[..., None] * d[:, None, :])
+                             .reshape(-1, 3))
+        if not same:
+            chk.failures.append(f"importance_sample{tag}: not bit for bit")
+        _sampler_record(chk, f"importance_sample{tag}", kz, ke, pz, pe, z_pre, ms, pms, R,
+                        nbytes(o, d, t_rand, perm, eik, kz, ke) + 4 * vox,
+                        R * Ne * 40 + R * St * 40, f"{where}; bit for bit {same}")
+        sdf = (o[:, None, :] + z_pre[..., None] * d[:, None, :]).norm(dim=-1) - 0.6
+        dens = dens_ops.laplace_density(sdf, torch.tensor(0.0125, device=dev))
+        ins = (scfg, z_pre, near, far, dens, perm, eik)
+        kz, ke = rs.importance_sample_given(*ins)
+        pz, pe = rs.importance_sample_given_plain(*ins)
+        same = torch.equal(kz, pz) and torch.equal(ke, pe)
+        ms = cuda_time(lambda: rs.importance_sample_given(*ins))
+        pms = cuda_time(lambda: rs.importance_sample_given_plain(*ins), iters=3, warmup=1)
+        if not same:
+            chk.failures.append(f"importance_sample_given{tag}: not bit for bit")
+        _sampler_record(chk, f"importance_sample_given{tag}", kz, ke, pz, pe, z_pre, ms, pms,
+                        R, nbytes(*ins[1:], kz, ke), R * Ne * 20 + R * St * 40,
+                        f"{where}; jittered z; bit for bit {same}")
+        del ins, dens, sdf, t_rand, z_pre, kz, pz
+        torch.cuda.empty_cache()
+
+
+def check_limits(dev, chk: Checks):
+    """Phase 3's cases past the kernels' old limits: K5 (LIMIT_SAMPLER), K4
+    (LIMIT_COMPOSITE, LIMIT_TOPK), the general K6 (LIMIT_SDF_CASES, also
+    no further from float64 than the plain version), each through its
+    hand-written kernel."""
+    check_sampler_limits(dev, chk)
+    log(f"  on record for the shipped shapes: {RECORD_MS['K4']}")
+    for S in LIMIT_COMPOSITE:
+        check_demo_kernels(dev, chk, LIMIT_RAYS, S, f"[limit {LIMIT_RAYS}x{S}]")
+    check_topk_kernels(dev, chk, cases=[(LIMIT_RAYS, S, Kc, "random",
+                                         f"[limit {LIMIT_RAYS}x{S} Kc{Kc}]")
+                                        for S, Kc in LIMIT_TOPK])
+    log(f"  on record for the shipped shapes: {RECORD_MS['K6']}")
+    check_sdf_general(dev, chk, LIMIT_SDF_CASES, strict=True)
 
 
 def tsdf_frame(dev, H: int, W: int, yaw: float):
@@ -1620,7 +1762,8 @@ def check_tsdf_kernel(dev, chk: Checks):
                "nicer_slam_tpu/preprocess/tsdf_fusion.py:33", err, same and observed > 0,
                ms, pms, bytes_, 32 * res ** 3,
                f"(256³ volume, 680x1200 frame, {observed} voxels observed, {held} with "
-               f"a weight, bit for bit {same}; dense 16 B a voxel {dense_ms:.4f} ms)")
+               f"a weight, bit for bit {same}; dense 16 B a voxel {dense_ms:.4f} ms; on "
+               f"record: {RECORD_MS['K9']})")
 
 
 def check_bf16_kernels(dev, chk: Checks):
@@ -1915,22 +2058,24 @@ def surface_densities(g, dev, z, beta: float = 3e-3):
 TOPK_GENERAL = ((64, 200, 40), (64, 98, 12))
 
 
-def check_topk_kernels(dev, chk: Checks, S: int = 98, Kc: int = 16):
+def check_topk_kernels(dev, chk: Checks, S: int = 98, Kc: int = 16, cases=None):
     """K4 with colour top-k at the flagship configuration's shapes: the
     weights pass forward and backward and the top-k colour composite at the
     tracking and mapping ray counts (random densities), and the weights
     pass on surface-like densities at 8192 rays; then all of them at the
-    TOPK_GENERAL shapes."""
+    TOPK_GENERAL shapes. ``cases`` ((R, S, Kc, densities, tag), ...)
+    replaces that list."""
     import torch
     from nicer_slam_tpu_torch.ops import volume_rendering as vr
 
     g = torch.Generator(device=dev)
     g.manual_seed(2)
     src = "nicer_slam_tpu_torch/csrc/composite.cu"
-    cases = ([(R, S, Kc, "random", f"[{R}]") for R in TOPK_RAYS]
-             + [(TOPK_RAYS[-1], S, Kc, "surface", f"[surface {TOPK_RAYS[-1]}]")]
-             + [(R, S_, K_, "random", f"[general {R}x{S_} Kc{K_}]")
-                for R, S_, K_ in TOPK_GENERAL])
+    if cases is None:
+        cases = ([(R, S, Kc, "random", f"[{R}]") for R in TOPK_RAYS]
+                 + [(TOPK_RAYS[-1], S, Kc, "surface", f"[surface {TOPK_RAYS[-1]}]")]
+                 + [(R, S_, K_, "random", f"[general {R}x{S_} Kc{K_}]")
+                    for R, S_, K_ in TOPK_GENERAL])
     for R, S, Kc, kind, tag in cases:
         z = torch.sort(torch.rand((R, S), generator=g, device=dev) * 3.0, dim=1)[0]
         dens = (torch.rand((R, S), generator=g, device=dev) * 20.0 if kind == "random"
@@ -2494,6 +2639,16 @@ def run_networks(dev, flagship_dir: str) -> dict:
                              "N_samples_extra = 8  prepass_mode = cached }"))
     out["tiny_cached"] = run_counted(dev, cached, "exps_tiny_cached", TINY_CACHED_FRAMES)
     del out["tiny_cached"]["runner"]
+    # a 20-layer fine network, past the general kernel's old 16 layers
+    deep = os.path.join(SMOKE_DIR, "tiny_deep.conf")
+    if text.count("d_in = 3  d_out = 1  dims = [ 32 32 ]") != 1:
+        raise RuntimeError("TINY_CONF: no fine dims to deepen")
+    with open(deep, "w") as f:
+        f.write(text.replace("d_in = 3  d_out = 1  dims = [ 32 32 ]", TINY_DEEP_FINE))
+    out["tiny_deep"] = run_counted(dev, deep, "exps_tiny_deep", TINY_DEEP_FRAMES)
+    runner = out["tiny_deep"].pop("runner")
+    out["tiny_deep"]["fine_layers"] = len(runner.model.implicit.fine.lins)
+    del runner
     torch.cuda.empty_cache()
 
     out["concat"] = run_counted(dev, write_conf("concat", flagship_dir, CONCAT_FRAMES),
@@ -2537,8 +2692,8 @@ def run_networks(dev, flagship_dir: str) -> dict:
         np.random.default_rng(0).uniform(0, 1, (96, 128, 3)).astype(np.float32))
     out["mono"] = dict(losses=[h["loss"] for h in hist], s=time.perf_counter() - t,
                        cue_finite=bool(np.isfinite(d).all() and np.isfinite(n01).all()))
-    out["counts"] = {k: sum(out[r]["counts"][k] for r in ("tiny", "tiny_cached", "concat",
-                                                          "pretrain"))
+    out["counts"] = {k: sum(out[r]["counts"][k] for r in ("tiny", "tiny_cached", "tiny_deep",
+                                                          "concat", "pretrain"))
                      for k in out["tiny"]["counts"]}
     return out
 
@@ -2551,7 +2706,7 @@ def _falls(losses) -> bool:
 
 def report_networks(nw: dict, failures) -> None:
     import torch
-    for kind in ("tiny", "tiny_cached", "concat"):
+    for kind in ("tiny", "tiny_cached", "tiny_deep", "concat"):
         r = nw[kind]
         log(f"  {kind}: translation error vs GT per frame: "
             + " ".join(f"{i}:{e:.4f}" for i, e in enumerate(r["errs"])))
@@ -2571,6 +2726,11 @@ def report_networks(nw: dict, failures) -> None:
         f"kernel {tc['sdf_density.rays'] + tc['sdf_density.grid']}")
     if tc["sdf_density_general.rays"] == 0 or tc["sdf_density.rays"] or tc["sdf_density.grid"]:
         failures.append("tiny: the general K6 did not run the exact prepass")
+    dc = nw["tiny_deep"]["counts"]
+    log(f"  tiny, deep ({nw['tiny_deep']['fine_layers']} fine layers): "
+        f"sdf_density_general.rays {dc['sdf_density_general.rays']}")
+    if dc["sdf_density_general.rays"] == 0 or nw["tiny_deep"]["fine_layers"] != 20:
+        failures.append("tiny, deep: the 20-layer network did not run the general K6")
     cc = nw["tiny_cached"]["counts"]
     log(f"  tiny, cached: sdf_density_general.grid {cc['sdf_density_general.grid']} (cache "
         f"builds), importance_sample {cc['importance_sample']}, the shipped kernel "
@@ -2612,6 +2772,49 @@ def report_networks(nw: dict, failures) -> None:
         f"{mo['cue_finite']}")
     if not (_falls(mo["losses"]) and mo["cue_finite"]):
         failures.append("train_mono_prior: the loss is not finite or did not fall")
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: the demo configuration past the kernels' old sampler limits
+# ---------------------------------------------------------------------------
+
+def run_limits(dev, demo_dir: str) -> dict:
+    """The limits conf (the demo at 720 x 1280 with 1280 prepass samples and
+    128 + 64 + 2 samples a ray) through exp_runner for LIMITS_FRAMES
+    frames."""
+    r = run_counted(dev, write_conf("limits", demo_dir, LIMITS_FRAMES), "exps_limits",
+                    LIMITS_FRAMES)
+    runner = r.pop("runner")
+    sc = runner.scene_cfg.sampler
+    r.update(vis=sorted(os.listdir(runner.plots_dir)),
+             sampler=(sc.N_samples_eval, sc.N_samples, sc.N_samples_extra))
+    return r
+
+
+def report_limits(r: dict, failures) -> None:
+    import torch
+    log(f"  sampler (N_samples_eval, N_samples, N_samples_extra) {r['sampler']}; "
+        f"translation error vs GT per frame: "
+        + " ".join(f"{i}:{e:.4f}" for i, e in enumerate(r["errs"])))
+    log("  " + " ".join(f"{k}={v:.4g}" for k, v in r["stats"].items()))
+    log("  launches: " + " ".join(f"{k}={v}" for k, v in r["counts"].items() if v))
+    for f, terms in r["map_terms"].items():
+        log(f"  loss terms, last iteration of the frame-{f} mapping call: "
+            + " ".join(f"{k}={float(v):.5g}" for k, v in terms.items()))
+    log(f"  vis/: {' '.join(r['vis'])}")
+    if r["sampler"] != (1280, 128, 64):
+        failures.append(f"limits: the run's sampler is {r['sampler']}")
+    if not all(e == e and e < 1e3 for e in r["errs"]):
+        failures.append("limits: non-finite poses")
+    bad = [(f, k) for f, terms in r["map_terms"].items() for k, v in terms.items()
+           if not torch.isfinite(v).all()]
+    if bad or not r["map_terms"]:
+        failures.append(f"limits: non-finite loss terms {bad} (or no mapping call)")
+    never = [k for k in PATH_KERNELS["limits"] if r["counts"][k] == 0]
+    if never:
+        failures.append(f"limits: kernels never launched on the path: {never}")
+    if not any(v.startswith("rendering_") for v in r["vis"]):
+        failures.append("limits: no rendering in vis/")
 
 
 # ---------------------------------------------------------------------------
@@ -3372,6 +3575,9 @@ def main() -> int:
         check_sdf_general(dev, chk)
         check_tsdf_kernel(dev, chk)
         torch.cuda.empty_cache()
+        log("  past the old limits (the JAX package has none):")
+        check_limits(dev, chk)
+        torch.cuda.empty_cache()
 
         # phase 9's dry runs need no scan: they run while the scans are
         # written
@@ -3430,6 +3636,14 @@ def main() -> int:
         wide = run_wide(dev, wait_scene(procs, "flagship"))
         wide["phase_s"] = time.perf_counter() - t
         torch.cuda.empty_cache()
+        t = time.perf_counter()
+        log(f"[5e/11] limits: the demo configuration at its full width "
+            f"({PATHS['limits']['H']}x{PATHS['limits']['W']}) with N_samples_eval 1280, "
+            f"N_samples 128, N_samples_extra 64 (past the kernels' old limits), "
+            f"{LIMITS_FRAMES} frames")
+        limits = run_limits(dev, wait_scene(procs, "demo"))
+        limits["phase_s"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
         log("[6/11] eval: the checkpoint battery on the flagship run (eval_cam, mesh "
             f"{MESH_RESOLUTION}^3 vs the analytic scene, depth bias, interpolate view 2, "
             f"{PATHS['flagship']['eval_views']} extrapolated views)")
@@ -3468,6 +3682,8 @@ def main() -> int:
     report_preprocess(pre, failures)
     log(f" wide grids (phase {wide['phase_s']:.1f} s; {CONTENDED['5b-7']}):")
     report_wide(wide, failures)
+    log(f" limits (phase {limits['phase_s']:.1f} s; {CONTENDED['5b-7']}):")
+    report_limits(limits, failures)
     log(f" parallel (sweep phase {sw['phase_s']:.1f} s; {CONTENDED['8-9']}; the dry runs "
         f"{CONTENDED['dryrun']}):")
     report_parallel(dryruns, sw, failures)
@@ -3483,6 +3699,7 @@ def main() -> int:
         by_path["eval"] = ev["counts"][base]
         by_path["preprocess"] = pre["slam"]["counts"][base]
         by_path["wide"] = wide["counts"][base]
+        by_path["limits"] = limits["counts"][base]
         by_path["parallel"] = (sw["counts"][base] + sum(
             d.get("report", {}).get("launches", {}).get(base, 0) for d in dryruns.values()))
         by_path["long_run"] = lr.get("res", {}).get("launches", {}).get(base, 0)

@@ -44,6 +44,10 @@
 // slower at 8192 and on surface-like rays, where the pass is bound by its
 // instruction rate and the sort network runs more instructions (PERF.md).
 //
+// Any S >= 1 and 0 < Kc <= S run (lax.top_k's own rule): longer rays run
+// in tiles with the transmittance carried across them (the tiled kernels
+// below); the shipped shapes take the kernels above.
+//
 // composite_bwd_kernel is the backward of both the plain composite (with
 // colour) and the weights pass, in one pass: the cotangents on the top-k
 // values are added at their picks through a per-warp shared row (picks
@@ -609,6 +613,330 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock)
   if ((lane & (G - 1)) == 0 && ray_live) g_wsum[ray] = A * inv;
 }
 
+// ---------------------------------------------------------------------------
+// Rays longer than one register round set: tiles of 32 NR samples
+// ---------------------------------------------------------------------------
+//
+// A ray of S samples past the kernels above (the composite's forward past
+// 512, its backward and the weights pass past 1024) runs in tiles of 32 NR
+// samples, the lanes interleaved in each tile as above: the transmittance's
+// prefix is carried from tile to tile, the backward's tail sum from the
+// last tile back to the first (the forward prefix of each sample kept in
+// the g_sigma row it then overwrites), and the top-k pick counts over the
+// tiles, reading the weights it wrote back (each lane its own samples).
+// Shipped shapes never come here.
+
+// load_ray for the tile at s0: the next sample's z past the tile's last
+// lane is sample s0 + 32 NR's
+template <int NR>
+__device__ __forceinline__ void load_tile(const float* __restrict__ zr,
+                                          const float* __restrict__ sr, int S, int s0,
+                                          int lane, float z[NR], float dist[NR], float e[NR]) {
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    const int s = s0 + lane + 32 * j;
+    z[j] = s < S ? zr[s] : 0.0f;
+    e[j] = s < S ? sr[s] : 0.0f;
+  }
+  const int sn = s0 + 32 * NR;
+  const float z_after = sn < S ? zr[sn] : 0.0f;
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    const int s = s0 + lane + 32 * j;
+    float zn = __shfl_down_sync(kFull, z[j], 1);
+    const float wrap = j + 1 < NR ? __shfl_sync(kFull, z[j + 1], 0) : z_after;
+    if (lane == 31) zn = wrap;
+    dist[j] = s < S - 1 ? zn - z[j] : 1e10f;
+    e[j] = s < S ? dist[j] * e[j] : 0.0f;
+  }
+}
+
+// the exclusive prefix of e over the tile plus the earlier tiles' carry
+// (updated to include this tile)
+template <int NR>
+__device__ __forceinline__ void prefix_tile(const float e[NR], int lane, float& carry,
+                                            float run[NR]) {
+  float incl[NR];
+#pragma unroll
+  for (int j = 0; j < NR; ++j) incl[j] = warp_incl_prefix(e[j], lane);
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    const float excl = __shfl_up_sync(kFull, incl[j], 1);
+    run[j] = lane == 0 ? carry : carry + excl;
+    carry += __shfl_sync(kFull, incl[j], 31);
+  }
+}
+
+// sum_s w_s v_s over the tile's 3 (32 NR) floats of v (colour or normal rows
+// from row, at the tile's first float), added to acc[3]
+template <int NR>
+__device__ __forceinline__ void rows_dot(const float* __restrict__ row, int n3, const float w[NR],
+                                         int lane, float acc[3]) {
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      const int f = lane + 32 * m, i = 96 * j + f, c = (lane + 2 * m) % 3;
+      const float wv = __shfl_sync(kFull, w[j], f / 3);
+      const float v = i < n3 ? row[i] * wv : 0.0f;
+      acc[0] += c == 0 ? v : 0.0f;
+      acc[1] += c == 1 ? v : 0.0f;
+      acc[2] += c == 2 ? v : 0.0f;
+    }
+  }
+}
+
+template <int NR>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+    composite_fwd_tiled_kernel(const float* __restrict__ z, const float* __restrict__ sigma,
+                               const float* __restrict__ rgb, const float* __restrict__ nrm,
+                               float* __restrict__ weights, float* __restrict__ rgb_out,
+                               float* __restrict__ depth_out, float* __restrict__ normal_out,
+                               int64_t R, int S) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t ray = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
+  if (ray >= R) return;  // uniform per warp
+  float carry = 0.f, a_w = 0.f, a_wz = 0.f, a_c[3] = {0.f, 0.f, 0.f}, a_n[3] = {0.f, 0.f, 0.f};
+  for (int s0 = 0; s0 < S; s0 += 32 * NR) {
+    float zz[NR], dist[NR], e[NR], run[NR], w[NR];
+    load_tile<NR>(z + ray * S, sigma + ray * S, S, s0, lane, zz, dist, e);
+    prefix_tile<NR>(e, lane, carry, run);
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      const int s = s0 + lane + 32 * j;
+      w[j] = (1.0f - expf(-e[j])) * expf(-run[j]);
+      if (s < S) weights[ray * S + s] = w[j];
+      a_w += w[j];
+      a_wz += w[j] * zz[j];
+    }
+    const int n3 = 3 * (S - s0);
+    rows_dot<NR>(rgb + ray * 3 * S + 3 * s0, n3, w, lane, a_c);
+    rows_dot<NR>(nrm + ray * 3 * S + 3 * s0, n3, w, lane, a_n);
+  }
+  a_w = warp_sum(a_w);
+  a_wz = warp_sum(a_wz);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    a_c[c] = warp_sum(a_c[c]);
+    a_n[c] = warp_sum(a_n[c]);
+  }
+  if (lane < 3) rgb_out[ray * 3 + lane] = pick3(a_c, lane);
+  if (lane >= 3 && lane < 6) normal_out[ray * 3 + lane - 3] = pick3(a_n, lane - 3);
+  if (lane == 6) depth_out[ray] = a_wz / (a_w + 1e-8f);
+}
+
+// the weight bits of the lane's sample s of the warp's ray (0 past S): the
+// weights row as this lane wrote it
+__device__ __forceinline__ unsigned wbits(const float* __restrict__ wr, int s, int S) {
+  return s < S ? __float_as_uint(wr[s]) : 0u;
+}
+
+template <int NR>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+    weights_topk_tiled_kernel(const float* __restrict__ z, const float* __restrict__ sigma,
+                              const float* __restrict__ nrm, float* __restrict__ weights,
+                              float* __restrict__ depth_out, float* __restrict__ normal_out,
+                              float* __restrict__ topk_w, float* __restrict__ wsum,
+                              int64_t* __restrict__ picks, int64_t R, int S, int Kc) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t ray = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
+  if (ray >= R) return;  // uniform per warp
+  float* wr = weights + ray * S;
+  float carry = 0.f, a_w = 0.f, a_wz = 0.f, a_n[3] = {0.f, 0.f, 0.f};
+  int n_nz = 0;
+  for (int s0 = 0; s0 < S; s0 += 32 * NR) {
+    float zz[NR], dist[NR], e[NR], run[NR], w[NR];
+    load_tile<NR>(z + ray * S, sigma + ray * S, S, s0, lane, zz, dist, e);
+    prefix_tile<NR>(e, lane, carry, run);
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      const int s = s0 + lane + 32 * j;
+      w[j] = (1.0f - expf(-e[j])) * expf(-run[j]);
+      if (s < S) wr[s] = w[j];
+      a_w += w[j];
+      a_wz += w[j] * zz[j];
+      n_nz += __popc(__ballot_sync(kFull, s < S && w[j] != 0.0f));
+    }
+    rows_dot<NR>(nrm + ray * 3 * S + 3 * s0, 3 * (S - s0), w, lane, a_n);
+  }
+  a_w = warp_sum(a_w);
+  a_wz = warp_sum(a_wz);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) a_n[c] = warp_sum(a_n[c]);
+  if (lane < 3) normal_out[ray * 3 + lane] = pick3(a_n, lane);
+  if (lane == 3) depth_out[ray] = a_wz / (a_w + 1e-8f);
+  if (lane == 4) wsum[ray] = a_w;
+
+  // tau, bit by bit over every tile (as pick_radix)
+  unsigned tau = 0u;
+  for (int b = n_nz > Kc ? 30 : -1; b >= 0; --b) {
+    const unsigned cand = tau | (1u << b);
+    int cnt = 0;
+    for (int s = lane; s - lane < S; s += 32)
+      cnt += __popc(__ballot_sync(kFull, wbits(wr, s, S) >= cand));
+    if (cnt >= Kc) {
+      tau = cand;
+      if (cnt == Kc) break;
+    }
+  }
+  int n_gt = 0;
+  for (int s = lane; s - lane < S; s += 32)
+    n_gt += __popc(__ballot_sync(kFull, wbits(wr, s, S) > tau));
+  const int need = Kc - n_gt;  // ties at tau, taken in index order
+  const unsigned below = (1u << lane) - 1u;
+  int eq_before = 0;
+  const int64_t ray_base = ray * S;
+  for (int s = lane; s - lane < S; s += 32) {
+    const unsigned bits = wbits(wr, s, S);
+    const bool eq = s < S && bits == tau;
+    const unsigned beq = __ballot_sync(kFull, eq);
+    const int tie = eq_before + __popc(beq & below);
+    if (eq && tie < need) {  // a tie's place: after every weight above tau
+      topk_w[ray * Kc + n_gt + tie] = __uint_as_float(bits);
+      picks[ray * Kc + n_gt + tie] = ray_base + s;
+    }
+    eq_before += __popc(beq);
+    // a weight above tau: its place is the count of weights above it, and
+    // of equal ones at a lower index, over the whole ray
+    unsigned above = __ballot_sync(kFull, s < S && bits > tau);
+    while (above) {
+      const int src = __ffs(above) - 1;
+      above &= above - 1;
+      const unsigned bs = __shfl_sync(kFull, bits, src);
+      const int ss = __shfl_sync(kFull, s, src);
+      int place = 0;
+      for (int x = lane; x - lane < S; x += 32) {
+        const unsigned bx = wbits(wr, x, S);
+        place += __popc(__ballot_sync(kFull, x < S && (bx > bs || (bx == bs && x < ss))));
+      }
+      if (lane == src) {
+        topk_w[ray * Kc + place] = __uint_as_float(bs);
+        picks[ray * Kc + place] = ray_base + ss;
+      }
+    }
+  }
+}
+
+// composite_bwd_kernel in tiles: a forward pass keeps each sample's
+// transmittance prefix in its g_sigma slot, then the tiles from the last
+// take the tail sum back to the first
+template <int NR>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock) composite_bwd_tiled_kernel(
+    const float* __restrict__ z, const float* __restrict__ sigma,
+    const float* __restrict__ rgb, const float* __restrict__ nrm,
+    const int64_t* __restrict__ picks, const float* __restrict__ g_weights,
+    const float* __restrict__ g_rgb_out, const float* __restrict__ g_depth,
+    const float* __restrict__ g_normal_out, const float* __restrict__ g_topk_w,
+    const float* __restrict__ g_wsum, float* __restrict__ g_sigma,
+    float* __restrict__ g_rgb, float* __restrict__ g_nrm, int64_t R, int S,
+    int Kc) {
+  __shared__ float gw_rows[kWarpsPerBlock][32 * NR];
+  __shared__ float dot_rows[kWarpsPerBlock][96];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t ray = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
+  if (ray >= R) return;  // uniform per warp
+  float* gs = g_sigma + ray * S;
+  float carry = 0.f, a_w = 0.f, a_wz = 0.f;
+  for (int s0 = 0; s0 < S; s0 += 32 * NR) {
+    float zz[NR], dist[NR], e[NR], run[NR];
+    load_tile<NR>(z + ray * S, sigma + ray * S, S, s0, lane, zz, dist, e);
+    prefix_tile<NR>(e, lane, carry, run);
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      const int s = s0 + lane + 32 * j;
+      const float w = (1.0f - expf(-e[j])) * expf(-run[j]);
+      if (s < S) gs[s] = run[j];
+      a_w += w;
+      a_wz += w * zz[j];
+    }
+  }
+  a_w = warp_sum(a_w);
+  a_wz = warp_sum(a_wz);
+  const float inv = 1.0f / (a_w + 1e-8f);
+  const float depth = a_wz * inv;
+  const float gd = g_depth[ray];
+  const float gws = g_wsum == nullptr ? 0.0f : g_wsum[ray];
+  float gn[3], gc[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    gn[c] = g_normal_out[ray * 3 + c];
+    gc[c] = rgb == nullptr ? 0.0f : g_rgb_out[ray * 3 + c];
+  }
+  float* dots = dot_rows[warp];
+  float* row = gw_rows[warp];
+  float tail_carry = 0.0f;
+  const int last = (S - 1) / (32 * NR) * (32 * NR);
+  for (int s0 = last; s0 >= 0; s0 -= 32 * NR) {
+    float zz[NR], dist[NR], e[NR], T[NR], ex[NR], w[NR], gw[NR];
+    load_tile<NR>(z + ray * S, sigma + ray * S, S, s0, lane, zz, dist, e);
+    const float* nr = nrm + ray * 3 * S + 3 * s0;
+    const float* cr = rgb == nullptr ? nullptr : rgb + ray * 3 * S + 3 * s0;
+    const int n3 = 3 * (S - s0);
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      const int s = s0 + lane + 32 * j;
+      T[j] = expf(-(s < S ? gs[s] : 0.0f));
+      ex[j] = expf(-e[j]);
+      w[j] = (1.0f - ex[j]) * T[j];
+      gw[j] = s < S ? (g_weights == nullptr ? 0.0f : g_weights[ray * S + s]) + gws +
+                          gd * (zz[j] - depth) * inv
+                    : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        const int i = 96 * j + lane + 32 * m, c = (lane + 2 * m) % 3;
+        float v = i < n3 ? pick3(gn, c) * nr[i] : 0.0f;
+        if (cr != nullptr && i < n3) v += pick3(gc, c) * cr[i];
+        dots[lane + 32 * m] = v;
+      }
+      __syncwarp();
+      gw[j] += dots[3 * lane] + dots[3 * lane + 1] + dots[3 * lane + 2];
+      __syncwarp();
+    }
+    if (g_topk_w != nullptr) {
+#pragma unroll
+      for (int j = 0; j < NR; ++j) row[lane + 32 * j] = gw[j];
+      __syncwarp();
+      for (int k = lane; k < Kc; k += 32) {
+        const int64_t p = picks[ray * Kc + k] - ray * S - s0;
+        if (p >= 0 && p < 32 * NR) row[p] += g_topk_w[ray * Kc + k];
+      }
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < NR; ++j) gw[j] = row[lane + 32 * j];
+      __syncwarp();
+    }
+    float incl[NR];
+#pragma unroll
+    for (int j = 0; j < NR; ++j) incl[j] = warp_incl_suffix(gw[j] * w[j], lane);
+#pragma unroll
+    for (int j = NR - 1; j >= 0; --j) {
+      const int s = s0 + lane + 32 * j;
+      const float excl = __shfl_down_sync(kFull, incl[j], 1);
+      const float tail = lane == 31 ? tail_carry : tail_carry + excl;
+      tail_carry += __shfl_sync(kFull, incl[j], 0);
+      const float ge = gw[j] * T[j] * ex[j] - tail;
+      if (s < S) gs[s] = ge * dist[j];
+    }
+    float* gnr = g_nrm + ray * 3 * S + 3 * s0;
+    float* gcr = rgb == nullptr ? nullptr : g_rgb + ray * 3 * S + 3 * s0;
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        const int f = lane + 32 * m, i = 96 * j + f, c = (lane + 2 * m) % 3;
+        const float wv = __shfl_sync(kFull, w[j], f / 3);
+        if (i < n3) {
+          gnr[i] = pick3(gn, c) * wv;
+          if (gcr != nullptr) gcr[i] = pick3(gc, c) * wv;
+        }
+      }
+    }
+  }
+}
+
 inline unsigned ray_blocks(int64_t R) {
   return (unsigned)((R + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
@@ -627,7 +955,7 @@ int nsl_composite_fwd(const void* z, const void* sigma, const void* rgb,
                       void* depth_out, void* normal_out, int64_t R, int S,
                       void* stream) {
   if (R == 0) return 0;
-  if (S < 1 || S > 32 * 16) return (int)cudaErrorInvalidValue;
+  if (S < 1) return (int)cudaErrorInvalidValue;
   const dim3 grid(ray_blocks(R));
   const cudaStream_t st = (cudaStream_t)stream;
 #define NSL_FWD_ARGS                                                        \
@@ -637,8 +965,10 @@ int nsl_composite_fwd(const void* z, const void* sigma, const void* rgb,
     composite_fwd_kernel<4><<<grid, 32 * kWarpsPerBlock, 0, st>>>(NSL_FWD_ARGS);
   else if (S <= 32 * 8)
     composite_fwd_kernel<8><<<grid, 32 * kWarpsPerBlock, 0, st>>>(NSL_FWD_ARGS);
-  else
+  else if (S <= 32 * 16)
     composite_fwd_kernel<16><<<grid, 32 * kWarpsPerBlock, 0, st>>>(NSL_FWD_ARGS);
+  else
+    composite_fwd_tiled_kernel<16><<<grid, 32 * kWarpsPerBlock, 0, st>>>(NSL_FWD_ARGS);
 #undef NSL_FWD_ARGS
   return (int)cudaGetLastError();
 }
@@ -652,7 +982,7 @@ int nsl_composite_bwd(const void* z, const void* sigma, const void* rgb,
                       const void* g_wsum, void* g_sigma, void* g_rgb,
                       void* g_nrm, int64_t R, int S, int Kc, void* stream) {
   if (R == 0) return 0;
-  if (S < 1 || S > 32 * 32 || Kc < 0 || Kc > S ||
+  if (S < 1 || Kc < 0 || Kc > S ||
       (g_topk_w != nullptr && picks == nullptr))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(ray_blocks(R));
@@ -665,8 +995,10 @@ int nsl_composite_bwd(const void* z, const void* sigma, const void* rgb,
       (float*)g_rgb, (float*)g_nrm, R, S, Kc
   if (S <= 32 * 4)
     composite_bwd_kernel<4><<<grid, 32 * kWarpsPerBlock, 0, st>>>(NSL_BWD_ARGS);
-  else
+  else if (S <= 32 * 32)
     composite_bwd_kernel<32><<<grid, 32 * kWarpsPerBlock, 0, st>>>(NSL_BWD_ARGS);
+  else
+    composite_bwd_tiled_kernel<16><<<grid, 32 * kWarpsPerBlock, 0, st>>>(NSL_BWD_ARGS);
 #undef NSL_BWD_ARGS
   return (int)cudaGetLastError();
 }
@@ -676,7 +1008,7 @@ int nsl_weights_topk_fwd(const void* z, const void* sigma, const void* nrm,
                          void* topk_w, void* wsum, void* picks, int64_t R,
                          int S, int Kc, void* stream) {
   if (R == 0) return 0;
-  if (S < 1 || S > 32 * 32 || Kc < 1 || Kc > S) return (int)cudaErrorInvalidValue;
+  if (S < 1 || Kc < 1 || Kc > S) return (int)cudaErrorInvalidValue;
   const dim3 grid(ray_blocks(R));
   const cudaStream_t st = (cudaStream_t)stream;
 #define NSL_FWD_ARGS                                                          \
@@ -685,8 +1017,10 @@ int nsl_weights_topk_fwd(const void* z, const void* sigma, const void* nrm,
       (int64_t*)picks, R, S, Kc
   if (S <= 32 * 4)
     weights_topk_kernel<4><<<grid, 32 * kWarpsPerBlock, 0, st>>>(NSL_FWD_ARGS);
-  else
+  else if (S <= 32 * 32)
     weights_topk_kernel<32><<<grid, 32 * kWarpsPerBlock, 0, st>>>(NSL_FWD_ARGS);
+  else
+    weights_topk_tiled_kernel<32><<<grid, 32 * kWarpsPerBlock, 0, st>>>(NSL_FWD_ARGS);
 #undef NSL_FWD_ARGS
   return (int)cudaGetLastError();
 }

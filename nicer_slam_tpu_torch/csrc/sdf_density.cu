@@ -126,7 +126,21 @@
 //     fine SDF stay in float64 until their sum is rounded once;
 //   * the grid features as K3 (bf16) or K2 (fp32) compute them, a warp on
 //     consecutive points of one level, each corner row read in loads of
-//     up to 16 bytes.
+//     up to 16 bytes;
+//   * any network the JAX package runs has a plan (the networks above keep
+//     theirs: the search tries what it tried before first). The
+//     descriptor has a slot a layer (16 at least): the first 16 layers
+//     and 34 segments ride in the kernel's parameters, the rest in a
+//     device buffer that the plan fills once per pack. A layer wider than
+//     1024 units runs as column slices of 512 (each a segment of its own,
+//     packed so by ops/sdf_density.py, writing its units' rows), with two
+//     hidden buffers, since a slice must not write over its layer's input.
+//     Where the activations do not fit beside the ring at 32 points a
+//     tile, smaller tiles (16, 8 points) and slices of 2 or 1 weight rows
+//     come next; past those, each block's activations go to a device
+//     buffer (g.act, a block's part stays in L2 while it works on it) and
+//     shared memory holds the ring, the points and the barriers. An SDF
+//     row longer than 4096 floats streams in pieces of 4096.
 // Measured on an H100 80GB HBM3 at 700 W (tools/sdf_density_ab.py in turns
 // against the earlier design, the weights resident or read through L1/L2
 // by 256 threads on 128 or 64 points; PERF.md §6): concat 3.77 ms for a
@@ -144,6 +158,7 @@
 #include <string.h>
 
 #include <algorithm>
+#include <vector>
 
 #include "hash_grid.cuh"
 #include "voxel_grid.cuh"
@@ -440,19 +455,33 @@ __global__ void __launch_bounds__(kThreads, 1) sdf_density_kernel(const Args a) 
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxLayers = 16;
-// ints of one network's descriptor (ops/sdf_density.pack_general):
-// n, n_pe, multires, L, C, d0, clamp, feat, divide_factor's bits, then
-// per layer K, N, skip and the weights' offset
+// ints of one network's descriptor (ops/sdf_density.pack_general), for a
+// descriptor of cap >= kMaxLayers layer slots (cap = kMaxLayers: the
+// shape of every network up to 16 layers): n, n_pe, multires, L, C, d0,
+// clamp, feat, divide_factor's bits, then K [cap], N [cap], skip [cap] and
+// the weights' offset [cap]
 constexpr int kDescHead = 9;
 constexpr int kDescInts = kDescHead + 4 * kMaxLayers;
 // torch on the card divides by a scalar as a product with its float32
 // reciprocal: the plain version's / sqrt(2) and / divide_factor
 constexpr float kInvSqrt2 = 1.0f / 1.41421356237309505f;
 constexpr int kStages = 3;                       // slices of weights in flight
-constexpr int kMaxSegs = 2 * (kMaxLayers + 1);   // + the concat feature rows
+constexpr int kMaxSegs = 2 * (kMaxLayers + 1);   // segments in the kernel's parameters
 constexpr int kMaxThreads = 512;
 constexpr int kTailFloats = 16;                  // the mbarriers and the cursor
 constexpr int kSumBlock = 16;                    // inputs a partial sum (streaming)
+// a dense layer wider than kSliceMax units (padded) is packed and run as
+// column slices of kSliceUnits units (the last one the rest), each a
+// segment of its own writing its units' rows: ops/sdf_density.py packs
+// them so
+constexpr int kSliceMax = 1024;
+constexpr int kSliceUnits = 512;
+// an SDF row longer than this many floats streams in pieces of it
+constexpr int kRowChunk = 4096;
+
+__host__ __device__ inline int slices_of(int N) {
+  return N > kSliceMax ? (N + kSliceUnits - 1) / kSliceUnits : 1;
+}
 
 struct NetDesc {
   int n;                  // linear layers
@@ -464,20 +493,28 @@ struct NetDesc {
   int feat;               // concat: the coarse last layer's feature rows (padded)
   float df;               // divide_factor
   float inv_df;           // 1 / divide_factor in float32 (torch's division by it)
-  int K[kMaxLayers];      // input rows of layer l
-  int N[kMaxLayers];      // output units of hidden layer l (a multiple of 4)
-  int skip[kMaxLayers];   // layer l reads [h, inp] / sqrt(2)
-  int off[kMaxLayers];    // float offset of layer l's weights
+  int K[kMaxLayers];      // input rows of layer l (l < kMaxLayers; the rest
+  int N[kMaxLayers];      // in GArgs::layer_ext): output units of hidden
+  int skip[kMaxLayers];   // layer l (a multiple of 4), whether layer l
+  int off[kMaxLayers];    // reads [h, inp] / sqrt(2), its weights' offset
+};
+
+// layer l >= kMaxLayers of a network (the extension buffer, 4 ints a layer)
+struct LayerDesc {
+  int K, N, skip, off;
 };
 
 // one stretch of the packed weights that the block streams through its
 // ring (or reads in place, resident), in the order the block reads them
-// for each tile: rows of n floats
-// (a dense layer: its K weight rows [K][N] and then its bias row; an SDF
-// row: one row of ceil4(K) + 4 floats), ks rows per slice. mode: the dense
-// layer's register block (kBlocks), -1 for an SDF row
+// for each tile: rows of n floats, len floats in all (the last row may be
+// short)
+// (a dense layer or a column slice of one: its K weight rows [K][n] and
+// then its bias row, its units written from row c0 of the output; an SDF
+// row: ceil4(K) + 4 floats in rows of at most kRowChunk), ks rows per
+// slice. mode: the dense layer's register block (kBlocks), -1 for an SDF
+// row
 struct Seg {
-  int off, rows, n, ks, mode;
+  int off, rows, n, ks, mode, c0, len;
 };
 
 // a thread's register block in a dense layer: P points x 4 units, J times
@@ -494,9 +531,32 @@ struct GArgs {
   int64_t w_floats;       // floats of the pack
   int nseg;
   Seg seg[kMaxSegs];
+  // past the parameters (device memory, from the plan; null where unused):
+  // layers kMaxLayers.. of each network, segments kMaxSegs..
+  const LayerDesc* layer_ext[2];
+  const Seg* seg_ext;
+  // the activations (X and the hidden buffers) of block b at act + b
+  // act_floats in device memory, where they do not fit in shared memory
+  // (null: in shared memory)
+  float* act;
+  int64_t act_floats;
 };
 
 __host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
+
+// segment i: X, the kernels for any network (the extension buffer past
+// kMaxSegs), else the parameters only
+template <bool X>
+__device__ __forceinline__ const Seg& seg_at(const GArgs& g, int i) {
+  if constexpr (X) return i < kMaxSegs ? g.seg[i] : g.seg_ext[i - kMaxSegs];
+  else return g.seg[i];
+}
+
+__device__ __forceinline__ LayerDesc layer_at(const GArgs& g, int net, int l) {
+  const NetDesc& nd = g.net[net];
+  return l < kMaxLayers ? LayerDesc{nd.K[l], nd.N[l], nd.skip[l], nd.off[l]}
+                        : g.layer_ext[net][l - kMaxLayers];
+}
 
 // --- the weight ring: cp.async.bulk into kStages stages, an mbarrier each
 
@@ -541,12 +601,15 @@ struct Cursor {
 };
 
 // thread 0: copy the next slice of the block's stream into its stage
+template <bool X>
 __device__ __forceinline__ void issue_slice(const GArgs& g, float* ring, uint64_t* full,
                                             Cursor* cur, int64_t tiles) {
   if (cur->tile >= tiles) return;
-  const Seg& s = g.seg[cur->seg];
+  const Seg& s = seg_at<X>(g, cur->seg);
   const int r1 = min(cur->row + s.ks, s.rows);
-  const uint32_t bytes = (uint32_t)((r1 - cur->row) * s.n) * 4u;
+  uint32_t bytes;
+  if constexpr (X) bytes = (uint32_t)min((r1 - cur->row) * s.n, s.len - cur->row * s.n) * 4u;
+  else bytes = (uint32_t)((r1 - cur->row) * s.n) * 4u;
   const int st = cur->issued % kStages;
   bulk_copy(ring + st * g.stage, g.p.weights + s.off + (int64_t)cur->row * s.n, bytes,
             full + st);
@@ -573,11 +636,11 @@ struct Block {
 
 // the slice of segment b.seg that starts at row r0, once it is in (R: the
 // pack is resident)
-template <bool R>
+template <bool R, bool X>
 __device__ __forceinline__ const float* slice_wait(const GArgs& g, const Block& b, int r0) {
   if constexpr (R) {
     mbar_wait(b.full, 0);
-    const Seg& s = g.seg[b.seg];
+    const Seg& s = seg_at<X>(g, b.seg);
     return b.ring + s.off + r0 * s.n;
   }
   const int st = b.slice % kStages;
@@ -587,11 +650,11 @@ __device__ __forceinline__ const float* slice_wait(const GArgs& g, const Block& 
 
 // the slice is read; streaming: once every thread has read it, its stage
 // takes the slice kStages on
-template <bool R>
+template <bool R, bool X>
 __device__ __forceinline__ void slice_done(const GArgs& g, Block& b) {
   if constexpr (!R) {
     __syncthreads();
-    if (threadIdx.x == 0) issue_slice(g, b.ring, b.full, b.cur, b.tiles);
+    if (threadIdx.x == 0) issue_slice<X>(g, b.ring, b.full, b.cur, b.tiles);
   }
   ++b.slice;
 }
@@ -632,9 +695,11 @@ __device__ __forceinline__ void fma_rows(float (&part)[P][4], const float* xi, i
   }
 }
 
-// out rows [0, N) = act(in[0, K) . W + b) over the tile (act: softplus;
-// halve: / sqrt(2), the next layer's skip concat), W and b from segment
-// b.seg. Thread t holds item q = t % Q (and q + Q when J = 2) of points
+// out rows [c0, c0 + N) = act(in[0, K) . W + b) over the tile (act:
+// softplus; halve: / sqrt(2), the next layer's skip concat), W [K][N] and
+// b from segment b.seg (N its n, c0 its first output row: 0 but for a
+// column slice of a wide layer). Thread t holds item q = t % Q (and q + Q
+// when J = 2) of points
 // (t / Q) P .. + P: the float4 at 4 q of each weight row, which the packer
 // fills with units q, q + N/4, q + N/2, q + 3N/4, so that the threads of a
 // warp store consecutive rows. Streaming (R false), each item's sum is
@@ -643,10 +708,14 @@ __device__ __forceinline__ void fma_rows(float (&part)[P][4], const float* xi, i
 // take it); a resident pack's layers (J 1, 80 registers) in one chain.
 // Every item is in registers when the last slice has been read, so out may
 // overlap in (in_place; streaming passes a barrier after each slice anyway)
-template <int P, int J, bool R>
+template <int P, int J, bool R, bool X>
 __device__ __forceinline__ void dense(const GArgs& g, Block& b, const float* in, int K,
                                       int N, float* out, bool act, bool halve, bool in_place) {
-  const Seg& s = g.seg[b.seg];
+  const Seg& s = seg_at<X>(g, b.seg);
+  if constexpr (X) {   // a column slice: its units, from its first row
+    N = s.n;
+    out += s.c0 * g.ld;
+  }
   const int ld = g.ld, N4 = N >> 2, Q = (N4 + J - 1) / J;
   const int t = threadIdx.x, qq = t % Q, pg = t / Q;
   const bool busy = pg < g.tile / P;
@@ -662,7 +731,7 @@ __device__ __forceinline__ void dense(const GArgs& g, Block& b, const float* in,
       for (int m = 0; m < 4; ++m) acc[j][i][m] = 0.0f;
   const float* xi = in + pg * P;
   for (int r0 = 0; r0 < s.rows; r0 += s.ks) {
-    const float* w = slice_wait<R>(g, b, r0);
+    const float* w = slice_wait<R, X>(g, b, r0);
     const int r1 = min(r0 + s.ks, s.rows), k1 = min(r1, K);
     if (busy) {
 #pragma unroll
@@ -697,7 +766,7 @@ __device__ __forceinline__ void dense(const GArgs& g, Block& b, const float* in,
         }
       }
     }
-    slice_done<R>(g, b);
+    slice_done<R, X>(g, b);
   }
   ++b.seg;
   if constexpr (R) {
@@ -724,33 +793,64 @@ __device__ __forceinline__ void dense(const GArgs& g, Block& b, const float* in,
   }
 }
 
-template <bool R>
+template <bool R, bool X>
 __device__ __forceinline__ void dense_any(const GArgs& g, Block& b, const float* in, int K,
                                           int N, float* out, bool act, bool halve,
                                           bool in_place) {
   // a resident pack has one item a thread: its kernel holds no two-item code
-  const int mode = g.seg[b.seg].mode;
-  if (mode == 0) dense<4, 1, R>(g, b, in, K, N, out, act, halve, in_place);
-  else if (R || mode == 1) dense<8, 1, R>(g, b, in, K, N, out, act, halve, in_place);
-  else if (mode == 2) dense<4, 2, R>(g, b, in, K, N, out, act, halve, in_place);
-  else dense<8, 2, R>(g, b, in, K, N, out, act, halve, in_place);
+  const int mode = seg_at<X>(g, b.seg).mode;
+  if (mode == 0) dense<4, 1, R, X>(g, b, in, K, N, out, act, halve, in_place);
+  else if (R || mode == 1) dense<8, 1, R, X>(g, b, in, K, N, out, act, halve, in_place);
+  else if (mode == 2) dense<4, 2, R, X>(g, b, in, K, N, out, act, halve, in_place);
+  else dense<8, 2, R, X>(g, b, in, K, N, out, act, halve, in_place);
+}
+
+// a dense layer of N units: its column slices one after another (one
+// segment where N <= kSliceMax); a sliced layer never writes over its input
+template <bool R>
+__device__ __forceinline__ void dense_layer(const GArgs& g, Block& b, const float* in, int K,
+                                            int N, float* out, bool act, bool halve,
+                                            bool in_place) {
+  const int ns = slices_of(N);
+  for (int c = 0; c < ns; ++c) dense_any<R, true>(g, b, in, K, N, out, act, halve, in_place);
 }
 
 // the SDF row of a last layer with K inputs, in float64: the T / tile
 // lanes of each point (point t / parts) take every parts-th input and sum
 // over one another with shuffles; every lane returns its point's SDF
-template <bool R>
+// (X: a row longer than kRowChunk floats comes in pieces of kRowChunk, a
+// multiple of the lanes a point: each lane sums the same inputs in the same
+// order)
+template <bool R, bool X>
 __device__ __forceinline__ double sdf_row(const GArgs& g, Block& b, const float* in, int K) {
   const int parts = blockDim.x / g.tile;
   const int p = threadIdx.x / parts, part = threadIdx.x % parts;
-  const float* w = slice_wait<R>(g, b, 0);
-  double s = 0.0;
-  for (int k = part; k < K; k += parts) s = fma((double)in[k * g.ld + p], (double)w[k], s);
-  for (int off = 1; off < parts; off <<= 1) s += __shfl_xor_sync(kFull, s, off);
-  s += (double)w[round4(K)];
-  slice_done<R>(g, b);
-  ++b.seg;
-  return s;
+  if constexpr (!X) {
+    const float* w = slice_wait<R, X>(g, b, 0);
+    double s = 0.0;
+    for (int k = part; k < K; k += parts) s = fma((double)in[k * g.ld + p], (double)w[k], s);
+    for (int off = 1; off < parts; off <<= 1) s += __shfl_xor_sync(kFull, s, off);
+    s += (double)w[round4(K)];
+    slice_done<R, X>(g, b);
+    ++b.seg;
+    return s;
+  } else {
+    const Seg& sg = seg_at<X>(g, b.seg);
+    const int K4 = round4(K), rows = sg.rows, n = sg.n;
+    double s = 0.0, bias = 0.0;
+    for (int r = 0; r < rows; ++r) {
+      const float* w = slice_wait<R, X>(g, b, r);
+      const int k0 = r * n, k1 = min(k0 + n, K);
+      for (int k = k0 + part; k < k1; k += parts)
+        s = fma((double)in[k * g.ld + p], (double)w[k - k0], s);
+      if (K4 >= k0 && K4 < k0 + n) bias = (double)w[K4 - k0];
+      slice_done<R, X>(g, b);
+    }
+    for (int off = 1; off < parts; off <<= 1) s += __shfl_xor_sync(kFull, s, off);
+    s += bias;
+    ++b.seg;
+    return s;
+  }
 }
 
 // X rows 0 .. n_pe - 1: x, then sin and cos of x 2^f, f < M
@@ -865,18 +965,33 @@ __device__ void grid_rows_general(const NetDesc& nd, const void* table, const in
 // its last layer: every lane's point's SDF row in float64, and, for the
 // concat coarse network, the feature rows into X at feat_row. Ends with a
 // barrier: X and the hidden rows are free
-template <bool R>
-__device__ double run_net_general(const GArgs& g, Block& b, const NetDesc& nd, float* s_x,
+template <bool R, bool X>
+__device__ double run_net_general(const GArgs& g, Block& b, int net, float* s_x,
                                   float* s_h, float* s_h2, int feat_row) {
+  const NetDesc& nd = g.net[net];
   const int tile = g.tile, ld = g.ld;
   const float* in = s_x;
   for (int l = 0; l + 1 < nd.n; ++l) {
-    const bool skip = nd.skip[l + 1] != 0;
-    float* out = R && g.buffers == 2 && (l & 1) ? s_h2 : s_h;
-    dense_any<R>(g, b, in, nd.K[l], nd.N[l], out, true, skip, in == out);
+    int K, N;
+    bool skip;
+    float* out;
+    if constexpr (X) {
+      const LayerDesc ly = layer_at(g, net, l);
+      K = ly.K;
+      N = ly.N;
+      skip = layer_at(g, net, l + 1).skip != 0;
+      out = g.buffers == 2 && (l & 1) ? s_h2 : s_h;
+      dense_layer<R>(g, b, in, K, N, out, true, skip, in == out);
+    } else {
+      K = nd.K[l];
+      N = nd.N[l];
+      skip = nd.skip[l + 1] != 0;
+      out = R && g.buffers == 2 && (l & 1) ? s_h2 : s_h;
+      dense_any<R, X>(g, b, in, K, N, out, true, skip, in == out);
+    }
     if (skip) {
       // [h, inp] / sqrt(2): the input's rows after the layer's padded units
-      float* dst = out + nd.N[l] * ld;
+      float* dst = out + N * ld;
       for (int i = threadIdx.x; i < nd.d0 * tile; i += blockDim.x) {
         const int r = i / tile, p = i % tile;
         dst[r * ld + p] = __fmul_rn(s_x[r * ld + p], kInvSqrt2);
@@ -885,18 +1000,28 @@ __device__ double run_net_general(const GArgs& g, Block& b, const NetDesc& nd, f
     __syncthreads();
     in = out;
   }
-  const int K = nd.K[nd.n - 1];
-  const double sdf = sdf_row<R>(g, b, in, K);
+  int K;
+  if constexpr (X) K = layer_at(g, net, nd.n - 1).K;
+  else K = nd.K[nd.n - 1];
+  const double sdf = sdf_row<R, X>(g, b, in, K);
   float* feat = s_x + feat_row * ld;
-  if (nd.feat) dense_any<R>(g, b, in, K, nd.feat, feat, false, false, in == s_x);
+  if (nd.feat) {
+    if constexpr (X) dense_layer<R>(g, b, in, K, nd.feat, feat, false, false, in == s_x);
+    else dense_any<R, X>(g, b, in, K, nd.feat, feat, false, false, in == s_x);
+  }
   __syncthreads();
   return sdf;
 }
 
 // kF32Tab: fp32 tables (concat), else bf16; R: the pack is resident
 // (g.resident: 256 threads, one item a thread, registers for three blocks
-// an SM), else streamed (up to 512 threads, 16 warps)
-template <bool kF32Tab, bool R>
+// an SM), else streamed (up to 512 threads, 16 warps); X: the network needs
+// the extension buffer, column slices, an SDF row in pieces or its
+// activations in device memory (g.act), else the code for every network
+// that needs none of these: its segments and layers in the parameters and
+// its activations in shared memory, so that every pointer there is known
+// to be shared (a run-time choice there cost those networks 14-26 %)
+template <bool kF32Tab, bool R, bool X>
 __global__ void __launch_bounds__(R ? 256 : kMaxThreads, R ? 3 : 1)
     sdf_density_general_kernel(const __grid_constant__ GArgs g) {
   const Args& a = g.p;
@@ -907,10 +1032,19 @@ __global__ void __launch_bounds__(R ? 256 : kMaxThreads, R ? 3 : 1)
   float* sm = reinterpret_cast<float*>(smem4);
   Block b;
   b.ring = sm;
-  float* s_x = sm + (R ? g.w_floats : kStages * g.stage);
+  // the activations in shared memory after the weights (X: or in the
+  // block's part of g.act)
+  float* after = sm + (R ? g.w_floats : kStages * g.stage);
+  float *s_x, *s_pts;
+  if constexpr (X) {
+    s_x = g.act == nullptr ? after : g.act + (int64_t)blockIdx.x * g.act_floats;
+  } else {
+    s_x = after;
+  }
   float* s_h = s_x + g.x_rows * ld;
   float* s_h2 = s_h + g.h_rows * ld;
-  float* s_pts = s_h + g.buffers * g.h_rows * ld;
+  if constexpr (X) s_pts = g.act == nullptr ? s_h + g.buffers * g.h_rows * ld : after;
+  else s_pts = s_h + g.buffers * g.h_rows * ld;
   float* s_beta = s_pts + 3 * tile;
   b.full = reinterpret_cast<uint64_t*>(s_beta + tile);
   b.cur = reinterpret_cast<Cursor*>(b.full + kStages);
@@ -924,7 +1058,7 @@ __global__ void __launch_bounds__(R ? 256 : kMaxThreads, R ? 3 : 1)
       bulk_copy(b.ring, a.weights, (uint32_t)g.w_floats * 4u, b.full);
     } else {
       *b.cur = Cursor{(int64_t)blockIdx.x, 0, 0, 0};
-      for (int i = 0; i < kStages; ++i) issue_slice(g, b.ring, b.full, b.cur, b.tiles);
+      for (int i = 0; i < kStages; ++i) issue_slice<X>(g, b.ring, b.full, b.cur, b.tiles);
     }
   }
   const int parts = blockDim.x / tile, p = t / parts;
@@ -945,11 +1079,11 @@ __global__ void __launch_bounds__(R ? 256 : kMaxThreads, R ? 3 : 1)
     grid_rows_general<kF32Tab>(nc, a.table_c, a.meta_c, a.scl_c, s_pts, s_x, tile, ld);
     __syncthreads();
     const int feat_row = nf.n_pe + nf.L * nf.C;
-    const double sdf_c = run_net_general<R>(g, b, nc, s_x, s_h, s_h2, feat_row);
+    const double sdf_c = run_net_general<R, X>(g, b, 0, s_x, s_h, s_h2, feat_row);
     if (nf.M != nc.M) pe_rows_general(nf.M, s_pts, s_x, tile, ld);
     grid_rows_general<kF32Tab>(nf, a.table_f, a.meta_f, a.scl_f, s_pts, s_x, tile, ld);
     __syncthreads();
-    double sdf_f = run_net_general<R>(g, b, nf, s_x, s_h, s_h2, 0);
+    double sdf_f = run_net_general<R, X>(g, b, 1, s_x, s_h, s_h2, 0);
     if (t % parts == 0 && n0 + p < a.N) {
       // the fine clamp rounds the fine SDF to float32 first, as the plain
       // version does
@@ -961,11 +1095,20 @@ __global__ void __launch_bounds__(R ? 256 : kMaxThreads, R ? 3 : 1)
 
 // --- the host's plan
 
-// parse and check desc (2 networks of kDescInts ints)
-__host__ inline bool parse_desc(const int* desc, NetDesc net[2]) {
+// a network as the host reads it from the descriptor: the head and every
+// layer
+struct HostNet {
+  NetDesc nd;
+  std::vector<LayerDesc> layers;
+};
+
+// parse and check desc (2 networks of kDescHead + 4 cap ints)
+__host__ inline bool parse_desc(const int* desc, int cap, HostNet net[2]) {
+  if (cap < kMaxLayers) return false;
   for (int i = 0; i < 2; ++i) {
-    const int* q = desc + i * kDescInts;
-    NetDesc& nd = net[i];
+    const int* q = desc + (int64_t)i * (kDescHead + 4 * cap);
+    NetDesc& nd = net[i].nd;
+    nd = NetDesc{};
     nd.n = q[0];
     nd.n_pe = q[1];
     nd.M = q[2];
@@ -976,16 +1119,22 @@ __host__ inline bool parse_desc(const int* desc, NetDesc net[2]) {
     nd.feat = q[7];
     memcpy(&nd.df, q + 8, sizeof(float));
     nd.inv_df = 1.0f / nd.df;
-    if (nd.n < 1 || nd.n > kMaxLayers || nd.n_pe != 3 * (1 + 2 * nd.M) || nd.M > 30 ||
+    if (nd.n < 1 || nd.n > cap || nd.n_pe != 3 * (1 + 2 * nd.M) || nd.M > 30 ||
         nd.feat % 4 != 0 || (i == 1 && nd.feat != 0) || nd.C < 1)
       return false;
+    net[i].layers.resize(nd.n);
     for (int l = 0; l < nd.n; ++l) {
-      nd.K[l] = q[kDescHead + l];
-      nd.N[l] = q[kDescHead + kMaxLayers + l];
-      nd.skip[l] = q[kDescHead + 2 * kMaxLayers + l];
-      nd.off[l] = q[kDescHead + 3 * kMaxLayers + l];
-      if (nd.off[l] % 4 != 0 || nd.K[l] < 1 || (l + 1 < nd.n && (nd.N[l] % 4 != 0 || nd.N[l] < 4)))
+      LayerDesc& ly = net[i].layers[l];
+      ly = LayerDesc{q[kDescHead + l], q[kDescHead + cap + l], q[kDescHead + 2 * cap + l],
+                     q[kDescHead + 3 * cap + l]};
+      if (ly.off % 4 != 0 || ly.K < 1 || (l + 1 < nd.n && (ly.N % 4 != 0 || ly.N < 4)))
         return false;
+      if (l < kMaxLayers) {
+        nd.K[l] = ly.K;
+        nd.N[l] = ly.N;
+        nd.skip[l] = ly.skip;
+        nd.off[l] = ly.off;
+      }
     }
   }
   return true;
@@ -997,26 +1146,38 @@ __host__ inline bool parse_desc(const int* desc, NetDesc net[2]) {
 __host__ inline int pick_block(int N, int tile, int threads, int max_j) {
   for (int m = 0; m < 4; ++m) {
     const int P = kBlocks[m][0], J = kBlocks[m][1], Q = (N / 4 + J - 1) / J;
-    if (J <= max_j && Q * (tile / P) <= threads) return m;
+    if (J <= max_j && tile % P == 0 && Q * (tile / P) <= threads) return m;
   }
   return -1;
 }
 
+// whether a network has a layer that runs as column slices (it then needs
+// two hidden buffers: a slice never writes over its input)
+__host__ inline bool has_slices(const HostNet net[2]) {
+  for (int i = 0; i < 2; ++i) {
+    for (int l = 0; l + 1 < net[i].nd.n; ++l)
+      if (slices_of(net[i].layers[l].N) > 1) return true;
+    if (slices_of(net[i].nd.feat) > 1) return true;
+  }
+  return false;
+}
+
 // the plan for threads a block and tile points a tile, ks weight rows a
-// slice at the widest layer (0: the whole pack resident, each segment one
-// slice), at most max_j items a thread (1 for a resident pack); false if a
-// layer has no register block
-__host__ inline bool plan_for(const NetDesc net[2], int threads, int tile, int ks, int max_j,
-                              GArgs& g) {
+// slice at the widest segment (0: the whole pack resident, each segment
+// one slice), at most max_j items a thread (1 for a resident pack); the
+// segments in segs; false if a layer has no register block
+__host__ inline bool plan_for(const HostNet net[2], int threads, int tile, int ks, int max_j,
+                              GArgs& g, std::vector<Seg>& segs) {
   int x_rows = 4, h_rows = 4, nmax = 4, row_max = 8;
   for (int i = 0; i < 2; ++i) {
-    const NetDesc& nd = net[i];
+    const NetDesc& nd = net[i].nd;
+    const std::vector<LayerDesc>& ly = net[i].layers;
     for (int l = 0; l + 1 < nd.n; ++l) {
-      h_rows = std::max(h_rows, nd.N[l] + (nd.skip[l + 1] ? nd.d0 : 0));
-      nmax = std::max(nmax, nd.N[l]);
+      h_rows = std::max(h_rows, ly[l].N + (ly[l + 1].skip ? nd.d0 : 0));
+      nmax = std::max(nmax, slices_of(ly[l].N) > 1 ? kSliceUnits : ly[l].N);
     }
-    nmax = std::max(nmax, nd.feat);
-    row_max = std::max(row_max, round4(nd.K[nd.n - 1]) + 4);
+    nmax = std::max(nmax, slices_of(nd.feat) > 1 ? kSliceUnits : nd.feat);
+    row_max = std::max(row_max, std::min(round4(ly[nd.n - 1].K) + 4, kRowChunk));
     x_rows = std::max(x_rows, round4(nd.d0));
   }
   g.tile = tile;
@@ -1025,27 +1186,43 @@ __host__ inline bool plan_for(const NetDesc net[2], int threads, int tile, int k
   g.h_rows = h_rows;
   g.resident = ks == 0;
   g.stage = g.resident ? 0 : round4(std::max(ks * nmax, row_max));
-  g.nseg = 0;
+  segs.clear();
   for (int i = 0; i < 2; ++i) {
-    const NetDesc& nd = net[i];
-    auto dense_seg = [&](int off, int K, int N) {
-      const int mode = pick_block(N, tile, threads, g.resident ? 1 : max_j);
-      g.seg[g.nseg++] = Seg{off, K + 1, N, g.resident ? K + 1 : std::max(1, g.stage / N), mode};
-      return mode >= 0;
+    const NetDesc& nd = net[i].nd;
+    const std::vector<LayerDesc>& ly = net[i].layers;
+    // a dense layer of N units from off: its column slices, each [K + 1][n]
+    auto dense_segs = [&](int off, int K, int N) {
+      const int ns = slices_of(N);
+      for (int c = 0; c < ns; ++c) {
+        const int n = ns == 1 ? N : std::min(kSliceUnits, N - c * kSliceUnits);
+        const int mode = pick_block(n, tile, threads, g.resident ? 1 : max_j);
+        if (mode < 0) return false;
+        segs.push_back(Seg{off, K + 1, n, g.resident ? K + 1 : std::max(1, g.stage / n), mode,
+                           c * kSliceUnits, (K + 1) * n});
+        off += (K + 1) * n;
+      }
+      return true;
     };
     for (int l = 0; l + 1 < nd.n; ++l)
-      if (!dense_seg(nd.off[l], nd.K[l], nd.N[l])) return false;
-    const int l = nd.n - 1, K = nd.K[l];
-    g.seg[g.nseg++] = Seg{nd.off[l], 1, round4(K) + 4, 1, -1};
-    if (nd.feat && !dense_seg(nd.off[l] + round4(K) + 4, K, nd.feat)) return false;
+      if (!dense_segs(ly[l].off, ly[l].K, ly[l].N)) return false;
+    const int l = nd.n - 1, K = ly[l].K, len = round4(K) + 4;
+    const int n = std::min(len, kRowChunk);
+    segs.push_back(Seg{ly[l].off, (len + n - 1) / n, n, 1, -1, 0, len});
+    if (nd.feat && !dense_segs(ly[l].off + len, K, nd.feat)) return false;
   }
+  g.nseg = (int)segs.size();
+  for (int i = 0; i < std::min(g.nseg, kMaxSegs); ++i) g.seg[i] = segs[i];
   return true;
+}
+
+// floats of one block's activations: X and the hidden buffers
+__host__ inline int64_t act_floats_of(const GArgs& g) {
+  return (int64_t)(g.x_rows + g.buffers * g.h_rows) * g.ld;
 }
 
 __host__ inline int64_t general_smem_bytes(const GArgs& g) {
   return 4 * ((g.resident ? g.w_floats : (int64_t)kStages * g.stage) +
-              (int64_t)(g.x_rows + g.buffers * g.h_rows) * g.ld + 4 * g.tile +
-              kTailFloats);
+              (g.act != nullptr ? 0 : act_floats_of(g)) + 4 * g.tile + kTailFloats);
 }
 
 // the first plan that fits, with one item a thread where any plan allows
@@ -1058,28 +1235,63 @@ __host__ inline int64_t general_smem_bytes(const GArgs& g) {
 // the gathers, the encodings and the barriers, and the other blocks
 // overlap them. Else the weights stream, at the largest tile (each slice
 // then serves the most points): one block of 512 threads on 256 points,
-// two of 256 on 128, one of 512 on 128, ... 32; with the most weight rows
-// a slice (64 .. 4) that fit. g.w_floats: the pack's floats; smem_sm and
-// reserved: the SM's shared memory and what each block costs beside its own
-__host__ inline bool general_plan(const NetDesc net[2], int smem_sm, int reserved, int optin,
-                                  GArgs& g, int& threads) {
+// two of 256 on 128, one of 512 on 128, ... 32, 16, 8; with the most
+// weight rows a slice (64 .. 1) that fit. A network with a layer in column
+// slices takes two hidden buffers. Past every tile, the activations go to
+// device memory (g.act, the caller's: a block of 512 threads on 32 points,
+// or 256 on 16 or 8) and shared memory holds the weights' ring alone.
+// g.w_floats: the pack's floats; smem_sm and reserved: the SM's shared
+// memory and what each block costs beside its own
+__host__ inline bool general_plan(const HostNet net[2], int smem_sm, int reserved, int optin,
+                                  GArgs& g, int& threads, bool& global_act,
+                                  std::vector<Seg>& segs) {
   // threads, tile, hidden buffers of a resident pack (0: streamed), blocks an SM
-  const int cand[12][4] = {{256, 128, 2, 3}, {256, 128, 1, 3}, {256, 128, 2, 2},
+  const int cand[15][4] = {{256, 128, 2, 3}, {256, 128, 1, 3}, {256, 128, 2, 2},
                            {256, 128, 1, 2}, {256, 64, 2, 2},  {256, 64, 1, 2},
                            {512, 256, 0, 1}, {256, 128, 0, 2}, {512, 128, 0, 1},
-                           {256, 64, 0, 2},  {512, 64, 0, 1},  {512, 32, 0, 1}};
+                           {256, 64, 0, 2},  {512, 64, 0, 1},  {512, 32, 0, 1},
+                           {512, 16, 0, 1},  {256, 16, 0, 1},  {256, 8, 0, 1}};
+  const int global_cand[3][2] = {{512, 32}, {256, 16}, {256, 8}};
+  const bool sliced = has_slices(net);
+  g.act = nullptr;
+  global_act = false;
+  // first the plans up to 32 points a tile and 4 weight rows a slice, in
+  // their order; then 16 and 8 points and slices of 2 or 1 rows
+  for (int pass = 0; pass < 2; ++pass)
+    for (int max_j = 1; max_j <= 2; ++max_j)
+      for (int ci = 0; ci < 15; ++ci) {
+        const int* c = cand[ci];
+        if (sliced && c[2] == 1) continue;
+        for (int ks : {64, 32, 16, 8, 4, 2, 1}) {
+          if ((pass == 0) != (ci < 12 && ks >= 4)) {
+            if (c[2]) break;
+            continue;
+          }
+          const int limit = std::min(optin, smem_sm / c[3] - reserved);
+          const bool fits = plan_for(net, c[0], c[1], c[2] ? 0 : ks, max_j, g, segs);
+          g.buffers = sliced ? 2 : std::max(c[2], 1);
+          if (fits && general_smem_bytes(g) <= limit) {
+            threads = c[0];
+            return true;
+          }
+          if (c[2]) break;
+        }
+      }
+  // the activations in device memory: any network whose weights' ring fits
+  g.act = reinterpret_cast<float*>(1);  // (set by the caller; non-null for the sizes)
   for (int max_j = 1; max_j <= 2; ++max_j)
-    for (const auto& c : cand)
-      for (int ks : {64, 32, 16, 8, 4}) {
-        const int limit = std::min(optin, smem_sm / c[3] - reserved);
-        const bool fits = plan_for(net, c[0], c[1], c[2] ? 0 : ks, max_j, g);
-        g.buffers = std::max(c[2], 1);
-        if (fits && general_smem_bytes(g) <= limit) {
+    for (const auto& c : global_cand)
+      for (int ks : {64, 32, 16, 8, 4, 2, 1}) {
+        const bool fits = plan_for(net, c[0], c[1], ks, max_j, g, segs);
+        g.buffers = sliced ? 2 : 1;
+        if (fits && general_smem_bytes(g) <= std::min(optin, smem_sm - reserved)) {
           threads = c[0];
+          global_act = true;
+          g.act = nullptr;
           return true;
         }
-        if (c[2]) break;
       }
+  g.act = nullptr;
   return false;
 }
 
@@ -1094,6 +1306,60 @@ __host__ inline cudaError_t device_limits(int& sms, int& smem_sm, int& reserved,
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
   return e;
+}
+
+// the extension buffer's ints: layers kMaxLayers.. of each network (4 ints
+// a layer), then segments kMaxSegs.. (7 ints a segment)
+__host__ inline std::vector<int> ext_ints(const HostNet net[2], const std::vector<Seg>& segs) {
+  std::vector<int> ext;
+  for (int i = 0; i < 2; ++i)
+    for (int l = kMaxLayers; l < net[i].nd.n; ++l) {
+      const LayerDesc& ly = net[i].layers[l];
+      ext.insert(ext.end(), {ly.K, ly.N, ly.skip, ly.off});
+    }
+  for (size_t i = kMaxSegs; i < segs.size(); ++i) {
+    const Seg& s = segs[i];
+    ext.insert(ext.end(), {s.off, s.rows, s.n, s.ks, s.mode, s.c0, s.len});
+  }
+  return ext;
+}
+
+// the kernel for these tables and this plan (x: needs the kernels for any
+// network, any_network), and the blocks an SM it runs
+__host__ inline cudaError_t general_kernel(bool f32_tables, bool resident, bool x, int threads,
+                                           size_t bytes, void (*&kern)(const GArgs),
+                                           int& per_sm) {
+  void (*const kerns[2][2][2])(const GArgs) = {
+      {{sdf_density_general_kernel<false, false, false>,
+        sdf_density_general_kernel<false, false, true>},
+       {sdf_density_general_kernel<false, true, false>,
+        sdf_density_general_kernel<false, true, true>}},
+      {{sdf_density_general_kernel<true, false, false>,
+        sdf_density_general_kernel<true, false, true>},
+       {sdf_density_general_kernel<true, true, false>,
+        sdf_density_general_kernel<true, true, true>}}};
+  kern = kerns[f32_tables ? 1 : 0][resident ? 1 : 0][x ? 1 : 0];
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)bytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, bytes);
+  return e;
+}
+
+// whether a plan needs the kernels for any network: layers or segments
+// past the parameters, column slices, an SDF row in pieces, or the
+// activations in device memory
+__host__ inline bool any_network(const HostNet net[2], const std::vector<Seg>& segs,
+                                 bool global_act) {
+  if (global_act || has_slices(net) || (int)segs.size() > kMaxSegs) return true;
+  for (int i = 0; i < 2; ++i)
+    if (net[i].nd.n > kMaxLayers) return true;
+  for (const Seg& sg : segs)
+    if (sg.mode < 0 && sg.rows > 1) return true;
+  return false;
 }
 }  // namespace
 
@@ -1135,18 +1401,22 @@ int nsl_sdf_density(const void* weights, const void* table_c, const void* meta_c
 }
 
 // The general kernel: the same modes and operands as nsl_sdf_density, and
-// desc, a HOST array of 2 kDescInts ints (ops/sdf_density.pack_general:
-// coarse, then fine), w_floats the packed weights' floats (16-byte
-// aligned); f32_tables: the tables are [T, C] float32 (the concat
-// variant), else bfloat16. It takes general_plan's first plan that fits.
-int nsl_sdf_density_general(const int* desc, const void* weights, int64_t w_floats,
-                            const void* table_c, const void* meta_c, const void* scl_c,
-                            const void* table_f, const void* meta_f, const void* scl_f,
-                            int f32_tables, const void* xs, int res, const void* o,
-                            const void* d, const void* z, int S, const void* counter,
-                            int vres, float neg_b_1e4, float vd, float va, float vc,
-                            const void* beta, const void* beta_scale, void* out, int64_t N,
-                            void* stream) {
+// desc, a HOST array of 2 (kDescHead + 4 cap) ints (ops/sdf_density.
+// pack_general: coarse, then fine), w_floats the packed weights' floats
+// (16-byte aligned); f32_tables: the tables are [T, C] float32 (the concat
+// variant), else bfloat16. ext: the device copy of the extension ints that
+// nsl_sdf_density_general_ext_plan wrote for this desc (null where it
+// wrote none); act: device memory for the activations, the plan's
+// act_floats (null where the plan keeps them in shared memory). It takes
+// general_plan's first plan that fits.
+int nsl_sdf_density_general_ext(const int* desc, int cap, const void* ext, void* act,
+                                const void* weights, int64_t w_floats, const void* table_c,
+                                const void* meta_c, const void* scl_c, const void* table_f,
+                                const void* meta_f, const void* scl_f, int f32_tables,
+                                const void* xs, int res, const void* o, const void* d,
+                                const void* z, int S, const void* counter, int vres,
+                                float neg_b_1e4, float vd, float va, float vc, const void* beta,
+                                const void* beta_scale, void* out, int64_t N, void* stream) {
   if (N == 0) return 0;
   if ((xs == nullptr) == (z == nullptr) || (counter == nullptr) == (beta == nullptr) ||
       (xs != nullptr && N != (int64_t)res * res * res) || (z != nullptr && S < 1) ||
@@ -1158,33 +1428,40 @@ int nsl_sdf_density_general(const int* desc, const void* weights, int64_t w_floa
              (const float*)scl_f, (const float*)xs, res, (const float*)o, (const float*)d,
              (const float*)z, S, (const float*)counter, vres, neg_b_1e4, vd, va, vc,
              (const float*)beta, (const float*)beta_scale, (float*)out, N};
-  if (!parse_desc(desc, g.net)) return (int)cudaErrorInvalidValue;
-  for (const NetDesc& nd : g.net)
-    if (nd.L > 0 && !f32_tables && nd.C % 2 != 0) return (int)cudaErrorInvalidValue;
+  HostNet net[2];
+  if (!parse_desc(desc, cap, net)) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 2; ++i) {
+    g.net[i] = net[i].nd;
+    if (net[i].nd.L > 0 && !f32_tables && net[i].nd.C % 2 != 0) return (int)cudaErrorInvalidValue;
+  }
   int sms = 0, smem_sm = 0, reserved = 0, optin = 0, threads = 0;
   cudaError_t e = device_limits(sms, smem_sm, reserved, optin);
   if (e != cudaSuccess) return (int)e;
   g.w_floats = w_floats;
-  if (!general_plan(g.net, smem_sm, reserved, optin, g, threads))
+  bool global_act = false;
+  std::vector<Seg> segs;
+  if (!general_plan(net, smem_sm, reserved, optin, g, threads, global_act, segs))
     return (int)cudaErrorInvalidConfiguration;
-  for (int i = 0; i < g.nseg; ++i)
-    if ((int64_t)g.seg[i].off + (int64_t)g.seg[i].rows * g.seg[i].n > w_floats)
-      return (int)cudaErrorInvalidValue;
-  void (*kern)(const GArgs);
-  if (f32_tables)
-    kern = g.resident ? sdf_density_general_kernel<true, true>
-                      : sdf_density_general_kernel<true, false>;
-  else
-    kern = g.resident ? sdf_density_general_kernel<false, true>
-                      : sdf_density_general_kernel<false, false>;
+  for (const Seg& sg : segs)
+    if ((int64_t)sg.off + (int64_t)sg.len > w_floats) return (int)cudaErrorInvalidValue;
+  const bool need_ext = !ext_ints(net, segs).empty();
+  if (need_ext != (ext != nullptr) || global_act != (act != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (need_ext) {
+    const int* q = (const int*)ext;
+    for (int i = 0; i < 2; ++i) {
+      g.layer_ext[i] = reinterpret_cast<const LayerDesc*>(q);
+      q += 4 * std::max(0, net[i].nd.n - kMaxLayers);
+    }
+    g.seg_ext = reinterpret_cast<const Seg*>(q);
+  }
+  g.act = (float*)act;
+  g.act_floats = act_floats_of(g);
   const size_t bytes = (size_t)general_smem_bytes(g);
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return (int)e;
+  void (*kern)(const GArgs);
   int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, bytes);
+  e = general_kernel(f32_tables, g.resident, any_network(net, segs, global_act), threads,
+                     bytes, kern, per_sm);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int64_t tiles = (N + g.tile - 1) / g.tile;
@@ -1194,27 +1471,76 @@ int nsl_sdf_density_general(const int* desc, const void* weights, int64_t w_floa
   return (int)cudaGetLastError();
 }
 
-// the tile, the shared-memory bytes a block and the floats of weights in
-// shared memory (the whole pack, or its ring) that the general kernel takes
-// for desc (0, -1 and 0 where nothing fits); a probe for the wrapper and
-// chip_smoke.py
-int nsl_sdf_density_general_plan(const int* desc, int64_t w_floats, int* tile_out,
-                                 int64_t* bytes_out, int* w_smem_out) {
+// nsl_sdf_density_general_ext for a descriptor of kMaxLayers slots and a
+// network whose plan needs no extension and keeps its activations in
+// shared memory (every network up to 16 layers of up to 1024 units that
+// fits there): the C interface of earlier trees, which
+// tools/sdf_density_ab.py calls on every side
+int nsl_sdf_density_general(const int* desc, const void* weights, int64_t w_floats,
+                            const void* table_c, const void* meta_c, const void* scl_c,
+                            const void* table_f, const void* meta_f, const void* scl_f,
+                            int f32_tables, const void* xs, int res, const void* o,
+                            const void* d, const void* z, int S, const void* counter,
+                            int vres, float neg_b_1e4, float vd, float va, float vc,
+                            const void* beta, const void* beta_scale, void* out, int64_t N,
+                            void* stream) {
+  return nsl_sdf_density_general_ext(desc, kMaxLayers, nullptr, nullptr, weights, w_floats,
+                                     table_c, meta_c, scl_c, table_f, meta_f, scl_f, f32_tables,
+                                     xs, res, o, d, z, S, counter, vres, neg_b_1e4, vd, va, vc,
+                                     beta, beta_scale, out, N, stream);
+}
+
+// the general kernel's plan for desc (cap layer slots) on this card: the
+// tile, the shared-memory bytes a block, the floats of weights in shared
+// memory (the whole pack, or its ring), the extension's ints (written to
+// ext_out where it is not null) and the floats of device memory the
+// activations take (0: in shared memory; else for the most blocks the
+// card runs at once); 0, -1, 0, 0, 0 where no plan fits. No stream: a
+// probe for the wrapper and chip_smoke.py
+int nsl_sdf_density_general_ext_plan(const int* desc, int cap, int64_t w_floats, int* tile_out,
+                                     int64_t* bytes_out, int* w_smem_out, int* ext_out,
+                                     int64_t* ext_n_out, int64_t* act_out) {
   GArgs g{};
   g.w_floats = w_floats;
   int sms = 0, smem_sm = 0, reserved = 0, optin = 0, threads = 0;
   *tile_out = 0;
   *bytes_out = -1;
   *w_smem_out = 0;
-  if (!parse_desc(desc, g.net)) return 0;
+  *ext_n_out = 0;
+  *act_out = 0;
+  HostNet net[2];
+  if (!parse_desc(desc, cap, net)) return 0;
   cudaError_t e = device_limits(sms, smem_sm, reserved, optin);
   if (e != cudaSuccess) return (int)e;
-  if (general_plan(g.net, smem_sm, reserved, optin, g, threads)) {
+  bool global_act = false;
+  std::vector<Seg> segs;
+  if (general_plan(net, smem_sm, reserved, optin, g, threads, global_act, segs)) {
     *tile_out = g.tile;
-    *bytes_out = general_smem_bytes(g);
     *w_smem_out = g.resident ? (int)w_floats : kStages * g.stage;
+    const std::vector<int> ext = ext_ints(net, segs);
+    *ext_n_out = (int64_t)ext.size();
+    if (ext_out != nullptr) std::copy(ext.begin(), ext.end(), ext_out);
+    if (global_act) {
+      g.act = reinterpret_cast<float*>(1);
+      void (*kern)(const GArgs);
+      int per_sm = 0;
+      e = general_kernel(false, g.resident, true, threads, (size_t)general_smem_bytes(g), kern,
+                         per_sm);
+      if (e != cudaSuccess) return (int)e;
+      *act_out = act_floats_of(g) * sms * std::max(per_sm, 1);
+    }
+    *bytes_out = general_smem_bytes(g);
   }
   return 0;
+}
+
+// nsl_sdf_density_general_ext_plan for a descriptor of kMaxLayers slots:
+// the tile, the bytes and the floats of weights in shared memory
+int nsl_sdf_density_general_plan(const int* desc, int64_t w_floats, int* tile_out,
+                                 int64_t* bytes_out, int* w_smem_out) {
+  int64_t ext_n = 0, act = 0;
+  return nsl_sdf_density_general_ext_plan(desc, kMaxLayers, w_floats, tile_out, bytes_out,
+                                          w_smem_out, nullptr, &ext_n, &act);
 }
 
 }  // extern "C"

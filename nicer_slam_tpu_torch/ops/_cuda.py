@@ -83,6 +83,12 @@ _SIGNATURES = {
     # z, near, far, density, perm, eik_idx, z_out, z_eik, R, chunk, Ne, Ns,
     # Nextra, u_step, stream
     "nsl_importance_sample_given": [_P] * 8 + [_I64, _I64, _I, _I, _I, _F, _P],
+    # the same two with the rows in a global scratch [n_rows, row floats]
+    # (rows, n_rows before the stream)
+    "nsl_importance_sample_global": [_P] * 8 + [_I64, _I, _I, _I, _I, _F, _F, _F,
+                                                _F, _F, _P, _I64, _P],
+    "nsl_importance_sample_given_global": [_P] * 8 + [_I64, _I64, _I, _I, _I, _F, _P,
+                                                      _I64, _P],
     # x, counter, N, res, stream
     "nsl_voxel_scatter": [_P, _P, _I64, _I, _P],
     # x, counter, beta, N, res, -b·1e-4, d, a, c, stream
@@ -98,9 +104,27 @@ _SIGNATURES = {
                                + [_I, _P, _I] + [_F] * 4 + [_P] * 3 + [_I64, _P],
     # desc, w_floats, tile out, bytes out, smem-weight floats out (no stream)
     "nsl_sdf_density_general_plan": [_P, _I64, _P, _P, _P],
+    # desc (host int32 [2, 9 + 4 cap]), cap, ext (device int32, or NULL),
+    # act (device float32 scratch, or NULL), then nsl_sdf_density_general's
+    # weights .. stream
+    "nsl_sdf_density_general_ext": [_P, _I, _P, _P, _P, _I64] + [_P] * 6 + [_I, _P, _I]
+                                   + [_P] * 3 + [_I, _P, _I] + [_F] * 4 + [_P] * 3
+                                   + [_I64, _P],
+    # desc, cap, w_floats, tile out, bytes out, smem-weight floats out, ext
+    # ints out (host, or NULL), ext count out, activation floats out (no
+    # stream)
+    "nsl_sdf_density_general_ext_plan": [_P, _I, _I64] + [_P] * 6,
     # tsdf, weight, depth, w2c, K, xs, ys, zs, res, H, W, trunc, depth_max,
     # stream
     "nsl_tsdf_integrate": [_P] * 8 + [_I] * 3 + [_F] * 2 + [_P],
+}
+
+# entry points that return an int64 and take no stream: the K5 sampler's
+# scratch rows (floats of a ray's rows, 0 without scratch; Ne, Ns, Nextra)
+# and the warps that share them (R)
+_QUERIES = {
+    "nsl_importance_sample_rows": [_I, _I, _I],
+    "nsl_importance_sample_row_warps": [_I64],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -170,6 +194,10 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name, argtypes in _QUERIES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int64
         _lib = lib
     return _lib
 

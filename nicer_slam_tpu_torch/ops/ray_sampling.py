@@ -27,9 +27,12 @@ L2-resident 8 MB volume and two 640-long scans. One warp holds one ray:
 the reads are lane-strided, the scans lane-chunked and combined by warp
 shuffles, the binary searches lane-strided, and the merged row is sorted
 by a warp bitonic sort in 128 slots; nothing but z_vals and z_eik
-touches device memory (csrc/sampler.cu). The kernel takes
-``N_samples_eval <= 1024`` and ``N_samples + N_samples_extra + 2 <= 128``
-(the wrappers raise above them).
+touches device memory (csrc/sampler.cu). Every shape the JAX package
+runs goes through the kernel: past 1024 prepass samples the lane chunks
+are scanned in the warp's row in passes, past 128 sorted samples the sort
+takes 8 or 16 keys a lane or sorts in the row, and rows that outgrow a
+block's shared memory live in a global scratch
+(``nsl_importance_sample_rows`` says when).
 
 The plain version sums in the kernel's order (``lane_exclusive_cumsum``,
 ``lane_total``): the inverse CDF is a discontinuous function of the cdf
@@ -75,12 +78,6 @@ class SamplerConfig(NamedTuple):
         return self.N_samples + self.N_samples_extra + 2
 
 
-# the kernel's limits: prepass samples (32 per lane in registers) and
-# sorted samples (4 per lane in the warp's bitonic sort)
-KERNEL_MAX_EVAL = 1024
-KERNEL_MAX_SORTED = 128
-
-
 def prepass_chunks(cfg: SamplerConfig, R: int) -> int:
     """Chunks of ``prepass_ray_chunk`` rays whose exact prepass in training
     draws its own jitter, extra bins and anchors (1: no chunking)."""
@@ -114,24 +111,41 @@ def perm_slice(perm: torch.Tensor, R: int, lo: int, hi: int) -> torch.Tensor:
 
 
 def _step(n: int) -> float:
-    return float(np.float32(1.0 / (n - 1)))
+    """f32(1/(n-1)), the step of linspace(0, 1, n) (0 for n = 1, whose one
+    point is 0)."""
+    return float(np.float32(1.0 / (n - 1))) if n > 1 else 0.0
 
 
-def _check_kernel_shape(cfg: SamplerConfig, Ne: int) -> None:
-    if not (2 <= Ne <= KERNEL_MAX_EVAL and cfg.N_samples >= 2
-            and cfg.N_samples_extra >= 0 and cfg.total_samples <= KERNEL_MAX_SORTED):
+def check_sampler_shape(cfg: SamplerConfig, Ne: int) -> None:
+    """Raise for a sampler shape the JAX package cannot run either: no
+    prepass sample, or a negative count. The kernel takes every other."""
+    if Ne < 1 or cfg.N_samples < 0 or cfg.N_samples_extra < 0:
         raise ValueError(
-            f"importance sampler kernel: needs 2 <= N_samples_eval <= {KERNEL_MAX_EVAL}, "
-            f"N_samples >= 2 and N_samples + N_samples_extra + 2 <= {KERNEL_MAX_SORTED}; "
-            f"got {Ne}, {cfg.N_samples}, {cfg.N_samples_extra}")
+            f"importance sampler: N_samples_eval {Ne}, N_samples {cfg.N_samples} and "
+            f"N_samples_extra {cfg.N_samples_extra} run in neither package (needs "
+            f"N_samples_eval >= 1 and no negative count)")
 
 
 def linspace01(n: int, device=None) -> torch.Tensor:
     """float32 linspace(0, 1, n) with the reference's rounding:
-    ``i · f32(1/(n-1))``, last element exactly 1."""
+    ``i · f32(1/(n-1))``, last element exactly 1 (n = 1: [0])."""
     t = torch.arange(n, dtype=torch.float32, device=device) * _step(n)
-    t[-1] = 1.0
+    if n > 1:
+        t[-1] = 1.0
     return t
+
+
+def _rows(R: int, cfg: SamplerConfig, Ne: int, dev):
+    """The kernel's global scratch rows for this shape ((rows [n, f],
+    n) where a warp's rows outgrow a block's shared memory; else None)."""
+    lib = _cuda.library()
+    f = lib.nsl_importance_sample_rows(Ne, cfg.N_samples, cfg.N_samples_extra)
+    if f < 0:
+        raise RuntimeError("nsl_importance_sample_rows: invalid shape or no device")
+    if f == 0:
+        return None
+    n = lib.nsl_importance_sample_row_warps(R)
+    return torch.empty((n, f), dtype=torch.float32, device=dev), n
 
 
 def uniform_z_vals(cfg: SamplerConfig, rays_o: torch.Tensor,
@@ -298,7 +312,7 @@ def importance_sample(cfg: SamplerConfig, rays_o: torch.Tensor,
         raise ValueError(f"importance_sample: unsupported device {rays_o.device}")
     R = rays_o.shape[0]
     Ne, Ns, Nx = cfg.N_samples_eval, cfg.N_samples, cfg.N_samples_extra
-    _check_kernel_shape(cfg, Ne)
+    check_sampler_shape(cfg, Ne)
     res = cfg.prepass_cache_res
     dev = rays_o.device
     rays_o, rays_d = rays_o.detach().contiguous(), rays_d.detach().contiguous()
@@ -312,12 +326,16 @@ def importance_sample(cfg: SamplerConfig, rays_o: torch.Tensor,
     St = cfg.total_samples
     z_out = torch.empty((R, St), dtype=torch.float32, device=dev)
     z_eik = torch.empty((R, 1), dtype=torch.float32, device=dev)
-    _cuda.launch("importance_sample", "nsl_importance_sample", R,
-                 rays_o.data_ptr(), rays_d.data_ptr(), cache.data_ptr(),
-                 _cuda.ptr(t_rand), perm.data_ptr(), eik_idx.data_ptr(),
-                 z_out.data_ptr(), z_eik.data_ptr(), R, res, Ne, Ns, Nx,
-                 float(cfg.scene_bounding_sphere), float(cfg.near),
-                 float(cfg.uniform_far), _step(Ne), _step(Ns))
+    args = (rays_o.data_ptr(), rays_d.data_ptr(), cache.data_ptr(), _cuda.ptr(t_rand),
+            perm.data_ptr(), eik_idx.data_ptr(), z_out.data_ptr(), z_eik.data_ptr(), R, res,
+            Ne, Ns, Nx, float(cfg.scene_bounding_sphere), float(cfg.near),
+            float(cfg.uniform_far), _step(Ne), _step(Ns))
+    rows = _rows(R, cfg, Ne, dev) if R else None
+    if rows is None:
+        _cuda.launch("importance_sample", "nsl_importance_sample", R, *args)
+    else:
+        _cuda.launch("importance_sample", "nsl_importance_sample_global", R, *args,
+                     rows[0].data_ptr(), rows[1])
     return z_out, z_eik
 
 
@@ -336,7 +354,7 @@ def importance_sample_given(cfg: SamplerConfig, z_vals: torch.Tensor,
         raise ValueError(f"importance_sample_given: unsupported device {z_vals.device}")
     R = z_vals.shape[0]
     Ne, Ns, Nx = cfg.N_samples_eval, cfg.N_samples, cfg.N_samples_extra
-    _check_kernel_shape(cfg, Ne)
+    check_sampler_shape(cfg, Ne)
     dev = z_vals.device
     z_vals, density = z_vals.detach().contiguous(), density.detach().contiguous()
     near, far = near.detach().contiguous(), far.detach().contiguous()
@@ -351,8 +369,13 @@ def importance_sample_given(cfg: SamplerConfig, z_vals: torch.Tensor,
     _cuda.check(eik_idx, "eik_idx", torch.int64, (R,), device=dev)
     z_out = torch.empty((R, cfg.total_samples), dtype=torch.float32, device=dev)
     z_eik = torch.empty((R, 1), dtype=torch.float32, device=dev)
-    _cuda.launch("importance_sample_given", "nsl_importance_sample_given", R,
-                 z_vals.data_ptr(), near.data_ptr(), far.data_ptr(), density.data_ptr(),
-                 perm.data_ptr(), eik_idx.data_ptr(), z_out.data_ptr(), z_eik.data_ptr(),
-                 R, R // C, Ne, Ns, Nx, _step(Ns))
+    args = (z_vals.data_ptr(), near.data_ptr(), far.data_ptr(), density.data_ptr(),
+            perm.data_ptr(), eik_idx.data_ptr(), z_out.data_ptr(), z_eik.data_ptr(),
+            R, R // C, Ne, Ns, Nx, _step(Ns))
+    rows = _rows(R, cfg, Ne, dev) if R else None
+    if rows is None:
+        _cuda.launch("importance_sample_given", "nsl_importance_sample_given", R, *args)
+    else:
+        _cuda.launch("importance_sample_given", "nsl_importance_sample_given_global", R,
+                     *args, rows[0].data_ptr(), rows[1])
     return z_out, z_eik

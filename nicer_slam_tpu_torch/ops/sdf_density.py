@@ -72,12 +72,18 @@ KERNEL_GRID = {"coarse": (4, 8), "fine": (8, 4)}   # (levels, channels)
 KERNEL_MULTIRES = 6
 # points per chunk of the plain grid build (the build ran in 16 chunks)
 PLAIN_GRID_CHUNKS = 16
-# the general kernel: layers per network, and the ints of one network's
-# descriptor (n, n_pe, multires, L, C, d0, clamp, feat, divide_factor's
-# bits, then per layer K, N, skip and the weights' offset)
+# the general kernel's descriptor: the layer slots of a network up to 16
+# layers (a deeper one's descriptor has one slot a layer), and the ints of
+# one network's descriptor (n, n_pe, multires, L, C, d0, clamp, feat,
+# divide_factor's bits, then K, N, skip and the weights' offset for each
+# slot)
 MAX_LAYERS = 16
 DESC_HEAD = 9
 DESC_INTS = DESC_HEAD + 4 * MAX_LAYERS
+# a dense layer wider than SLICE_MAX units (padded) is packed as column
+# slices of SLICE_UNITS units (csrc/sdf_density.cu kSliceMax, kSliceUnits)
+SLICE_MAX = 1024
+SLICE_UNITS = 512
 
 
 class SdfPack(NamedTuple):
@@ -88,7 +94,9 @@ class SdfPack(NamedTuple):
     tables: Dict[str, torch.Tensor]        # fields.pack_combine_tables
     weights: Optional[torch.Tensor]        # None on the CPU
     variant: str = "shipped"               # check_sdf_network
-    desc: Optional[np.ndarray] = None      # int32 [2, DESC_INTS] (pack_general)
+    desc: Optional[np.ndarray] = None      # int32 [2, desc_ints(cap)] (pack_general)
+    ext: Optional[torch.Tensor] = None     # the plan's extension ints on the card, or None
+    act_floats: int = 0                    # device floats of the activations (0: none)
 
 
 def _is_shipped(cfg: fields.CombineConfig) -> bool:
@@ -135,9 +143,6 @@ def check_sdf_network(cfg: fields.CombineConfig) -> str:
         if why is not None:
             raise ValueError(f"sdf_density: the {name} SDF network runs in neither "
                              f"package: {why}")
-        if len(c.layer_dims) - 1 > MAX_LAYERS:
-            raise ValueError(f"sdf_density: the {name} SDF network has "
-                             f"{len(c.layer_dims) - 1} layers; the kernel takes {MAX_LAYERS}")
     if cfg.fine.concat_coarse_feature:
         return "concat"
     return "shipped" if _is_shipped(cfg) else "general"
@@ -217,12 +222,46 @@ def _n_pe(c: fields.ImplicitNetConfig) -> int:
     return 3 * (1 + 2 * c.multires) if c.multires > 0 else 3
 
 
+def desc_cap(cfg: fields.CombineConfig) -> int:
+    """Layer slots of the descriptor: MAX_LAYERS, or the deeper network's
+    layers."""
+    return max(MAX_LAYERS, len(cfg.coarse.layer_dims) - 1, len(cfg.fine.layer_dims) - 1)
+
+
+def desc_ints(cap: int) -> int:
+    return DESC_HEAD + 4 * cap
+
+
+def slice_widths(N: int) -> List[int]:
+    """The column slices a dense layer of N (padded) units is packed and run
+    as: N itself up to SLICE_MAX, else SLICE_UNITS units each and the
+    rest."""
+    if N <= SLICE_MAX:
+        return [N]
+    return [min(SLICE_UNITS, N - u0) for u0 in range(0, N, SLICE_UNITS)]
+
+
+def _dense_index(imap: np.ndarray, n_units: int, N: int, k_in: int, w0: int, b0: int,
+                 row0: int = 0) -> List[np.ndarray]:
+    """The packed floats of a dense layer of N padded units (n_units real,
+    unit u's weights at w0 + (row0 + u)·k_in + imap, its bias at b0 + row0
+    + u): per column slice [K][n] then its bias [n], the slice's units in
+    ``unit_order(n)``."""
+    out, u0 = [], 0
+    for n in slice_widths(N):
+        j = u0 + unit_order(n).numpy()[None, :]
+        out += [np.where((imap >= 0) & (j < n_units), w0 + (row0 + j) * k_in + imap, -1),
+                np.where(j[0] < n_units, b0 + row0 + j[0], -1)]
+        u0 += n
+    return out
+
+
 @functools.lru_cache(maxsize=16)
 def _general_layout(cfg: fields.CombineConfig):
     """(index, desc): for each float of the general kernel's weights its
     place in both networks' effective layers laid out naturally one after
     the other (each W [out, in] row-major, then b), -1 for a zero; and the
-    descriptor int32 [2, DESC_INTS].
+    descriptor int32 [2, desc_ints(desc_cap(cfg))].
 
     A network's input rows X are x and its positional encoding, the grid's
     L·C features (none without use_grid_feature: those columns are zero)
@@ -233,12 +272,15 @@ def _general_layout(cfg: fields.CombineConfig):
     float4 at 4q holds units q, q + N/4, q + N/2, q + 3N/4), the last the
     SDF row [ceil4(K)] and its bias padded to 4, then, for the coarse
     network with concat, its feature rows W [K][F4] and b [F4] (in
-    ``unit_order(F4)``). Each layer's outputs land in the kernel's rows in
+    ``unit_order(F4)``). A layer (or the feature rows) wider than SLICE_MAX
+    units is its column slices one after the other (``slice_widths``), each
+    as a layer of its own. Each layer's outputs land in the kernel's rows in
     natural unit order."""
     concat = cfg.fine.concat_coarse_feature
     F = cfg.coarse.layer_dims[-1] - 1
     F4 = _ceil4(F) if concat else 0
-    idx, desc = [], np.zeros((2, DESC_INTS), np.int32)
+    cap = desc_cap(cfg)
+    idx, desc = [], np.zeros((2, desc_ints(cap)), np.int32)
     pos = base = 0
     for i, name in enumerate(("coarse", "fine")):
         c = getattr(cfg, name)
@@ -265,14 +307,12 @@ def _general_layout(cfg: fields.CombineConfig):
             K, k_in, w0 = len(imap), dims[l], base
             b0 = base + outs[l] * k_in
             desc[i, DESC_HEAD + l] = K
-            desc[i, DESC_HEAD + 2 * MAX_LAYERS + l] = int(l in c.skip_in)
-            desc[i, DESC_HEAD + 3 * MAX_LAYERS + l] = pos
+            desc[i, DESC_HEAD + 2 * cap + l] = int(l in c.skip_in)
+            desc[i, DESC_HEAD + 3 * cap + l] = pos
             if l < n - 1:
                 N = n_prev = _ceil4(outs[l])
-                desc[i, DESC_HEAD + MAX_LAYERS + l] = N
-                j = unit_order(N).numpy()[None, :]
-                idx += [np.where((imap >= 0) & (j < outs[l]), w0 + j * k_in + imap, -1),
-                        np.where(j[0] < outs[l], b0 + j[0], -1)]
+                desc[i, DESC_HEAD + cap + l] = N
+                idx += _dense_index(imap, outs[l], N, k_in, w0, b0)
                 pos += K * N + N
             else:
                 row = np.full(_ceil4(K), -1, np.int64)
@@ -280,9 +320,7 @@ def _general_layout(cfg: fields.CombineConfig):
                 idx += [row, np.array([b0, -1, -1, -1])]
                 pos += _ceil4(K) + 4
                 if name == "coarse" and concat:
-                    f = unit_order(F4).numpy()[None, :]
-                    idx += [np.where((imap >= 0) & (f < F), w0 + (1 + f) * k_in + imap, -1),
-                            np.where(f[0] < F, b0 + 1 + f[0], -1)]
+                    idx += _dense_index(imap, F, F4, k_in, w0, b0, row0=1)
                     pos += K * F4 + F4
             base += outs[l] * k_in + outs[l]
     index = np.concatenate([a.reshape(-1) for a in idx])
@@ -324,6 +362,18 @@ def sdf_general_reference(net: fields.CombineNet, tables: Dict[str, torch.Tensor
     """The SDF [N] as the general kernel computes it from ``pack_general``'s
     weights and descriptor (its rows, padding and skip layout), in ``dtype``
     (float64: the reference the kernel's rounding is measured against)."""
+    cap = (desc.shape[1] - DESC_HEAD) // 4
+
+    def dense(h, off, K, N, dt):
+        """h [P, K] through the packed layer of N units at off (its column
+        slices), natural unit order, before the activation."""
+        outs = []
+        for n in slice_widths(N):
+            w = flat[off:off + K * n].reshape(K, n).to(dt)
+            outs.append(_natural(h @ w + flat[off + K * n:off + K * n + n].to(dt)))
+            off += K * n + n
+        return torch.cat(outs, -1)
+
     total, feat = None, None
     for i, name in enumerate(("coarse", "fine")):
         sub, d = getattr(net, name), desc[i]
@@ -336,21 +386,19 @@ def sdf_general_reference(net: fields.CombineNet, tables: Dict[str, torch.Tensor
         X = torch.cat(parts, -1).to(dtype)
         h = X
         for l in range(n):
-            K, N, off = (int(d[DESC_HEAD + l]), int(d[DESC_HEAD + MAX_LAYERS + l]),
-                         int(d[DESC_HEAD + 3 * MAX_LAYERS + l]))
+            K, N, off = (int(d[DESC_HEAD + l]), int(d[DESC_HEAD + cap + l]),
+                         int(d[DESC_HEAD + 3 * cap + l]))
             assert h.shape[1] == K
             if l < n - 1:
-                w = flat[off:off + K * N].reshape(K, N).to(dtype)
-                h = _natural(softplus_beta100(h @ w + flat[off + K * N:off + K * N + N].to(dtype)))
-                if d[DESC_HEAD + 2 * MAX_LAYERS + l + 1]:
+                # (softplus is elementwise: the natural order may come first)
+                h = softplus_beta100(dense(h, off, K, N, dtype))
+                if d[DESC_HEAD + 2 * cap + l + 1]:
                     h = torch.cat([h, X], -1) / np.float32(np.sqrt(2.0))
             else:
                 K4 = _ceil4(K)
                 s = h @ flat[off:off + K].to(dtype) + flat[off + K4].to(dtype)
                 if F4:
-                    o = off + K4 + 4
-                    feat = _natural(h @ flat[o:o + K * F4].reshape(K, F4).to(dtype)
-                                    + flat[o + K * F4:o + K * F4 + F4].to(dtype))
+                    feat = dense(h, off + K4 + 4, K, F4, dtype)
         if d[6]:
             s = torch.tanh(s.float()) * 0.05
         total = s if total is None else total + s.to(total.dtype)
@@ -507,21 +555,48 @@ def pack_sdf(net: fields.CombineNet) -> SdfPack:
     if variant == "shipped":
         return SdfPack(tables, pack_sdf_weights(net), variant)
     weights, desc = pack_general(net)
-    return SdfPack(tables, weights, variant, desc)
+    plan = _ext_plan(desc, weights.numel())
+    if plan["tile"] == 0:
+        raise RuntimeError("sdf_density: the general kernel found no plan for this network "
+                           "(its weights' ring does not fit in shared memory)")
+    ext = (None if plan["ext"] is None
+           else torch.from_numpy(plan["ext"]).to(weights.device))
+    return SdfPack(tables, weights, variant, desc, ext, plan["act_floats"])
+
+
+def _ext_plan(desc: np.ndarray, w_floats: int) -> dict:
+    """nsl_sdf_density_general_ext_plan for ``desc``: the tile, the bytes of
+    shared memory a block, the floats of weights there, the extension ints
+    (int32 numpy, or None) and the device floats of the activations."""
+    lib = _cuda.library()
+    desc = np.ascontiguousarray(desc, np.int32)
+    cap = (desc.shape[1] - DESC_HEAD) // 4
+    tile, nbytes, w_smem = ctypes.c_int(), ctypes.c_int64(), ctypes.c_int()
+    ext_n, act = ctypes.c_int64(), ctypes.c_int64()
+
+    def call(ext_out):
+        rc = lib.nsl_sdf_density_general_ext_plan(
+            desc.ctypes.data, cap, w_floats, ctypes.byref(tile), ctypes.byref(nbytes),
+            ctypes.byref(w_smem), ext_out, ctypes.byref(ext_n), ctypes.byref(act))
+        if rc != 0:
+            raise RuntimeError(f"nsl_sdf_density_general_ext_plan: CUDA error {rc}")
+
+    call(None)
+    ext = None
+    if ext_n.value:
+        ext = np.zeros(ext_n.value, np.int32)
+        call(ext.ctypes.data)
+    return {"tile": tile.value, "bytes": nbytes.value, "w_smem": w_smem.value, "ext": ext,
+            "act_floats": act.value}
 
 
 def general_plan(pack: SdfPack) -> Tuple[int, int, int]:
     """(points per tile, shared-memory bytes a block, floats of weights in
     shared memory: the whole pack when it stays resident, else its ring's)
     that the general kernel takes for this pack on the current card; (0,
-    -1, 0) when its activations do not fit."""
-    tile, nbytes, w_smem = ctypes.c_int(), ctypes.c_int64(), ctypes.c_int()
-    rc = _cuda.library().nsl_sdf_density_general_plan(
-        np.ascontiguousarray(pack.desc, np.int32).ctypes.data, pack.weights.numel(),
-        ctypes.byref(tile), ctypes.byref(nbytes), ctypes.byref(w_smem))
-    if rc != 0:
-        raise RuntimeError(f"nsl_sdf_density_general_plan: CUDA error {rc}")
-    return tile.value, nbytes.value, w_smem.value
+    -1, 0) when its weights' ring does not fit."""
+    plan = _ext_plan(pack.desc, pack.weights.numel())
+    return plan["tile"], plan["bytes"], plan["w_smem"]
 
 
 @functools.lru_cache(maxsize=8)
@@ -551,10 +626,8 @@ def _launch(net, pack: SdfPack, N: int, out: torch.Tensor, voxels, beta, beta_sc
     if general:
         index, _ = _general_layout(net.cfg)
         _cuda.check(pack.weights, "weights", torch.float32, (index.size,), device=dev)
-        if general_plan(pack)[0] == 0:
-            raise ValueError("sdf_density: the network's activations do not fit in the "
-                             "general kernel's shared memory at 32 points a tile, or a "
-                             "layer is wider than its 512 threads hold (1024 units)")
+        if pack.ext is not None:
+            _cuda.check(pack.ext, "ext", torch.int32, (pack.ext.numel(),), device=dev)
     else:
         _cuda.check(pack.weights, "weights", torch.float32,
                     (packed_floats(net.cfg.coarse.layer_dims)
@@ -588,8 +661,11 @@ def _launch(net, pack: SdfPack, N: int, out: torch.Tensor, voxels, beta, beta_sc
              sf.data_ptr())
     if general:
         desc = np.ascontiguousarray(pack.desc, np.int32)
-        _cuda.launch(f"sdf_density_{pack.variant}.{mode}", "nsl_sdf_density_general", N,
-                     desc.ctypes.data, pack.weights.data_ptr(), pack.weights.numel(), *grids,
+        act = (torch.empty(pack.act_floats, dtype=torch.float32, device=dev)
+               if pack.act_floats else None)
+        _cuda.launch(f"sdf_density_{pack.variant}.{mode}", "nsl_sdf_density_general_ext", N,
+                     desc.ctypes.data, (desc.shape[1] - DESC_HEAD) // 4, _cuda.ptr(pack.ext),
+                     _cuda.ptr(act), pack.weights.data_ptr(), pack.weights.numel(), *grids,
                      int(pack.variant == "concat"), *tail)
     else:
         _cuda.launch(f"sdf_density.{mode}", "nsl_sdf_density", N, pack.weights.data_ptr(),

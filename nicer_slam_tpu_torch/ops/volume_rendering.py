@@ -27,7 +27,10 @@ On the card K4 is memory bound (it streams 8 floats per sample once) and
 small next to the field networks: one warp per ray does the transmittance
 scan, the per-ray sums and the top-k picks (a radix select by warp
 ballots) with warp shuffles, without atomics; the top-k colour composite
-gives each ray Kc lanes (csrc/composite.cu).
+gives each ray Kc lanes (csrc/composite.cu). Any S and 0 < Kc <= S run:
+rays longer than the register rounds (512 samples for the composite's
+forward, 1024 for the rest) run in tiles with the transmittance carried
+across them.
 """
 
 from __future__ import annotations
@@ -258,17 +261,18 @@ def _topk_rgb_bwd(topk_w, wsum, rgb, g_out):
     return g_w, g_wsum, g_rgb
 
 
-# the kernels' limits (csrc/composite.cu returns cudaErrorInvalidValue
-# outside them): the wrappers raise instead, with no fallback
+# what the kernels refuse (csrc/composite.cu returns cudaErrorInvalidValue
+# there) is what the JAX package cannot run either: a ray of no samples, or
+# a top-k outside lax.top_k's 0 < Kc <= S; the wrappers raise first
 def check_weights_topk_shape(S: int, Kc: int) -> None:
-    if not (1 <= S <= 32 * 32 and 0 < Kc <= S):
-        raise ValueError(f"weights_topk kernel supports S <= 1024 and "
-                         f"0 < Kc <= S, got S {S}, Kc {Kc}")
+    if not (S >= 1 and 0 < Kc <= S):
+        raise ValueError(f"weights_topk kernel: S {S}, Kc {Kc} run in neither package "
+                         f"(lax.top_k needs 0 < Kc <= S)")
 
 
 def check_composite_shape(S: int) -> None:
-    if not 1 <= S <= 32 * 16:
-        raise ValueError(f"composite kernel supports 1 <= S <= 512, got {S}")
+    if S < 1:
+        raise ValueError(f"composite kernel: S {S} runs in neither package (no samples)")
 
 
 def check_topk_rgb_shape(Kc: int) -> None:

@@ -225,17 +225,21 @@ def test_interleaved_layout_covers_each_float_once(S):
 
 
 def test_kernel_shape_limits():
-    """The wrappers refuse what the kernels do not take (they have no
-    fallback): weights_topk S <= 1024 and 0 < Kc <= S, composite S <= 512,
-    topk_rgb Kc >= 1."""
+    """The wrappers take every shape the JAX package runs: the old kernel
+    limits (weights_topk S <= 1024, composite S <= 512) are accepted, and
+    only a ray of no samples or a top-k outside lax.top_k's 0 < Kc <= S is
+    refused; topk_rgb needs Kc >= 1."""
     tvr.check_weights_topk_shape(1024, 1024)
     tvr.check_weights_topk_shape(98, 16)
     tvr.check_weights_topk_shape(1, 1)
-    for S, Kc in ((1025, 16), (98, 0), (98, 99), (0, 0), (16, -1)):
+    tvr.check_weights_topk_shape(1025, 16)
+    tvr.check_weights_topk_shape(1100, 1100)
+    for S, Kc in ((98, 0), (98, 99), (0, 0), (16, -1), (1100, 1101)):
         with pytest.raises(ValueError, match="weights_topk kernel"):
             tvr.check_weights_topk_shape(S, Kc)
-    tvr.check_composite_shape(512)
-    for S in (513, 0):
+    for S in (1, 512, 513, 1100, 40_000):
+        tvr.check_composite_shape(S)
+    for S in (0, -1):
         with pytest.raises(ValueError, match="composite kernel"):
             tvr.check_composite_shape(S)
     tvr.check_topk_rgb_shape(1)

@@ -262,15 +262,24 @@ def test_lane_order_sums_are_prefix_sums(M):
 
 
 def test_sampler_kernel_shape_limits():
-    """The kernel's wrapper refuses what the kernel cannot hold (it has no
-    fallback): more than 1024 prepass samples or 128 sorted samples."""
+    """The sampler takes every shape the JAX package runs: the old kernel
+    limits (more than 1024 prepass samples, more than 128 sorted samples,
+    N_samples below 2) are accepted, and only a shape that runs in neither
+    package (no prepass sample, a negative count) is refused. One prepass
+    sample and one inverse-CDF sample are linspace(0, 1, 1) = [0], as in
+    jnp.linspace."""
     ok = trs.SamplerConfig(N_samples=64, N_samples_eval=1024, N_samples_extra=62)
-    trs._check_kernel_shape(ok, 1024)
-    trs._check_kernel_shape(ok._replace(N_samples_eval=2), 2)
-    for bad, ne in ((ok, 1025), (ok, 1), (ok._replace(N_samples_extra=63), 640),
-                    (ok._replace(N_samples=1), 640)):
-        with pytest.raises(ValueError, match="importance sampler kernel"):
-            trs._check_kernel_shape(bad, ne)
+    for cfg, ne in ((ok, 1024), (ok, 2), (ok, 1), (ok, 1025), (ok, 40_000),
+                    (ok._replace(N_samples_extra=63), 640),
+                    (ok._replace(N_samples=128, N_samples_extra=970), 4096),
+                    (ok._replace(N_samples=1), 640), (ok._replace(N_samples=0), 640)):
+        trs.check_sampler_shape(cfg, ne)
+    for bad, ne in ((ok, 0), (ok._replace(N_samples=-1), 640),
+                    (ok._replace(N_samples_extra=-1), 640)):
+        with pytest.raises(ValueError, match="run in neither package"):
+            trs.check_sampler_shape(bad, ne)
+    assert trs.linspace01(1).tolist() == [0.0] and trs._step(1) == 0.0
+    assert trs.linspace01(3).tolist() == [0.0, 0.5, 1.0]
 
 
 def _odd_sample_in_last_bin(a: np.ndarray, b: np.ndarray, z_pre: np.ndarray,

@@ -109,12 +109,15 @@ def test_map_step_with_ba_and_color_topk_matches_jax(scene):
     _map_step_case(scene, color_topk=TOPK)
 
 
-def _map_step_case(scene, color_topk, cfgs=None, loss_edits=None, beta_scale=None):
+def _map_step_case(scene, color_topk, cfgs=None, loss_edits=None, beta_scale=None,
+                   sdf_rel_l2=(5e-4, 2e-3)):
     """One map_step of both packages on the scene's frames 0 and 4. By
     default the scene's configuration with its prepass cache; ``cfgs`` (a
     (jax, torch) SceneConfig pair, fresh seed-0 weights) with the exact
     prepass, whose densities ``beta_scale`` widens; ``loss_edits`` replace
-    fields of both packages' mapping LossConfig."""
+    fields of both packages' mapping LossConfig; ``sdf_rel_l2``: the SDF-side
+    gradients' relative L2 bounds (the port against its float64 run; the
+    JAX package against it and against the port)."""
     s = scene
     ds = s["ds"]
     exact = cfgs is not None
@@ -234,9 +237,9 @@ def _map_step_case(scene, color_topk, cfgs=None, loss_edits=None, beta_scale=Non
             # of the SDF by ~1/beta. The port's float64 run is the arbiter:
             # measured, the port's float32 gradients are within 1.6e-4 of it
             # (relative L2) and the JAX package's within 8.4e-4.
-            assert _rel_l2(g_t, grads64[name]) <= 5e-4, key_
-            assert _rel_l2(g_j, grads64[name]) <= 2e-3, key_
-            assert _rel_l2(g_t, g_j) <= 2e-3, key_
+            assert _rel_l2(g_t, grads64[name]) <= sdf_rel_l2[0], key_
+            assert _rel_l2(g_j, grads64[name]) <= sdf_rel_l2[1], key_
+            assert _rel_l2(g_t, g_j) <= sdf_rel_l2[1], key_
         big = np.abs(g_j) > 1e-2 * np.abs(g_j).max()
         np.testing.assert_allclose(jax_layout(key_, p)[big], new_j[key_][big], atol=1e-6)
     # BA: fresh-Adam sign step, lr 1e-3, on the two valid slots
@@ -254,9 +257,10 @@ def test_track_frame_with_color_topk_matches_jax(scene):
     _track_frame_case(scene, color_topk=TOPK)
 
 
-def _track_frame_case(scene, color_topk, cfgs=None, edit=None):
-    """Five tracking iterations of both packages on the scene's frame 2. By
-    default the scene's configuration with its prepass cache; ``cfgs`` (a
+def _track_frame_case(scene, color_topk, cfgs=None, edit=None, num_iters=5):
+    """``num_iters`` (five) tracking iterations of both packages on the
+    scene's frame 2. By default the scene's configuration with its prepass
+    cache; ``cfgs`` (a
     (jax, torch) SceneConfig pair) with the exact prepass on fresh seed-0
     weights, which ``edit(jparams, model)`` may change first. Returns the
     port's inputs and result: (tcfg, model, track_frame's arguments after
@@ -279,8 +283,8 @@ def _track_frame_case(scene, color_topk, cfgs=None, edit=None):
     K = ds.intrinsics_all[frame]
     q0 = tensor_from_camera_np(ds.gt_pose_all[frame])
     q0[4:] += np.array([0.01, 0.02, -0.01], np.float32)
-    tr_j = jtrack.TrackConfig(num_iters=5, num_pixels=64, cam_lr=0.005, lr_step_size=2,
-                              lr_gamma=0.5)
+    tr_j = jtrack.TrackConfig(num_iters=num_iters, num_pixels=64, cam_lr=0.005,
+                              lr_step_size=2, lr_gamma=0.5)
     key = jax.random.PRNGKey(5)
     best_j, final_j, aux_j = jtrack.track_frame(
         jcfg, tr_j, s["jloss"][1], jparams, jnp.asarray(s["vox"]), jnp.asarray(rgb),
