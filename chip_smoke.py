@@ -73,8 +73,14 @@ are taken with the card to themselves:
      (tsdf.integrate: one 680x1200 frame into a 256³
      volume that already holds one, bit for bit). The plain versions of K1/K2 run once;
      the K1/K2 backward runs twice more and its table gradient must come
-     out the same bit for bit, with its kept fixed-point accumulator zero
-     after every launch.
+     out the same bit for bit, with its kept fixed-point accumulator and
+     touched-row bitmap zero after every launch; at C 2, 4, 8 it must
+     equal hash_table_grad_fixed_plain bit for bit. At the tracking shape
+     on the three shipped grids (check_hash_fixed_state): two launches in a
+     row on the same kept state with other points (the rows only the
+     first touched read 0 after the second) and a launch with a NaN
+     cotangent at one level (every row of that level NaN, the others bit
+     for bit with the plain version).
   4. demo: the demo configuration (confs/runconf_demo_1.conf, every network
      at full width) through the port's exp_runner: tracking on every frame,
      mapping + BA at frames 0, 5 and 10, global_window_start = 10 (200 by
@@ -524,6 +530,15 @@ def log(*a):
     print(*a, flush=True)
 
 
+# the smoke's start, for the phase headers' elapsed times
+_START = time.perf_counter()
+
+
+def log_phase(msg: str):
+    """A phase's header, with the seconds since the smoke started."""
+    log(f"{msg} [t+{time.perf_counter() - _START:.0f} s]")
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -661,6 +676,11 @@ def uniform_points(g, dev, n):
 def touched_rows(spec, x) -> int:
     """Distinct table rows that the in-range points of x read, all levels:
     the table bytes a hash kernel must move for these inputs."""
+    return int(touched_mask(spec, x).sum())
+
+
+def touched_mask(spec, x):
+    """[T] bool: the table rows that the in-range points of x read."""
     import torch
     from nicer_slam_tpu_torch.ops import hash_encoder as he
     u = (x + 1.0) / 2.0
@@ -670,7 +690,7 @@ def touched_rows(spec, x) -> int:
     for lvl in range(spec.num_levels):
         left = torch.floor(u * spec.scales[lvl]).to(torch.int64)
         mark[he._level_rows(spec, lvl, left[None] + bits[:, None, :]).reshape(-1)] = True
-    return int(mark.sum())
+    return mark
 
 
 def hash_cost(spec, n, rows, jac, bwd, table_grad=True):
@@ -688,6 +708,19 @@ def hash_cost(spec, n, rows, jac, bwd, table_grad=True):
     else:
         words, madds = n * per_pt + table, C * (1 + 3 * jac)
     return 4 * words, 2 * madds * 8 * L * n
+
+
+def hash_floor_ms(spec, n, rows, jac) -> float:
+    """The least time of a K1/K2 backward with a table gradient as the
+    port must run it, beside hash_cost's bound: that bound's bytes, plus
+    the maxima pass's second read of the cotangents (the fixed-point
+    exponents need them before the first atomic) and the untouched rows of
+    the dense g_table written (the optimizer reads it whole), at the
+    memory rate."""
+    L, C = spec.num_levels, spec.level_dim
+    nb, _ = hash_cost(spec, n, rows, jac, True)
+    extra = 4 * n * L * C * (1 + 3 * jac) + 4 * (spec.total_entries - rows) * C
+    return (nb + extra) / HBM_BYTES_PER_S * 1e3
 
 
 # (grid, kernel, points): the SDF grids through K1 at the flagship's 8192
@@ -761,12 +794,15 @@ def check_hash_case(dev, chk: Checks, g, spec, table, jac: bool, x, tag: str):
     def bwd():
         he.hash_encode_bwd_launch(spec, table, x, 1.0, jac, gf, gd, g_table, g_x)
 
-    # the fixed-point accumulator that the wrapper keeps: its first
-    # T·C words must be zero after every launch
-    acc = he.fixed_point_scratch(spec, dev)[:spec.total_entries * C]
+    # the fixed-point state that the wrapper keeps: its accumulator and
+    # touched-row bitmap must be zero after every launch
+    scratch = he.fixed_point_scratch(spec, dev)
     zero_after = []
     bwd()
-    zero_after.append(not bool(acc.any()))
+    zero_after.append(he.fixed_point_state_is_zero(spec, scratch))
+    # the merge kernel's channel counts: bit for bit with its plain version
+    exact = (bool(torch.equal(g_table, he.hash_table_grad_fixed_plain(spec, x, gf, gd)))
+             if C in MERGE_CHANNELS else None)
     xx, tt = x.clone().requires_grad_(True), table.clone().requires_grad_(True)
 
     def plain_bwd():
@@ -782,22 +818,130 @@ def check_hash_case(dev, chk: Checks, g, spec, table, jac: bool, x, tag: str):
     same = True
     for _ in range(2):
         bwd()
-        zero_after.append(not bool(acc.any()))
+        zero_after.append(he.fixed_point_state_is_zero(spec, scratch))
         same &= torch.equal(first, g_table)
     del first
     ms = cuda_time(bwd)
-    zero_after.append(not bool(acc.any()))
+    zero_after.append(he.fixed_point_state_is_zero(spec, scratch))
     chk.record(f"{kname}.bwd{tag}", src,
                replaces if jac else "nicer_slam_tpu/ops/hash_encoder.py:613",
-               err, ex <= GRAD_REL_L2 and et <= GRAD_REL_L2 and same
+               err, ex <= GRAD_REL_L2 and et <= GRAD_REL_L2 and same and exact is not False
                and all(zero_after), ms, pms,
                *hash_cost(spec, N, rows, jac, True),
                f"(rel L2: grad_x {ex:.2e}, grad_table {et:.2e}; {N} points, "
-               f"{rows} rows; the same over 3 launches: {same}; accumulator "
-               f"zero after each of 3 launches and after the timed ones: "
-               f"{zero_after})")
-    del xx, tt, pgx, pgt, g_table, g_x, gf, gd, feats, dfeat, acc
+               f"{rows} rows; the same over 3 launches: {same}; bit for bit with "
+               f"hash_table_grad_fixed_plain: {exact}; accumulator and bitmap zero after "
+               f"each of 3 launches and after the timed ones: {zero_after}; floor with "
+               f"the maxima pass and the dense g_table {hash_floor_ms(spec, N, rows, jac):.4f} "
+               f"ms)")
+    del xx, tt, pgx, pgt, g_table, g_x, gf, gd, feats, dfeat, scratch
     torch.cuda.empty_cache()
+
+
+# the channel counts of the merge kernel (csrc/hash_kernels.cuh
+# hash_bwd_merge_kernel), whose table gradient hash_table_grad_fixed_plain
+# reproduces bit for bit; the others keep the lane-merge kernel
+MERGE_CHANNELS = (2, 4, 8)
+
+
+# the level given a NaN cotangent in the non-finite case below
+NAN_LEVEL = 1
+
+
+def check_hash_fixed_state(dev, chk: Checks):
+    """What a backward that converts the touched rows alone could get
+    wrong, at the tracking shape (1024 x 98 ray-ordered points) on the
+    three shipped grids (the colour grid marks its touched rows; the SDF
+    grids sweep every row): two launches in a row on the same kept state
+    with other points (the second one's table gradient its own: the rows
+    that only the first touched read 0), and a launch with a NaN cotangent
+    at one level (every row of that level NaN, the other levels as the
+    plain version); each bit for bit with hash_table_grad_fixed_plain and
+    within GRAD_REL_L2 of autograd of the plain encode, the accumulator and
+    bitmap zero after every launch. Each case's launch is timed."""
+    import torch
+    from nicer_slam_tpu_torch.ops import hash_encoder as he
+
+    specs = hash_specs()
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    src = "nicer_slam_tpu_torch/csrc/hash_encoder.cu"
+    for grid, jac in TRACK_GRIDS:
+        spec = specs[grid]
+        L, C, T = spec.num_levels, spec.level_dim, spec.total_entries
+        table = torch.rand((T, C), generator=g, device=dev) * 2 - 1
+        scratch = he.fixed_point_scratch(spec, dev)
+        kname = "hash_encode_with_grad" if jac else "hash_encode"
+        replaces = "nicer_slam_tpu/ops/hash_encoder.py:" + ("266" if jac else "613")
+        g_table = torch.empty_like(table)
+
+        def operands():
+            x = ray_points(g, dev, TRACK_RAYS, 98)
+            gf = torch.randn((x.shape[0], L * C), generator=g, device=dev)
+            gd = (torch.randn((x.shape[0], L * C, 3), generator=g, device=dev) if jac
+                  else None)
+            return x, gf, gd
+
+        def autograd_table(x, gf, gd):
+            tt = table.clone().requires_grad_(True)
+            out = he.hash_encode_plain(spec, tt, x, 1.0, jac)
+            loss = (out[0] * gf).sum() + (out[1] * gd).sum() if jac else (out * gf).sum()
+            return torch.autograd.grad(loss, [tt])[0]
+
+        # two launches in a row, other points
+        (x1, gf1, gd1), (x2, gf2, gd2) = operands(), operands()
+        zero_after = []
+        for x, gf, gd in ((x1, gf1, gd1), (x2, gf2, gd2)):
+            he.hash_encode_bwd_launch(spec, table, x, 1.0, jac, gf, gd, g_table, None)
+            zero_after.append(he.fixed_point_state_is_zero(spec, scratch))
+        exact = bool(torch.equal(g_table, he.hash_table_grad_fixed_plain(spec, x2, gf2, gd2)))
+        pgt, pms = timed_once(lambda: autograd_table(x2, gf2, gd2))
+        et = rel_l2(g_table, pgt)
+        only_first = touched_mask(spec, x1) & ~touched_mask(spec, x2)
+        first_zero = not bool(g_table[only_first].any())
+
+        def bwd():
+            he.hash_encode_bwd_launch(spec, table, x2, 1.0, jac, gf2, gd2, g_table, None)
+
+        ms = cuda_time(bwd)
+        zero_after.append(he.fixed_point_state_is_zero(spec, scratch))
+        N, rows = x2.shape[0], touched_rows(spec, x2)
+        chk.record(f"{kname}.bwd[{grid}/track/two launches]", src, replaces,
+                   max_abs(g_table, pgt),
+                   exact and et <= GRAD_REL_L2 and first_zero and all(zero_after), ms, pms,
+                   *hash_cost(spec, N, rows, jac, True),
+                   f"(second launch: bit for bit with its plain version {exact}, rel L2 "
+                   f"{et:.2e}; the {int(only_first.sum())} rows only the first launch "
+                   f"touched read 0: {first_zero}; state zero after each: {zero_after})")
+        # a NaN cotangent at one level
+        gfn = gf1.clone()
+        gfn[7, NAN_LEVEL * C] = float("nan")
+
+        def bwd_nan():
+            he.hash_encode_bwd_launch(spec, table, x1, 1.0, jac, gfn, gd1, g_table, None)
+
+        bwd_nan()
+        zero = he.fixed_point_state_is_zero(spec, scratch)
+        r0, r1 = spec.offsets[NAN_LEVEL], spec.offsets[NAN_LEVEL + 1]
+        other = torch.ones(T, dtype=torch.bool, device=dev)
+        other[r0:r1] = False
+        level_nan = bool(g_table[r0:r1].isnan().all())
+        plain = he.hash_table_grad_fixed_plain(spec, x1, gfn, gd1)
+        exact = bool(torch.equal(g_table[other], plain[other]) and plain[r0:r1].isnan().all())
+        pgt, pms = timed_once(lambda: autograd_table(x1, gfn, gd1))
+        et = rel_l2(g_table[other], pgt[other])
+        ms = cuda_time(bwd_nan)
+        zero &= he.fixed_point_state_is_zero(spec, scratch)
+        chk.record(f"{kname}.bwd[{grid}/track/NaN at level {NAN_LEVEL}]", src, replaces,
+                   max_abs(g_table[other], pgt[other]),
+                   level_nan and exact and et <= GRAD_REL_L2 and zero, ms, pms,
+                   *hash_cost(spec, x1.shape[0], touched_rows(spec, x1), jac, True),
+                   f"(level {NAN_LEVEL}: NaN in all {r1 - r0} rows {level_nan}; the other "
+                   f"levels bit for bit with the plain version {exact}, rel L2 {et:.2e} "
+                   f"to autograd; state zero after the launch and the timed ones: {zero})")
+        del table, g_table, scratch, x1, x2, gf1, gf2, gd1, gd2, gfn, pgt, plain, other
+        del only_first
+        torch.cuda.empty_cache()
 
 
 # K1 and K2 at the channel counts below 8 that no shipped grid has (the
@@ -1819,7 +1963,7 @@ def check_hash_bf16_bwd(dev, chk: Checks):
     g.manual_seed(6)
     packed = he.pack_table_bf16(torch.rand((spec.total_entries, C), generator=g,
                                            device=dev) * 2 - 1)
-    acc = he.fixed_point_scratch(spec, dev)[:spec.total_entries * C]
+    scratch = he.fixed_point_scratch(spec, dev)
     for kind in BF16_BWD_CASES:
         x = hash_points(g, dev, kind, "ray")
         N = x.shape[0]
@@ -1833,7 +1977,7 @@ def check_hash_bf16_bwd(dev, chk: Checks):
 
         zero_after = []
         bwd()
-        zero_after.append(not bool(acc.any()))
+        zero_after.append(he.fixed_point_state_is_zero(spec, scratch))
         (pgt, pgx), pms = timed_once(lambda: he.hash_encode_bf16_bwd_plain(spec, packed, x,
                                                                             gf))
         ex, et = rel_l2(g_x, pgx), rel_l2(g_table, pgt)
@@ -1843,7 +1987,7 @@ def check_hash_bf16_bwd(dev, chk: Checks):
         same = True
         for _ in range(2):
             bwd()
-            zero_after.append(not bool(acc.any()))
+            zero_after.append(he.fixed_point_state_is_zero(spec, scratch))
             same &= torch.equal(first, g_table)
         # K2's backward on the float32 table: the same table gradient
         he.hash_encode_bwd_launch(spec, packed.to(torch.float32), x, 1.0, False, gf, None,
@@ -1851,10 +1995,11 @@ def check_hash_bf16_bwd(dev, chk: Checks):
         as_k2 = torch.equal(first, g_table)
         del first
         ms = cuda_time(bwd)
-        zero_after.append(not bool(acc.any()))
+        zero_after.append(he.fixed_point_state_is_zero(spec, scratch))
         nb, ops = hash_cost(spec, N, rows, False, True)
         # the touched rows read in bf16 (2 bytes a channel), not float32
         nb -= rows * C * 2
+        floor_ms = hash_floor_ms(spec, N, rows, False) - rows * C * 2 / HBM_BYTES_PER_S * 1e3
         chk.record(f"hash_encode_bf16.bwd[color/{kind}/ray]",
                    "nicer_slam_tpu_torch/csrc/hash_encoder.cu",
                    "nicer_slam_tpu/ops/hash_encoder.py:759", err,
@@ -1862,11 +2007,12 @@ def check_hash_bf16_bwd(dev, chk: Checks):
                    and all(zero_after), ms, pms, nb, ops,
                    f"(rel L2: grad_x {ex:.2e}, grad_table {et:.2e}; {N} points, {rows} rows; "
                    f"the same over 3 launches: {same}; K2's table gradient: {as_k2}; "
-                   f"accumulator zero after each of 3 launches and after the timed ones: "
-                   f"{zero_after})")
+                   f"accumulator and bitmap zero after each of 3 launches and after the timed "
+                   f"ones: {zero_after}; floor with the maxima pass and the dense g_table "
+                   f"{floor_ms:.4f} ms)")
         del x, gf, g_table, g_x
         torch.cuda.empty_cache()
-    del packed, acc
+    del packed, scratch
     torch.cuda.empty_cache()
 
 
@@ -3543,16 +3689,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = card_line()
-    log(f"[1/11] card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    log_phase(f"[1/11] card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     procs = start_scenes()
     long_run = lane = None
     try:
         t = time.perf_counter()
         path = _cuda.build()
         _cuda.library()
-        log(f"[2/11] build: {os.path.relpath(path, ROOT)} in {time.perf_counter() - t:.1f} s")
+        log_phase(f"[2/11] build: {os.path.relpath(path, ROOT)} in "
+                  f"{time.perf_counter() - t:.1f} s")
 
-        log(f"[3/11] kernels vs plain versions (tolerance: values {VAL_RTOL:g}·max|ref| "
+        log_phase(f"[3/11] kernels vs plain versions (tolerance: values {VAL_RTOL:g}·max|ref| "
             f"per output, atomic gradients rel L2 {GRAD_REL_L2:g}, sampler {Z_ATOL:g} "
             f"on every ray, the voxel counter bit for bit); each kernel's launch "
             f"alone, mean of 10 after 2; the plain versions of K1/K2 once; bounds at "
@@ -3565,6 +3712,7 @@ def main() -> int:
         for (R, S), tag in zip(COMPOSITE_SHAPES, COMPOSITE_TAGS):
             check_demo_kernels(dev, chk, R, S, tag)
         check_hash_tracking(dev, chk)
+        check_hash_fixed_state(dev, chk)
         check_voxel_kernels(dev, chk)
         check_topk_kernels(dev, chk)
         check_bf16_kernels(dev, chk)
@@ -3581,7 +3729,7 @@ def main() -> int:
 
         # phase 9's dry runs need no scan: they run while the scans are
         # written
-        log(f"[9/11] parallel (first part, while the scans are written): parallel.dryrun "
+        log_phase(f"[9/11] parallel (first part, while the scans are written): parallel.dryrun "
             f"at the flagship's widths, two mapping iterations per mode, under NCCL at "
             f"world size 1 and as two gloo ranks sharing the card (held against the "
             f"one-process step)")
@@ -3593,18 +3741,18 @@ def main() -> int:
             t = time.perf_counter()
             data_dir = wait_scene(procs, kind)
             p = PATHS[kind]
-            log(f"[{step}/11] SLAM main path: {kind} configuration, {N_FRAMES} frames, "
+            log_phase(f"[{step}/11] SLAM main path: {kind} configuration, {N_FRAMES} frames, "
                 f"{p['H']}x{p['W']}, global_window_start {GLOBAL_WINDOW_START} "
                 f"(waited {time.perf_counter() - t:.1f} s for the scan)")
             runs[kind] = run_slam(dev, kind, data_dir)
             torch.cuda.empty_cache()
-        log(f"[10/11] long run (in the background, beside phases 5b to 9): "
+        log_phase(f"[10/11] long run (in the background, beside phases 5b to 9): "
             f"evaluation.long_seq_eval with GUARDED's settings through frame {LONG_FRAMES} "
             f"at 120x160")
         long_run = start_long_run()
         t = time.perf_counter()
         capture = wait_scene(procs, "capture")
-        log(f"[8/11] preprocess, then [9/11] parallel.sweep, in a child process beside "
+        log_phase(f"[8/11] preprocess, then [9/11] parallel.sweep, in a child process beside "
             f"phases 5b to 7 (waited {time.perf_counter() - t:.1f} s for the capture): a raw "
             f"Replica-layout capture ({CAPTURE_FRAMES} frames, "
             f"{PATHS['preprocess']['H']}x{PATHS['preprocess']['W']}) through the port's "
@@ -3614,14 +3762,14 @@ def main() -> int:
             f"solo run")
         lane = start_lane_b(capture, wait_scene(procs, "demo"), wait_scene(procs, "flagship"))
         t = time.perf_counter()
-        log(f"[5b/11] options: the flagship configuration with the exact prepass, warp "
+        log_phase(f"[5b/11] options: the flagship configuration with the exact prepass, warp "
             f"patches [1 5] under SSIM and exposure, {OPTIONS_FRAMES} frames; then the demo "
             f"networks in nerf mode with per-image codes, {NERF_FRAMES} frames")
         options = run_options(dev, wait_scene(procs, "flagship"), wait_scene(procs, "demo"))
         options["phase_s"] = time.perf_counter() - t
         torch.cuda.empty_cache()
         t = time.perf_counter()
-        log(f"[5c/11] networks: TINY_CONF's SDF networks ({TINY_FRAMES} frames, "
+        log_phase(f"[5c/11] networks: TINY_CONF's SDF networks ({TINY_FRAMES} frames, "
             f"{TINY_H}x{TINY_W}, the exact prepass; then {TINY_CACHED_FRAMES} with the "
             f"density cache) and the flagship with concat_coarse_feature ({CONCAT_FRAMES} "
             f"frames, the exact prepass); Adam in the optax layout; pretrain "
@@ -3630,26 +3778,26 @@ def main() -> int:
         networks["phase_s"] = time.perf_counter() - t
         torch.cuda.empty_cache()
         t = time.perf_counter()
-        log(f"[5d/11] wide grids: the flagship configuration with a 16-level x 16-channel "
+        log_phase(f"[5d/11] wide grids: the flagship configuration with a 16-level x 16-channel "
             f"coarse grid, a 40-level fine grid and a 40-level colour grid, {WIDE_FRAMES} "
             f"frames")
         wide = run_wide(dev, wait_scene(procs, "flagship"))
         wide["phase_s"] = time.perf_counter() - t
         torch.cuda.empty_cache()
         t = time.perf_counter()
-        log(f"[5e/11] limits: the demo configuration at its full width "
+        log_phase(f"[5e/11] limits: the demo configuration at its full width "
             f"({PATHS['limits']['H']}x{PATHS['limits']['W']}) with N_samples_eval 1280, "
             f"N_samples 128, N_samples_extra 64 (past the kernels' old limits), "
             f"{LIMITS_FRAMES} frames")
         limits = run_limits(dev, wait_scene(procs, "demo"))
         limits["phase_s"] = time.perf_counter() - t
         torch.cuda.empty_cache()
-        log("[6/11] eval: the checkpoint battery on the flagship run (eval_cam, mesh "
+        log_phase("[6/11] eval: the checkpoint battery on the flagship run (eval_cam, mesh "
             f"{MESH_RESOLUTION}^3 vs the analytic scene, depth bias, interpolate view 2, "
             f"{PATHS['flagship']['eval_views']} extrapolated views)")
         ev = run_eval(dev, runs["flagship"], wait_scene(procs, "flagship"))
         torch.cuda.empty_cache()
-        log(f"[7/11] repeat: the demo configuration twice in this process, "
+        log_phase(f"[7/11] repeat: the demo configuration twice in this process, "
             f"{REPEAT_FRAMES} frames each (mapping at frames 0 and 5), same seed and scan")
         repeat_failures = []
         check_repeat(dev, wait_scene(procs, "demo"), repeat_failures)
@@ -3667,7 +3815,7 @@ def main() -> int:
                 proc.kill()
                 proc.wait()
 
-    log("[11/11] report (card: " + card + ")")
+    log_phase("[11/11] report (card: " + card + ")")
     failures = list(chk.failures) + repeat_failures
     for kind, r in runs.items():
         log(f" {kind}:")

@@ -37,9 +37,8 @@
 //     warp's 32 lanes are 32 points of one level (the features-only
 //     forward of K2/K3 takes 64 points, two per lane). The path's points are
 //     ray-major and sorted along each ray, so neighbouring lanes often fall
-//     in the same cell on the coarse levels: the backward finds the lanes
-//     that share a corner row (__match_any_sync), sums their gradients in
-//     shared memory and lets one lane issue the row's atomics;
+//     in one cell: the backward with a table gradient sums those lanes'
+//     contributions before its atomics (hash_bwd_merge_kernel, below);
 //   * the block's output tiles (feats [32, L*C], dfeat [32, L*C*3]) and
 //     cotangent tiles are staged in shared memory (rows padded by one
 //     float against bank conflicts) and move to device memory as contiguous
@@ -55,38 +54,51 @@
 // its last bits from run to run, and the SLAM loop amplified that into
 // other maps and poses (PERF.md §7) where the JAX package's scatter is
 // deterministic. Integer adds give the same sum in any order, so the
-// backward adds each contribution as a 64-bit integer, v 2^k_l rounded to
+// backward adds each of its sums as a 64-bit integer, v 2^k_l rounded to
 // nearest, into a [T, C] int64 accumulator that is zero on entry, and a
-// last pass over the table writes g_table = acc 2^-k_l and sets the
-// accumulator back to 0, so the caller keeps it from call to call and no
-// pass zeroes it up front (for the colour grid, 2.1 GB a launch). k_l is
-// per level, from a bound on the size of any
-// contribution there: |v| <= max|g_feat| + 1.5 dscale_l max_n sum_d
-// |g_dfeat[n, ., d]| (|w| <= 1, |dw/dx_d| <= 1.5 dscale_l), the maxima
-// taken by a first pass over the cotangents; with at most 8 N
-// contributions to a row, k_l = 61 - ceil(log2 8N) - e_l for a bound below
-// 2^e_l keeps every row's sum below 2^61. Each contribution is then off by
-// at most 2^-(k_l + 1), about 2^-40 of the level's bound at the flagship's
-// 802,816 points, and the sums are exact. A level whose cotangents are not
-// finite gets a NaN gradient in every row.
+// last pass writes g_table = acc 2^-k_l and sets the accumulator back to
+// 0, so the caller keeps it from call to call and no pass zeroes it up
+// front (for the colour grid, 2.1 GB a launch). k_l is per level, from a
+// bound on the size of any contribution there: |v| <= max|g_feat| + 1.5
+// dscale_l max_n sum_d |g_dfeat[n, ., d]| (|w| <= 1, |dw/dx_d| <= 1.5
+// dscale_l), the maxima taken by a first pass over the cotangents; with at
+// most 8 N contributions to a row, k_l = 61 - ceil(log2 8N) - e_l for a
+// bound below 2^e_l keeps every row's sum below 2^61. Each sum is then off
+// by at most 2^-(k_l + 1), about 2^-40 of the level's bound at the
+// flagship's 802,816 points, and the integer sums are exact. A level whose
+// cotangents are not finite gets a NaN gradient in every row (the JAX
+// package's scatter gives NaN at the rows it touches alone).
 //
-// Measured on an H100 80GB HBM3 at 700 W (PERF.md §6): the forward reaches
-// 42-58 % of its byte bound on the SDF grids' ray-ordered points; the
-// colour grid's random 8-byte rows cost a whole 32-byte sector each,
-// forward and backward. Copying the tiles row by row, each warp along its
-// rows (no division by the runtime width), and reading each point from L1
-// instead of staging it took 2-16 % off the K1 forward and 0-10 % off its
-// backward, in one call with the earlier tiles (tools/hash_kernel_ab.py).
-// The backward takes the same time on ray-ordered and uniform points of
-// the dense coarse grid: it is bound by the instructions and latency of its
-// per-corner chain, not by bytes. Variants measured against this one: grad_x in a loop of its own
-// (its row loads in flight together) raised the registers to 127-168 and
-// lost ~50 % on the SDF grids; no lane merging won 12 % on the coarse grid
-// and lost 40 % on the colour grid's top-16 points; a division-free level
-// modulo chosen inside the corner loop lost 23 % in the forward, while
-// chosen once per level before it (corner_rows, this version) it took
-// 4-12 % off the SDF backward and 5-8 % off K3 and added 2-5 % to the
-// colour backward.
+// The backward with a table gradient at C = 2, 4, 8 (hash_bwd_merge_kernel;
+// the other channel counts, and every launch without a table gradient,
+// keep the lane-merge kernel hash_bwd_kernel). An ablation of the
+// lane-merge design (tools/hash_bwd_ablate.py, PERF.md §6) showed three
+// costs: the colour grid's sweep over every row (1.43 of 2.06 ms at its
+// top-16 points: 3.19 GB for a few million touched rows); the 64-bit
+// atomics (0.78 of 1.92 ms on the fine grid's ray-ordered points, 2.5 of
+// 3.6 on uniform ones); and the lane merge's chain of a __match_any_sync,
+// an __any_sync, a shared-memory round trip and a serial sum at each of
+// the 8 corners: without the merge the ray-ordered cases ran 1.1-2.3x
+// slower, yet the merge itself held the coarse grid's scatter at ~1.05 ms
+// with its atomics at 0.04. So a warp (32 points of one level) writes its
+// 8 x C contributions to shared memory and sums the lanes that share a
+// cell into the first of them (the run's head), every lane on its own
+// (corner, channel) column; then the warp's lanes take (head, corner,
+// channel) triples, so a row's channels are adjacent lanes and its
+// atomics one request (2-4x fewer requests than a lane's own row of C
+// atomics). Every sum is in a fixed order and each product and sum is
+// rounded as written, so ops/hash_encoder.py's hash_table_grad_fixed_plain
+// reproduces the table gradient bit for bit. A merge of the vertices that
+// consecutive cells share (faces, edges, corners along a ray) was built
+// and measured: with atomics this cheap it cost more than it saved (PERF.md
+// §6). Where a launch's 8 N L corners are fewer than the table's rows (the
+// colour grid), the first atomic to each row (it finds the row 0) also
+// sets the row's bit in a bitmap kept beside the accumulator, and the last
+// pass
+// (touched_sweep_kernel) reads the accumulator at those rows alone and
+// writes every other row 0: g_table stays dense, for the optimizer, but
+// the 2.1 GB read goes. The SDF grids keep the sweep over every row (0.05
+// ms on the fine grid).
 //
 // K3 replaces hash_encode_packed (:858-905) with its pack_table_bf16_pairs
 // (:849-855): the no-grad encode of the SDF grids (density-cache build,
@@ -168,8 +180,10 @@ int nsl_hash_encode_fwd(const void* x, const void* table, const void* meta,
 
 // g_dfeat == NULL selects K2. g_table [T, C] (written) and g_x ([N, 3],
 // written) may each be NULL (not needed); with g_table, scratch is
-// [T C + 32] int64 whose first T C words are zero on entry, and are zero
-// again on a successful return (the caller keeps it for the next call).
+// [T C + 32 + ceil(T / 64)] int64 whose first T C words (the accumulator)
+// and last ceil(T / 64) (the touched-row bitmap) are zero on entry, and
+// are zero again on a successful return (the caller keeps it for the next
+// call).
 int nsl_hash_encode_bwd(const void* x, const void* table, const void* meta,
                         const void* scl, const void* g_feat,
                         const void* g_dfeat, void* g_table, void* g_x, void* scratch,
@@ -227,8 +241,8 @@ int nsl_hash_encode_bf16_fwd(const void* x, const void* table,
 // its forward is K3 on the rows the ranks all-gathered in bf16, and this
 // backward reads the same rows for grad_x), any even C as K3, any L >= 1.
 // g_table [T, C] fp32 and g_x [N, 3] as nsl_hash_encode_bwd, either may be
-// NULL; with g_table, scratch is the same [T C + 32] int64 accumulator,
-// zero on entry and on a successful return. The table gradient does not
+// NULL; with g_table, scratch is the same [T C + 32 + ceil(T / 64)] int64
+// accumulator and bitmap, zero on entry and on a successful return. The table gradient does not
 // depend on the table, so it is K2's bit for bit.
 int nsl_hash_encode_bf16_bwd(const void* x, const void* table, const void* meta,
                              const void* scl, const void* g_feat, void* g_table, void* g_x,

@@ -115,7 +115,8 @@ __device__ __forceinline__ void load_vec(const float* __restrict__ p, float v[C]
   }
 }
 
-// C floats at p (shared-memory scratch, aligned to the row's word)
+// C floats at p (shared memory or a [., C] row in device memory, aligned
+// to the row's word)
 template <int C>
 __device__ __forceinline__ void store_vec(float* p, const float v[C]) {
   if constexpr (C % 4 == 0) {
@@ -139,10 +140,14 @@ __device__ __forceinline__ void store_vec(float* p, const float v[C]) {
 constexpr int kNotFinite = -1000000;
 
 // k_l from the level's maxima (float bits: maxes[l] = max|g_feat|,
-// maxes[L + l] = max sum_d |g_dfeat[., d]|) and count_bits = ceil(log2 8N)
+// maxes[L + l] = max sum_d |g_dfeat[., d]|) and count_bits = ceil(log2 8N);
+// each step rounded as written (no contraction), as the plain version
+// (ops/hash_encoder.py, hash_table_grad_fixed_plain) computes it
 __device__ __forceinline__ int fixed_exp(const unsigned* __restrict__ maxes, int l, int L,
                                          float dscale, int count_bits) {
-  float bound = __uint_as_float(maxes[l]) + 1.5f * fabsf(dscale) * __uint_as_float(maxes[L + l]);
+  const float bound = __fadd_rn(__uint_as_float(maxes[l]),
+                                __fmul_rn(__fmul_rn(1.5f, fabsf(dscale)),
+                                          __uint_as_float(maxes[L + l])));
   if (!isfinite(bound)) return kNotFinite;
   if (bound == 0.0f) return 0;
   int e;
@@ -192,14 +197,13 @@ __global__ void level_max_kernel(const float* __restrict__ g_feat,
   }
 }
 
-// The last pass of a backward with a table gradient: g_table = acc 2^-k_v
-// for every row of the level of virtual level v = v0 + blockIdx.y, in its
-// segment's CS columns (NaN for a non-finite virtual level), and acc set
-// back to 0 where it was not, so the accumulator is zero for the next
-// call. A pass over the points that converted and re-zeroed only the
-// touched rows was slower at every shape the paths give (PERF.md §6): the
-// colour grid's touched rows lie at random, a 32-byte sector each, and
-// the SDF grids' tables are small.
+// The last pass of a backward with a table gradient over every row: g_table
+// = acc 2^-k_v for every row of the level of virtual level v = v0 +
+// blockIdx.y, in its segment's CS columns (NaN for a non-finite virtual
+// level), and acc set back to 0 where it was not, so the accumulator is
+// zero for the next call. The SDF grids' tables are small (0.05 ms for the
+// fine grid's 2.3 M rows); the colour grid's 133 M rows take
+// touched_sweep_kernel instead.
 __global__ void fixed_sweep_kernel(long long* __restrict__ acc, float* __restrict__ g_table,
                                    const int* __restrict__ meta,
                                    const float* __restrict__ scl,
@@ -221,6 +225,72 @@ __global__ void fixed_sweep_kernel(long long* __restrict__ acc, float* __restric
     g_table[at] = k == kNotFinite ? __int_as_float(0x7fc00000)
                                   : ldexpf(__ll2float_rn(a), -k);
     if (a != 0) acc[at] = 0;
+  }
+}
+
+// The last pass where the scatter marked the rows it touched (bit r of
+// the bitmap `touched`: hash_bwd_merge_kernel, C = 2, 4, 8, one segment a
+// level), over the level of virtual level v0 + blockIdx.y: a warp loads
+// 32 words of the bitmap at once, a lane each, then walks their 32 rows
+// in turn, lane i on row 32 w + i. A touched row gets acc
+// 2^-k_l and its acc words set back to 0; every other row of the level is
+// written 0 (NaN in every row of a non-finite level), so g_table is whole
+// for the optimizer; then the word's bits of this level are cleared (a
+// word at a level's edge is shared with the next level: atomicAnd). The
+// colour grid's 1.06 GB of g_table is written once and its 2.1 GB
+// accumulator is read only where touched.
+template <int C>
+__global__ void touched_sweep_kernel(long long* __restrict__ acc, float* __restrict__ g_table,
+                                     unsigned* __restrict__ touched,
+                                     const int* __restrict__ meta, const float* __restrict__ scl,
+                                     const unsigned* __restrict__ maxes, Slice sl,
+                                     int count_bits) {
+  const int w = blockIdx.y, l = sl.v0 + w;
+  const int k = fixed_exp(maxes, w, sl.nv, scl[2 * l + 1], count_bits);
+  const int64_t row0 = meta[4 * l], row1 = row0 + meta[4 * l + 1];
+  const int64_t wd1 = (row1 + 31) >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = (int64_t)gridDim.x * (blockDim.x >> 5);
+  for (int64_t base = (row0 >> 5) +
+                      32 * ((int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5));
+       base < wd1; base += 32 * warps) {
+    // lane i: word base + i, whose bits of this level it clears (a word at
+    // a level's edge is shared with the next level: atomicAnd)
+    const int64_t my = base + lane;
+    const unsigned bits = my < wd1 ? touched[my] : 0u;
+    if (bits != 0) {
+      const int lo = (int)(row0 > my * 32 ? row0 - my * 32 : 0);
+      const int hi = (int)(row1 < my * 32 + 32 ? row1 - my * 32 : 32);
+      const unsigned mask = hi - lo == 32 ? ~0u : ((1u << (hi - lo)) - 1u) << lo;
+      if (mask == ~0u)
+        touched[my] = 0u;
+      else if (bits & mask)
+        atomicAnd(touched + my, ~mask);
+    }
+    const int nw = (int)(wd1 - base < 32 ? wd1 - base : 32);
+    for (int t = 0; t < nw; ++t) {
+      const unsigned b = __shfl_sync(0xffffffffu, bits, t);
+      const int64_t r = (base + t) * 32 + lane;
+      if (r < row0 || r >= row1) continue;
+      float v[C];
+      if (k == kNotFinite) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) v[c] = __int_as_float(0x7fc00000);
+      } else if ((b >> lane) & 1u) {
+        longlong2* a = reinterpret_cast<longlong2*>(acc + r * C);
+#pragma unroll
+        for (int q = 0; q < C / 2; ++q) {
+          const longlong2 s = a[q];
+          v[2 * q] = ldexpf(__ll2float_rn(s.x), -k);
+          v[2 * q + 1] = ldexpf(__ll2float_rn(s.y), -k);
+          a[q] = make_longlong2(0, 0);
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < C; ++c) v[c] = 0.0f;
+      }
+      store_vec<C>(g_table + r * C, v);
+    }
   }
 }
 
@@ -499,6 +569,209 @@ __global__ void hash_bwd_kernel(const float* __restrict__ x,
   }
 }
 
+// ---- the backward with a table gradient at C = 2, 4, 8 (the shipped grids) ----
+
+// a merge warp's row of contributions, 8 corners x C floats, padded so
+// that the 32 lanes' vector stores of one corner fall in distinct banks
+template <int C>
+__host__ __device__ constexpr int merge_row() { return 8 * C + (C == 2 ? 2 : 4); }
+
+// warps a block of the merge kernel may hold: its shared memory is about
+// 32 merge_row<C>() floats a warp
+template <int C>
+__host__ __device__ constexpr int merge_warps() { return C == 8 ? 16 : 32; }
+
+// Shared memory of a merge block, in floats: s_x | s_gx [L][32, 3] |
+// heads [L][32] | the heads' corner rows [L][32, 8] | the cotangent
+// tiles, and after they are read, the contributions [L][32, merge_row]
+template <int C, bool JAC>
+__host__ __device__ constexpr int merge_smem(int L) {
+  return smem_x() + L * kPts * 12 +
+         (smem_feat(L * C) + (JAC ? smem_dfeat(L * C) : 0) > L * kPts * merge_row<C>()
+              ? smem_feat(L * C) + (JAC ? smem_dfeat(L * C) : 0)
+              : L * kPts * merge_row<C>());
+}
+
+// v 2^k to the nearest 64-bit integer: a product by 2^k where that is a
+// normal float (exact, as ldexpf is), else ldexpf
+__device__ __forceinline__ long long to_fixed(float v, int k, float pow2k) {
+  return __float2ll_rn(pow2k != 0.0f ? __fmul_rn(v, pow2k) : ldexpf(v, k));
+}
+
+// The backward with a table gradient (C = 2, 4, 8, one segment a level):
+// grad_x as hash_bwd_kernel, and each warp's contributions merged by cell
+// before the 64-bit atomics. A block is 32 points x the slice's L levels,
+// a warp a level (lane = point), as the forward.
+//   1. Each lane writes its point's 8 corners x C contributions (g_feat w +
+//      sum_d g_dfeat_d dw_d, each product and sum rounded as written) to
+//      the warp's rows in shared memory, which reuse the cotangent tiles'
+//      space once every warp has read its cotangents.
+//   2. Runs: lanes in one cell as the lane before (ray-ordered points on a
+//      coarse level) are summed in lane order into the run's first lane,
+//      the head, each lane of the warp on its own (corner, channel) column.
+//   3. Lane t of the warp takes (head, corner, channel) t of a pass, so a
+//      row's C channels are adjacent lanes, one sector's atomics in one
+//      request; each sum becomes one fixed-point atomic.
+// With `touched`, a row's channel-0 lane whose atomic finds the row 0 (the
+// first add to it does) also sets the row's bit for touched_sweep_kernel;
+// an atomicOr from every row instead ran 5-30 % slower on the colour grid
+// (PERF.md §6). Every sum is in a fixed order and each rounds
+// once, so the table gradient repeats bit for bit;
+// hash_table_grad_fixed_plain in ops/hash_encoder.py is the same
+// arithmetic in torch. A non-finite level adds nothing.
+template <int C, bool JAC, typename Rows>
+__global__ void hash_bwd_merge_kernel(const float* __restrict__ x,
+                                      const typename Rows::Elem* __restrict__ table,
+                                      const int* __restrict__ meta,
+                                      const float* __restrict__ scl,
+                                      const float* __restrict__ g_feat,
+                                      const float* __restrict__ g_dfeat,
+                                      long long* __restrict__ acc,
+                                      unsigned* __restrict__ touched,
+                                      const unsigned* __restrict__ maxes,
+                                      float* __restrict__ g_x, int64_t N, Slice sl,
+                                      float size, int count_bits) {
+  constexpr int S = 8 * C, SP = merge_row<C>();
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int L = sl.nv, LC = L * C;
+  float* s_x = smem;
+  float* s_gx = s_x + smem_x();
+  int* s_head = reinterpret_cast<int*>(s_gx + L * kPts * 3);
+  uint32_t* s_row = reinterpret_cast<uint32_t*>(s_head + L * kPts);
+  float* s_f = reinterpret_cast<float*>(s_row + L * kPts * 8);
+  float* s_d = s_f + smem_feat(LC);
+  const int lane = threadIdx.x & 31, vw = threadIdx.x >> 5, l = sl.v0 + vw;
+  const int64_t n0 = (int64_t)blockIdx.x * kPts;
+  const int np = (int)(N - n0 < kPts ? N - n0 : kPts);
+  const int64_t col0 = n0 * sl.ldo + (int64_t)sl.v0 * C;
+  tile_in(s_f, g_feat + col0, np, LC, sl.ldo);
+  if (JAC) tile_in(s_d, g_dfeat + col0 * 3, np, 3 * LC, 3 * sl.ldo);
+  float xp[3];
+  block_points(s_x, x, n0, np, lane, xp);   // synchronises the block
+
+  LevelGeom g;
+  const bool oob = level_geom(xp, size, scl[2 * l], scl[2 * l + 1], g);
+  const bool active = lane < np && !oob;
+  float gf[C], gd[C][3];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    gf[c] = active ? s_f[lane * (LC + 1) + vw * C + c] : 0.0f;
+#pragma unroll
+    for (int d = 0; d < 3; ++d)
+      gd[c][d] = (JAC && active) ? s_d[lane * (3 * LC + 1) + (vw * C + c) * 3 + d] : 0.0f;
+  }
+  const uint32_t offset = (uint32_t)meta[4 * l], lsize = (uint32_t)meta[4 * l + 1];
+  const uint32_t res = (uint32_t)meta[4 * l + 2];
+  const bool dense = meta[4 * l + 3] != 0;
+  const int k_fix = fixed_exp(maxes, vw, L, scl[2 * l + 1], count_bits);
+  const bool merge = k_fix != kNotFinite;   // else the level adds nothing (its rows become NaN)
+  const float pow2k = k_fix >= -126 && k_fix <= 127 ? __int_as_float((k_fix + 127) << 23) : 0.0f;
+  __syncthreads();   // every warp holds its cotangents: the tiles' space is free
+  float* s_v = s_f + vw * kPts * SP;   // this warp's contribution rows
+  uint32_t rows[8];
+  corner_rows(g, res, lsize, offset, dense, rows);
+  float gx[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    float w, dw[3];
+    corner_weights(g, k, w, dw);
+    if (merge) {
+      float t[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        t[c] = __fmul_rn(gf[c], w);
+        if (JAC) {
+          t[c] = __fadd_rn(t[c], __fmul_rn(gd[c][0], dw[0]));
+          t[c] = __fadd_rn(t[c], __fmul_rn(gd[c][1], dw[1]));
+          t[c] = __fadd_rn(t[c], __fmul_rn(gd[c][2], dw[2]));
+        }
+      }
+      store_vec<C>(s_v + lane * SP + k * C, t);
+    }
+    if (g_x != nullptr && active) {
+      float v[C];
+      Rows::template load<C>(table + (size_t)rows[k] * C, v);
+      float a = 0.0f, b[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        a += v[c] * gf[c];
+        if (JAC) {
+          b[0] += v[c] * gd[c][0];
+          b[1] += v[c] * gd[c][1];
+          b[2] += v[c] * gd[c][2];
+        }
+      }
+      float h[3][3];
+      if (JAC) corner_hessian(g, k, h);
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        gx[e] += a * dw[e];
+        if (JAC) gx[e] += b[0] * h[0][e] + b[1] * h[1][e] + b[2] * h[2][e];
+      }
+    }
+  }
+  if (merge) {
+    uint32_t* hrow = s_row + vw * kPts * 8;
+    const unsigned A = __ballot_sync(0xffffffffu, active);
+    const uint32_t p0 = __shfl_up_sync(0xffffffffu, g.left[0], 1);
+    const uint32_t p1 = __shfl_up_sync(0xffffffffu, g.left[1], 1);
+    const uint32_t p2 = __shfl_up_sync(0xffffffffu, g.left[2], 1);
+    const bool same = lane > 0 && ((A >> (lane - 1)) & 1u) && p0 == g.left[0] &&
+                      p1 == g.left[1] && p2 == g.left[2];
+    const unsigned H = __ballot_sync(0xffffffffu, active && !same);
+    const unsigned runs = H & (__ballot_sync(0xffffffffu, same) >> 1);   // heads of 2+ lanes
+    const int nh = __popc(H);
+    int* heads = s_head + vw * kPts;
+    if (active && !same) {
+      // the head's slot in order: its lane and its 8 corner rows
+      const int i = __popc(H & ((1u << lane) - 1u));
+      heads[i] = lane;
+      uint4* r = reinterpret_cast<uint4*>(hrow + i * 8);
+      r[0] = make_uint4(rows[0], rows[1], rows[2], rows[3]);
+      r[1] = make_uint4(rows[4], rows[5], rows[6], rows[7]);
+    }
+    __syncwarp();
+    // 2. each run of more than one lane into its head, in lane order
+    for (unsigned m = runs; m != 0; m &= m - 1) {
+      const int j = __ffs(m) - 1;
+      const unsigned stop = (H | ~A) & (j == 31 ? 0u : ~0u << (j + 1));
+      const int e = stop != 0 ? __ffs(stop) - 1 : 32;
+      for (int o = lane; o < S; o += 32) {
+        float s = s_v[j * SP + o];
+        for (int p = j + 1; p < e; ++p) s = __fadd_rn(s, s_v[p * SP + o]);
+        s_v[j * SP + o] = s;
+      }
+    }
+    __syncwarp();
+    // 3. each (head, corner, channel) sum: one fixed-point atomic, a
+    // row's C channels on adjacent lanes
+    for (int o = lane; o < nh * S; o += 32) {
+      const int i = o / S, slot = o - i * S, k = slot / C, c = slot - k * C;
+      const uint32_t row = hrow[i * 8 + k];
+      const unsigned long long q =
+          (unsigned long long)to_fixed(s_v[heads[i] * SP + slot], k_fix, pow2k);
+      unsigned long long* p = reinterpret_cast<unsigned long long*>(acc) + (size_t)row * C + c;
+      if (touched != nullptr) {
+        // the first add to a row finds it 0 (so may a later one: no harm)
+        if (atomicAdd(p, q) == 0ull && c == 0) atomicOr(touched + (row >> 5), 1u << (row & 31));
+      } else {
+        atomicAdd(p, q);
+      }
+    }
+  }
+  if (g_x != nullptr) {
+#pragma unroll
+    for (int e = 0; e < 3; ++e) s_gx[vw * kPts * 3 + lane * 3 + e] = gx[e];
+    __syncthreads();
+    for (int i = threadIdx.x; i < np * 3; i += blockDim.x) {
+      float s = 0.0f;
+      for (int q = 0; q < L; ++q) s += s_gx[q * kPts * 3 + i];
+      g_x[n0 * 3 + i] = sl.v0 > 0 ? g_x[n0 * 3 + i] + s : s;
+    }
+  }
+}
+
 // launch K1/K2/K3 kernel `kern` with one block of nv warps per `pts` points
 // and `floats` of dynamic shared memory (opting in above the default 48 KB)
 template <typename Kernel, typename... Args>
@@ -576,12 +849,29 @@ int launch_bf16_fwd(const float* x, const uint16_t* table, const int* meta,
                                                    L, C, size, s);
 }
 
-// with a table gradient, per slice: zero the maxima, take them, scatter
-// in fixed point, convert and re-zero the slice's rows and columns; acc
-// is [T C + 32] int64 (the last 32 words hold a slice's 2 nv <= 64
-// maxima), its first T C words zero on entry and on exit. Rows: the
-// table's rows, fp32 (K1/K2) or bf16 (the sharded colour encode, without
-// the Jacobian)
+// the slice's maxima (zeroed first) for the fixed-point exponents
+inline int launch_level_max(const float* g_feat, const float* g_dfeat, int64_t N,
+                            const Slice& sl, int CS, unsigned* maxes, cudaStream_t s) {
+  cudaError_t e = cudaMemsetAsync(maxes, 0, (size_t)sl.nv * sizeof(long long), s);
+  if (e != cudaSuccess) return (int)e;
+  const int LC = sl.nv * CS, rows = LC >= 256 ? 1 : 256 / LC;
+  const int64_t want = (N + rows - 1) / rows;
+  level_max_kernel<<<(unsigned)(want < 1056 ? want : 1056), rows * LC, 0, s>>>(
+      g_feat, g_dfeat, N, sl, CS, maxes);
+  return (int)cudaGetLastError();
+}
+
+// With a table gradient, per slice: zero the maxima, take them, scatter in
+// fixed point, convert and re-zero the slice's rows and columns. acc is
+// [T C + 32 + ceil(T / 64)] int64: the accumulator, the last slice's
+// 2 nv <= 64 maxima, the touched-row bitmap; the first T C words and the
+// bitmap are zero on entry and on exit. C = 2, 4, 8 (not SEG) take the
+// merge kernel, and where a launch's 8 N L corners are fewer than the T
+// rows (the colour grid) it marks the rows it touches and the last pass
+// sweeps those alone; the other channel counts take the lane-merge kernel
+// and the sweep over every row, as do the launches without a table
+// gradient (tracking). Rows: the table's rows, fp32 (K1/K2) or bf16 (the
+// sharded colour encode, without the Jacobian)
 template <int CS, bool JAC, typename Rows, bool SEG>
 int launch_bwd_rows(const float* x, const typename Rows::Elem* table, const int* meta,
                     const float* scl, const float* g_feat, const float* g_dfeat,
@@ -595,19 +885,37 @@ int launch_bwd_rows(const float* x, const typename Rows::Elem* table, const int*
   } else {
     acc = nullptr;
   }
+  if constexpr (!SEG) {
+    if (g_table != nullptr) {
+      unsigned* touched =
+          8 * N * L < T ? reinterpret_cast<unsigned*>(acc + T * C + 32) : nullptr;
+      auto mkern = hash_bwd_merge_kernel<CS, JAC, Rows>;
+      static const int mw = max_warps(mkern) < merge_warps<CS>() ? max_warps(mkern)
+                                                                  : merge_warps<CS>();
+      return for_slices(L, C, CS, mw, [&](const Slice& sl) {
+        int rc = launch_level_max(g_feat, g_dfeat, N, sl, CS, maxes, s);
+        if (rc != 0) return rc;
+        rc = launch_blocks(mkern, N, sl.nv, kPts, merge_smem<CS, JAC>(sl.nv), s, x, table,
+                           meta, scl, g_feat, g_dfeat, acc, touched, (const unsigned*)maxes,
+                           g_x, N, sl, size, count_bits);
+        if (rc != 0) return rc;
+        if (touched != nullptr)
+          touched_sweep_kernel<CS><<<dim3(264, sl.nv), 256, 0, s>>>(
+              acc, g_table, touched, meta, scl, maxes, sl, count_bits);
+        else
+          fixed_sweep_kernel<<<dim3(264, sl.nv), 256, 0, s>>>(acc, g_table, meta, scl, maxes,
+                                                               sl, CS, count_bits);
+        return (int)cudaGetLastError();
+      });
+    }
+  }
   auto kern = hash_bwd_kernel<CS, JAC, Rows, SEG>;
   static const int maxw = max_warps(kern);
   return for_slices(L, C, CS, maxw, [&](const Slice& sl) {
     const int LC = sl.nv * CS;
     if (g_table != nullptr) {
-      cudaError_t e = cudaMemsetAsync(maxes, 0, (size_t)sl.nv * sizeof(long long), s);
-      if (e != cudaSuccess) return (int)e;
-      const int rows = LC >= 256 ? 1 : 256 / LC;
-      const int64_t want = (N + rows - 1) / rows;
-      level_max_kernel<<<(unsigned)(want < 1056 ? want : 1056), rows * LC, 0, s>>>(
-          g_feat, g_dfeat, N, sl, CS, maxes);
-      e = cudaGetLastError();
-      if (e != cudaSuccess) return (int)e;
+      const int rc = launch_level_max(g_feat, g_dfeat, N, sl, CS, maxes, s);
+      if (rc != 0) return rc;
     }
     const int floats = smem_x() + sl.nv * kPts * (CS + 3) + smem_feat(LC) +
                        (JAC ? smem_dfeat(LC) : 0);

@@ -42,10 +42,12 @@ is 32 consecutive points × L levels, one warp per level (a level of more
 than 8 channels takes a warp per segment of them, and a grid of more than
 32 such warps runs as several launches); its output and
 cotangent tiles pass through shared memory to move as coalesced runs,
-lanes that share a corner row merge their gradients before one row of atomics,
-and the table scatter is skipped when the table needs no gradient
-(tracking). K3 is the same forward kernel with a bf16 row loader; the
-note at the top of csrc/hash_encoder.cu has more.
+the backward sums the lanes that share a cell before its atomics (a row's
+channels on adjacent lanes, one request), the colour grid's last pass
+converts only the rows its scatter marked in a bitmap, and the table
+scatter is skipped when the table needs no gradient (tracking). K3 is the
+same forward kernel with a bf16 row loader; the note at the top of
+csrc/hash_encoder.cu has more.
 
 Semantics (reference hashencoder.cu): level l has ``scale =
 2^(l·log2 pls)·H − 1`` and resolution ``ceil(scale) + 1``; table sizes use
@@ -246,24 +248,139 @@ def hash_encode_fwd_launch(spec: HashGridSpec, table: torch.Tensor, x: torch.Ten
                  N, L, C, float(size))
 
 
-# (device, words) -> the backward's fixed-point accumulator, zero between calls
+# (device, words) -> the backward's fixed-point accumulator and bitmap,
+# zero between calls
 _SCRATCH: Dict[Tuple[str, int], torch.Tensor] = {}
 
 
 def fixed_point_scratch(spec: HashGridSpec, device) -> torch.Tensor:
-    """The K1/K2 backward's fixed-point accumulator of a grid's size:
-    ``[T·C + 32]`` int64, kept per (device, size) and zeroed once, when it
-    is allocated. Each backward launch with a table gradient leaves its
-    first T·C words zero (its last pass converts each row's sum and sets
-    the row back to 0); the last 32 words hold the cotangent maxima of a
-    slice of at most 32 (level, segment) pairs and are zeroed at the start
-    of the next. The launches that share it run one after another, on one
-    stream, as the paths run."""
-    key = (str(torch.device(device)), spec.total_entries * spec.level_dim + 32)
+    """The K1/K2 backward's fixed-point state for a grid's size: ``[T·C +
+    32 + ceil(T / 64)]`` int64, kept per (device, size) and zeroed once,
+    when it is allocated. The first T·C words are the accumulator and the
+    last ceil(T / 64) a bitmap of the rows a launch touched (the colour
+    grid's scatter marks them, and its last pass converts those rows
+    alone); each backward launch with a table gradient leaves both zero.
+    The 32 words between hold the cotangent maxima of a slice of at most
+    32 (level, segment) pairs and are zeroed at the start of the next. The
+    launches that share it run one after another, on one stream, as the
+    paths run."""
+    T, C = spec.total_entries, spec.level_dim
+    key = (str(torch.device(device)), T * C + 32 + (T + 63) // 64)
     buf = _SCRATCH.get(key)
     if buf is None:
         buf = _SCRATCH[key] = torch.zeros(key[1], dtype=torch.int64, device=device)
     return buf
+
+
+def fixed_point_state_is_zero(spec: HashGridSpec, scratch: torch.Tensor) -> bool:
+    """Whether the accumulator and the touched-row bitmap of a
+    ``fixed_point_scratch`` are all zero, as every launch must leave them."""
+    n = spec.total_entries * spec.level_dim
+    return not (bool(scratch[:n].any()) or bool(scratch[n + 32:].any()))
+
+
+def _fixed_exp(gf: torch.Tensor, gd: torch.Tensor | None, dscale: float, count_bits: int):
+    """A level's fixed-point exponent k as the kernel takes it (csrc/
+    hash_kernels.cuh fixed_exp) from its cotangents gf [N, C] and gd
+    [N, C, 3] (or None): the bound max|gf| + 1.5 |dscale| max sum_d |gd_d|
+    in float32, each step rounded; None for a non-finite bound."""
+    f32 = np.float32
+    mf = f32(gf.abs().max().item()) if gf.numel() else f32(0.0)
+    md = f32(0.0)
+    if gd is not None and gd.numel():
+        a = gd.abs()
+        md = f32(((a[..., 0] + a[..., 1]) + a[..., 2]).max().item())
+    with np.errstate(over="ignore", invalid="ignore"):
+        bound = mf + (f32(1.5) * f32(abs(dscale))) * md
+    if not np.isfinite(bound):
+        return None
+    if bound == 0:
+        return 0
+    return 61 - count_bits - math.frexp(float(bound))[1]
+
+
+def hash_table_grad_fixed_plain(spec: HashGridSpec, x: torch.Tensor, g_feat: torch.Tensor,
+                                g_dfeat: torch.Tensor | None = None,
+                                size: float = 1.0) -> torch.Tensor:
+    """Plain version of the table gradient of the K1/K2 backward at C = 2,
+    4, 8 (``hash_bwd_merge_kernel`` in csrc/hash_kernels.cuh), bit for bit:
+    g_table [T, C] float32 of the cotangents ``g_feat`` [N, L·C] and
+    ``g_dfeat`` [N, L·C, 3] (K1) or None (K2) at points ``x`` [N, 3].
+
+    The same arithmetic in the same order: blocks of 32 points; each
+    corner's contribution g_feat w + g_dfeat_0 dw_0 + g_dfeat_1 dw_1 +
+    g_dfeat_2 dw_2, each product and sum rounded to float32; the lanes of
+    a run (in range and in one cell as the lane before) summed in lane
+    order into its head; each head's corner sums rounded once to the
+    level's fixed point (2^-k, k from the cotangents' bound) and added as
+    int64 (``index_add_``: integer sums in any order); then acc 2^-k as
+    float32, NaN in every row of a level whose cotangents are not finite.
+    Any C (only 2, 4, 8 take that kernel); within float32 rounding of
+    autograd of ``hash_encode_plain``."""
+    N, L, C, T = x.shape[0], spec.num_levels, spec.level_dim, spec.total_entries
+    dev, f32 = x.device, torch.float32
+    scl = _level_tables(spec, float(size), str(dev))[1].cpu()
+    count_bits = 0
+    while (1 << count_bits) < 8 * N:
+        count_bits += 1
+    gf = g_feat.reshape(N, L, C)
+    gd = g_dfeat.reshape(N, L, C, 3) if g_dfeat is not None else None
+    size32 = float(np.float32(size))
+    u = (x + size32) / float(np.float32(2.0) * np.float32(size))
+    inr = ((u >= 0.0) & (u <= 1.0)).all(-1)
+    bits = torch.tensor(_CORNER_BITS, dtype=torch.int64, device=dev)      # [8, 3]
+    B = (N + 31) // 32
+    pad = B * 32 - N
+    act = torch.cat([inr, torch.zeros(pad, dtype=torch.bool, device=dev)]).view(B, 32)
+    acc = torch.zeros(T * C, dtype=torch.int64, device=dev)
+    ks = []
+    for lvl in range(L):
+        s32, ds32 = float(scl[lvl, 0]), float(scl[lvl, 1])
+        k = _fixed_exp(gf[:, lvl], gd[:, lvl] if gd is not None else None, ds32, count_bits)
+        ks.append(k)
+        if k is None:
+            continue
+        pos = u * s32
+        left = torch.floor(pos)
+        f = pos - left
+        wb = f * f * (3.0 - 2.0 * f)
+        wa = 1.0 - wb
+        dwb = 6.0 * f * (1.0 - f) * ds32
+        sels = [torch.where(bits[:, None, d] == 1, wb[None, :, d], wa[None, :, d])
+                for d in range(3)]                                         # [8, N]
+        dsels = [torch.where(bits[:, None, d] == 1, dwb[None, :, d], -dwb[None, :, d])
+                 for d in range(3)]
+        w = sels[0] * sels[1] * sels[2]
+        t = gf[None, :, lvl] * w[..., None]                                # [8, N, C]
+        if gd is not None:
+            dws = (dsels[0] * sels[1] * sels[2], dsels[1] * sels[0] * sels[2],
+                   dsels[2] * sels[0] * sels[1])
+            for d in range(3):
+                t = t + gd[None, :, lvl, :, d] * dws[d][..., None]
+        t = torch.cat([t.permute(1, 0, 2), t.new_zeros(pad, 8, C)]).view(B, 32, 8, C)
+        lf = torch.cat([left.to(torch.int64),
+                        torch.zeros((pad, 3), dtype=torch.int64, device=dev)]).view(B, 32, 3)
+        # runs: lanes in one cell as the lane before, summed in lane order
+        cont = torch.zeros_like(act)
+        cont[:, 1:] = act[:, 1:] & act[:, :-1] & (lf[:, 1:] == lf[:, :-1]).all(-1)
+        head = act & ~cont
+        run = t.clone()
+        for p in range(1, 32):
+            run[:, p] = torch.where(cont[:, p, None, None], run[:, p - 1] + t[:, p], t[:, p])
+        last = act & ~torch.cat([cont[:, 1:], torch.zeros_like(cont[:, :1])], 1)
+        # each head's corner sums: one fixed-point add a row and channel
+        bi, li = torch.nonzero(last, as_tuple=True)
+        hb, hl = torch.nonzero(head, as_tuple=True)       # the same runs, in order
+        q = torch.round(run[bi, li].double() * 2.0 ** k).to(torch.int64)     # [n, 8, C]
+        rows = _level_rows(spec, lvl, lf[hb, hl][:, None, :] + bits[None])    # [n, 8]
+        acc.index_add_(0, (rows[..., None] * C + torch.arange(C, device=dev)).reshape(-1),
+                       q.reshape(-1))
+    g = acc.view(T, C).to(f32)
+    for lvl, k in enumerate(ks):
+        r0, r1 = spec.offsets[lvl], spec.offsets[lvl + 1]
+        g[r0:r1] = (float("nan") if k is None
+                    else (g[r0:r1].double() * 2.0 ** -k).to(f32))
+    return g
 
 
 def hash_encode_bwd_launch(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor,

@@ -103,6 +103,40 @@ print("ok")
 """
 
 
+def _device_defaults():
+    """(module, default) of every ``add_argument("--device", ...)`` in the
+    port: the command-line entry points that take a device."""
+    out = []
+    for path in sorted(glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True)):
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                    and node.func.attr == "add_argument" and node.args
+                    and isinstance(node.args[0], ast.Constant)
+                    and node.args[0].value == "--device"):
+                kw = {k.arg: k.value for k in node.keywords}
+                out.append((os.path.relpath(path, REPO),
+                            kw["default"].value if isinstance(kw.get("default"), ast.Constant)
+                            else None))
+    return out
+
+
+def test_entry_points_run_on_the_card_unless_asked_for_the_cpu():
+    """Every command-line entry point of the port that takes a device
+    defaults to the card (the CPU only when the caller asks), and so does
+    the SLAM runner that they build; the CLIs without the option do no
+    device work (numpy and matplotlib: eval_cam, eval_rec, the visualizer,
+    the GT-trajectory export and the eval-scan converter)."""
+    import inspect
+
+    from nicer_slam_tpu_torch.slam.runner import SLAMRunner
+    found = _device_defaults()
+    assert len(found) >= 14, found
+    assert all(d == "cuda" for _, d in found), [f for f in found if f[1] != "cuda"]
+    assert inspect.signature(SLAMRunner.__init__).parameters["device"].default == "cuda"
+
+
 def test_port_runs_without_the_jax_package():
     """Every module imported, a scan generated and read, a mesh written and
     read back, all in one process in which neither jax nor nicer_slam_tpu

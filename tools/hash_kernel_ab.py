@@ -9,15 +9,18 @@ The earlier checkout's csrc/hash_encoder.cu, csrc/sampler.cu,
 csrc/composite.cu and csrc/voxels.cu are built with nvcc into build/parent/
 beside this checkout's library (build/kernels/); every entry point must
 have this checkout's C interface (the hash backward writing its table
-gradient through a [T C + max(L, 32)] int64 scratch, the weights pass writing its
+gradient through an int64 scratch of at least T C + max(L, 32) words, the weights pass writing its
 top-k values and picks, K5's given mode taking near, far and per-chunk
 extras). Both
 libraries run on the same operands, at chip_smoke.py's shapes:
 
+  * K1/K2 at the tracking shape (chip_smoke.TRACK_GRIDS): the forward and
+    the grad_x-only backward; K2's backward on bf16 rows at
+    chip_smoke.BF16_BWD_CASES;
   * K1/K2 forward and backward: chip_smoke.HASH_CASES, ray-ordered and
-    uniform points. This checkout's backward gets the accumulator that its
-    wrapper keeps (zero on entry, and checked zero after every launch),
-    the earlier one a scratch of its own;
+    uniform points. This checkout's backward gets the accumulator and
+    bitmap that its wrapper keeps (zero on entry, and checked zero after
+    every launch), the earlier one a scratch of its own;
   * K3 on both SDF grids: chip_smoke.BF16_ORDERS (a density-cache build
     chunk, a render chunk's ray-ordered prepass, uniform points);
   * K5 at chip_smoke.SAMPLER_RAYS rays and K5 given densities at
@@ -33,8 +36,11 @@ libraries run on the same operands, at chip_smoke.py's shapes:
     as update_voxels does, then the launch) and the beta read.
 
 Each case first holds the two kernels' outputs against each other (values
-within 1e-5 of the largest, gradients within 1e-5 relative L2; the K1/K2
-table gradients and the K7 counters must be equal bit for bit); the
+within 1e-5 of the largest, gradients within 1e-5 relative L2; the K7
+counters must be equal bit for bit; this checkout's K1/K2 table gradient
+must equal its plain version, hash_table_grad_fixed_plain, bit for bit,
+and whether it equals the earlier kernel's bit for bit is reported: a
+kernel that merges in another order rounds elsewhere); the
 samplers are compared by chip_smoke.sampler_agreement, each against the
 other and against this checkout's plain version, and only this checkout's
 kernel must agree with it (an earlier kernel may sum in another order, and
@@ -60,6 +66,7 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 
 ENTRIES = ("nsl_hash_encode_fwd", "nsl_hash_encode_bwd", "nsl_hash_encode_bf16_fwd",
+           "nsl_hash_encode_bf16_bwd",
            "nsl_importance_sample", "nsl_importance_sample_given", "nsl_weights_topk_fwd",
            "nsl_composite_fwd", "nsl_composite_bwd", "nsl_topk_rgb_fwd", "nsl_topk_rgb_bwd", "nsl_voxel_scatter",
            "nsl_voxel_beta")
@@ -134,7 +141,6 @@ def hash_cases(dev, calls, rows_out):
         scratch = {"this": he.fixed_point_scratch(spec, dev),
                    "earlier": torch.zeros(T * C + max(L, 32), dtype=torch.int64,
                                            device=dev)}
-        acc = scratch["this"][:T * C]
         for order in ("ray", "uniform"):
             x = chip_smoke.hash_points(g, dev, kind, order)
             N = x.shape[0]
@@ -163,7 +169,7 @@ def hash_cases(dev, calls, rows_out):
             for side in calls:
                 fwd(side)(), bwd(side)()
             torch.cuda.synchronize()
-            zero_after = [not bool(acc.any())]
+            zero_after = [he.fixed_point_state_is_zero(spec, scratch["this"])]
             a, b = out["this"], out["earlier"]
             errs = [chip_smoke.max_abs(a["feats"], b["feats"]) / float(b["feats"].abs().max())]
             if jac:
@@ -171,26 +177,139 @@ def hash_cases(dev, calls, rows_out):
                             / float(b["dfeat"].abs().max()))
             rel = [chip_smoke.rel_l2(a["g_table"], b["g_table"]),
                    chip_smoke.rel_l2(a["g_x"], b["g_x"])]
+            exact = bool(torch.equal(a["g_table"], he.hash_table_grad_fixed_plain(
+                spec, x, gf, gd)))
             same = bool(torch.equal(a["g_table"], b["g_table"]))
             tf = turns({s: fwd(s) for s in calls})
             tb = turns({s: bwd(s) for s in calls})
-            zero_after.append(not bool(acc.any()))
+            zero_after.append(he.fixed_point_state_is_zero(spec, scratch["this"]))
             same &= bool(torch.equal(a["g_table"], b["g_table"]))
             ok = (max(errs) <= chip_smoke.VAL_RTOL and max(rel) <= chip_smoke.GRAD_REL_L2
-                  and same and all(zero_after))
+                  and exact and all(zero_after))
             b_fwd = chip_smoke.bound(*chip_smoke.hash_cost(spec, N, rows, jac, False))[0]
             b_bwd = chip_smoke.bound(*chip_smoke.hash_cost(spec, N, rows, jac, True))[0]
             for kdir, t, bnd in (("fwd", tf, b_fwd), ("bwd", tb, b_bwd)):
                 rows_out.append(dict(
                     case=f"{'K1' if jac else 'K2'} {kdir} {grid}/{kind}/{order}", points=N,
                     ok=ok, agreement=dict(value_err=max(errs), grad_rel_l2=max(rel),
-                                          table_grad_bit_equal=same,
+                                          table_grad_bit_equal_plain=exact,
+                                          table_grad_bit_equal_earlier=same,
                                           accumulator_zero_after=zero_after),
-                    times_ms=t, bound_ms=bnd))
+                    times_ms=t, bound_ms=bnd,
+                    **({"floor_ms": chip_smoke.hash_floor_ms(spec, N, rows, jac)}
+                       if kdir == "bwd" else {})))
             del x, gf, gd, out
             torch.cuda.empty_cache()
-        del table, scratch, acc
+        del table, scratch
         torch.cuda.empty_cache()
+
+
+def tracking_cases(dev, calls, rows_out):
+    """K1/K2 at the tracking shape (chip_smoke.TRACK_GRIDS, 1024 x 98
+    ray-ordered points): the forward, and the backward as tracking runs it
+    (grad_x only, no table gradient)."""
+    import torch
+    from nicer_slam_tpu_torch.ops import _cuda
+    from nicer_slam_tpu_torch.ops import hash_encoder as he
+
+    specs = chip_smoke.hash_specs()
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    for grid, jac in chip_smoke.TRACK_GRIDS:
+        spec = specs[grid]
+        L, C, T = spec.num_levels, spec.level_dim, spec.total_entries
+        table = torch.rand((T, C), generator=g, device=dev) * 2 - 1
+        meta, scl = he._level_tables(spec, 1.0, str(dev))
+        x = chip_smoke.ray_points(g, dev, chip_smoke.TRACK_RAYS, 98)
+        N, rows = x.shape[0], chip_smoke.touched_rows(spec, x)
+        gf = torch.randn((N, L * C), generator=g, device=dev)
+        gd = torch.randn((N, L * C, 3), generator=g, device=dev) if jac else None
+        out = {s: dict(feats=torch.empty((N, L * C), device=dev),
+                       dfeat=torch.empty((N, L * C, 3), device=dev) if jac else None,
+                       g_x=torch.empty((N, 3), device=dev)) for s in calls}
+
+        def fwd(side):
+            o = out[side]
+            return lambda: calls[side](
+                "nsl_hash_encode_fwd", x.data_ptr(), table.data_ptr(), meta.data_ptr(),
+                scl.data_ptr(), o["feats"].data_ptr(), _cuda.ptr(o["dfeat"]), N, L, C, 1.0)
+
+        def bwd(side):
+            return lambda: calls[side](
+                "nsl_hash_encode_bwd", x.data_ptr(), table.data_ptr(), meta.data_ptr(),
+                scl.data_ptr(), gf.data_ptr(), _cuda.ptr(gd), None, out[side]["g_x"].data_ptr(),
+                None, N, L, C, 1.0, T)
+
+        for side in calls:
+            fwd(side)(), bwd(side)()
+        torch.cuda.synchronize()
+        a, b = out["this"], out["earlier"]
+        err = chip_smoke.max_abs(a["feats"], b["feats"]) / float(b["feats"].abs().max())
+        rel = chip_smoke.rel_l2(a["g_x"], b["g_x"])
+        for kdir, fn, ok, bnd in (
+                ("fwd", fwd, err <= chip_smoke.VAL_RTOL,
+                 chip_smoke.hash_cost(spec, N, rows, jac, False)),
+                ("bwd", bwd, rel <= chip_smoke.GRAD_REL_L2,
+                 chip_smoke.hash_cost(spec, N, rows, jac, True, table_grad=False))):
+            rows_out.append(dict(
+                case=f"{'K1' if jac else 'K2'} {kdir} {grid}/track/ray", points=N, ok=ok,
+                agreement=dict(value_err=err, grad_x_rel_l2=rel),
+                times_ms=turns({s: fn(s) for s in calls}),
+                bound_ms=chip_smoke.bound(*bnd)[0]))
+        del table, x, gf, gd, out
+        torch.cuda.empty_cache()
+
+
+def bf16_bwd_cases(dev, calls, rows_out):
+    """K2's backward on bf16 rows (the sharded colour encode's) at
+    chip_smoke.BF16_BWD_CASES, ray-ordered, with the table gradient and
+    grad_x; this checkout's table gradient bit for bit with
+    hash_table_grad_fixed_plain."""
+    import torch
+    from nicer_slam_tpu_torch.ops import hash_encoder as he
+
+    spec = chip_smoke.hash_specs()["color"]
+    L, C, T = spec.num_levels, spec.level_dim, spec.total_entries
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    packed = he.pack_table_bf16(torch.rand((T, C), generator=g, device=dev) * 2 - 1)
+    meta, scl = he._level_tables(spec, 1.0, str(dev))
+    scratch = {"this": he.fixed_point_scratch(spec, dev),
+               "earlier": torch.zeros(T * C + 32, dtype=torch.int64, device=dev)}
+    for kind in chip_smoke.BF16_BWD_CASES:
+        x = chip_smoke.hash_points(g, dev, kind, "ray")
+        N, rows = x.shape[0], chip_smoke.touched_rows(spec, x)
+        gf = torch.randn((N, L * C), generator=g, device=dev)
+        out = {s: (torch.empty((T, C), device=dev), torch.empty((N, 3), device=dev))
+               for s in calls}
+
+        def bwd(side):
+            return lambda: calls[side](
+                "nsl_hash_encode_bf16_bwd", x.data_ptr(), packed.data_ptr(), meta.data_ptr(),
+                scl.data_ptr(), gf.data_ptr(), out[side][0].data_ptr(),
+                out[side][1].data_ptr(), scratch[side].data_ptr(), N, L, C, 1.0, T)
+
+        for side in calls:
+            bwd(side)()
+        torch.cuda.synchronize()
+        (ta, xa), (tb, xb) = out["this"], out["earlier"]
+        rel = [chip_smoke.rel_l2(ta, tb), chip_smoke.rel_l2(xa, xb)]
+        exact = bool(torch.equal(ta, he.hash_table_grad_fixed_plain(spec, x, gf)))
+        zero = he.fixed_point_state_is_zero(spec, scratch["this"])
+        nb, ops = chip_smoke.hash_cost(spec, N, rows, False, True)
+        rows_out.append(dict(
+            case=f"K2 bf16 bwd color/{kind}/ray", points=N,
+            ok=max(rel) <= chip_smoke.GRAD_REL_L2 and exact and zero,
+            agreement=dict(grad_rel_l2=max(rel), table_grad_bit_equal_plain=exact,
+                           accumulator_zero_after=zero),
+            times_ms=turns({s: bwd(s) for s in calls}),
+            bound_ms=chip_smoke.bound(nb - rows * C * 2, ops)[0],
+            floor_ms=chip_smoke.hash_floor_ms(spec, N, rows, False) - rows * C * 2
+            / chip_smoke.HBM_BYTES_PER_S * 1e3))
+        del x, gf, out
+        torch.cuda.empty_cache()
+    del packed, scratch
+    torch.cuda.empty_cache()
 
 
 def bf16_cases(dev, calls, rows_out):
@@ -532,13 +651,18 @@ def main(argv=None) -> int:
     print(f"card: {card}", flush=True)
     calls = {"earlier": caller(build_other(args.other)), "this": caller(_cuda.library())}
     rows_out = []
-    for cases in (composite_cases, bf16_cases, sampler_cases, voxel_cases, hash_cases):
+    for cases in (composite_cases, bf16_cases, sampler_cases, voxel_cases, tracking_cases,
+                  bf16_bwd_cases, hash_cases):
         done = len(rows_out)
         cases(dev, calls, rows_out)
         for row in rows_out[done:]:
             ms = {s: mean(v) for s, v in row["times_ms"].items()}
             b = row["bound_ms"]
             more = "".join(f" {s} {v:.4f}" for s, v in ms.items() if s not in calls)
+            if "floor_ms" in row:
+                f = row["floor_ms"]
+                more += (f" floor {f:.4f} (share {f / ms['earlier']:.1%} -> "
+                         f"{f / ms['this']:.1%})")
             print(f"{row['case']:36s} earlier {ms['earlier']:.4f} this {ms['this']:.4f} ms "
                   f"(x{ms['earlier'] / ms['this']:.2f}; bound {b:.4f}, share "
                   f"{b / ms['earlier']:.1%} -> {b / ms['this']:.1%}){more} agree {row['ok']} "
