@@ -65,22 +65,27 @@ are taken with the card to themselves:
      on grids beyond 32 levels or 8 channels (HASH_WIDE_CASES: 40 x 2,
      16 x 16, 8 x 12 at a tracking iteration's 100,352 ray-ordered points),
      K2's backward on bf16 rows (the sharded colour encode's, at the
-     flagship's colour grid on 131,072 top-16 and 401,408 demo points: its
-     table gradient the same over 3 launches and equal to K2's), K6 ray
+     flagship's colour grid on 131,072 top-16 and 401,408 demo points and
+     at a 16 x 16 grid on 100,352 ray-ordered points: its table gradient
+     the same over 3 launches and equal to K2's), K6 ray
      mode, K5 given and K4's composite on 2580 rays from a camera outside
      the cube, whose rays exit it behind the camera (far < near): which
      entries are finite must agree with the plain versions, and K9
      (tsdf.integrate: one 680x1200 frame into a 256³
      volume that already holds one, bit for bit). The plain versions of K1/K2 run once;
      the K1/K2 backward runs twice more and its table gradient must come
-     out the same bit for bit, with its kept fixed-point accumulator and
-     touched-row bitmap zero after every launch; at C 2, 4, 8 it must
-     equal hash_table_grad_fixed_plain bit for bit. At the tracking shape
-     on the three shipped grids (check_hash_fixed_state): two launches in a
-     row on the same kept state with other points (the rows only the
-     first touched read 0 after the second) and a launch with a NaN
-     cotangent at one level (every row of that level NaN, the others bit
-     for bit with the plain version).
+     out the same bit for bit, with its kept fixed-point accumulator, level
+     maxima and touched-row bitmap zero after every launch; at every C it
+     must equal hash_table_grad_fixed_plain bit for bit. At the tracking
+     shape on the three shipped grids and a 16 x 16 one, and on grids
+     whose scatter marks its touched rows over several merge launches
+     (the wide path's 40 x 2 colour grid at 2^22 rows a level on 131,072
+     top-16 points, 11 x 12 and 8 x 3 at 2^22 rows a level)
+     (check_hash_fixed_state): two launches in a row on the same kept
+     state with other points (the rows only the first touched read 0
+     after the second) and a launch with a NaN cotangent in one channel of
+     one level (every row and column of that level NaN, the others bit for
+     bit with the plain version).
   4. demo: the demo configuration (confs/runconf_demo_1.conf, every network
      at full width) through the port's exp_runner: tracking on every frame,
      mapping + BA at frames 0, 5 and 10, global_window_start = 10 (200 by
@@ -794,15 +799,14 @@ def check_hash_case(dev, chk: Checks, g, spec, table, jac: bool, x, tag: str):
     def bwd():
         he.hash_encode_bwd_launch(spec, table, x, 1.0, jac, gf, gd, g_table, g_x)
 
-    # the fixed-point state that the wrapper keeps: its accumulator and
-    # touched-row bitmap must be zero after every launch
+    # the fixed-point state that the wrapper keeps: its accumulator, level
+    # maxima and touched-row bitmap must be zero after every launch
     scratch = he.fixed_point_scratch(spec, dev)
     zero_after = []
     bwd()
-    zero_after.append(he.fixed_point_state_is_zero(spec, scratch))
-    # the merge kernel's channel counts: bit for bit with its plain version
-    exact = (bool(torch.equal(g_table, he.hash_table_grad_fixed_plain(spec, x, gf, gd)))
-             if C in MERGE_CHANNELS else None)
+    zero_after.append(he.fixed_point_state_is_zero(scratch))
+    # bit for bit with its plain version, at every channel count
+    exact = bool(torch.equal(g_table, he.hash_table_grad_fixed_plain(spec, x, gf, gd)))
     xx, tt = x.clone().requires_grad_(True), table.clone().requires_grad_(True)
 
     def plain_bwd():
@@ -818,55 +822,91 @@ def check_hash_case(dev, chk: Checks, g, spec, table, jac: bool, x, tag: str):
     same = True
     for _ in range(2):
         bwd()
-        zero_after.append(he.fixed_point_state_is_zero(spec, scratch))
+        zero_after.append(he.fixed_point_state_is_zero(scratch))
         same &= torch.equal(first, g_table)
     del first
     ms = cuda_time(bwd)
-    zero_after.append(he.fixed_point_state_is_zero(spec, scratch))
+    zero_after.append(he.fixed_point_state_is_zero(scratch))
     chk.record(f"{kname}.bwd{tag}", src,
                replaces if jac else "nicer_slam_tpu/ops/hash_encoder.py:613",
-               err, ex <= GRAD_REL_L2 and et <= GRAD_REL_L2 and same and exact is not False
+               err, ex <= GRAD_REL_L2 and et <= GRAD_REL_L2 and same and exact
                and all(zero_after), ms, pms,
                *hash_cost(spec, N, rows, jac, True),
                f"(rel L2: grad_x {ex:.2e}, grad_table {et:.2e}; {N} points, "
                f"{rows} rows; the same over 3 launches: {same}; bit for bit with "
-               f"hash_table_grad_fixed_plain: {exact}; accumulator and bitmap zero after "
-               f"each of 3 launches and after the timed ones: {zero_after}; floor with "
+               f"hash_table_grad_fixed_plain: {exact}; accumulator, maxima and bitmap zero "
+               f"after each of 3 launches and after the timed ones: {zero_after}; floor with "
                f"the maxima pass and the dense g_table {hash_floor_ms(spec, N, rows, jac):.4f} "
                f"ms)")
     del xx, tt, pgx, pgt, g_table, g_x, gf, gd, feats, dfeat, scratch
     torch.cuda.empty_cache()
 
 
-# the channel counts of the merge kernel (csrc/hash_kernels.cuh
-# hash_bwd_merge_kernel), whose table gradient hash_table_grad_fixed_plain
-# reproduces bit for bit; the others keep the lane-merge kernel
-MERGE_CHANNELS = (2, 4, 8)
+# the level given a NaN cotangent in the non-finite case below (on the
+# 11 x 12 grid a level whose last segment is the second merge launch's
+# first)
+NAN_LEVEL = 3
 
 
-# the level given a NaN cotangent in the non-finite case below
-NAN_LEVEL = 1
+# the grids of check_hash_fixed_state, (grid, jac, points, rows marked):
+# the three shipped ones (TRACK_GRIDS) and a 16 x 16 grid (a level in two
+# segments of 8, in two launches of 16 warps), then grids whose scatter
+# marks its touched rows (8 N L < T) in more than one merge launch: the
+# wide path's colour grid (40 levels x 2 at 2^22 rows a level, three
+# launches of at most 16 warps) on a mapping iteration's colour points
+# (8192 rays x their top 16), an 11 x 12 grid at 2^22 rows a level (three
+# segments of 4 a level, three launches of 11 warps, the second and third
+# starting inside a level) and an 8 x 3 one (one segment of 3 channels:
+# the last pass's scalar branch); the rest on a tracking iteration's
+# points
+FIXED_STATE_GRIDS = (("fine", True, "track", False), ("coarse", True, "track", False),
+                     ("color", False, "track", True), ("L16 C16", True, "track", False),
+                     ("wide color", False, "top16", True), ("L11 C12", True, "track", True),
+                     ("L8 C3", False, "track", True))
+
+
+def marking_spec(L: int, C: int):
+    """An L x C grid at 2^22 rows a level, as the wide colour grid: a
+    tracking iteration's 8 N L corners fewer than its rows."""
+    from nicer_slam_tpu_torch.ops import hash_encoder as he
+    return he.make_spec(input_dim=3, num_levels=L, level_dim=C, base_resolution=16,
+                        log2_hashmap_size=22, desired_resolution=512)
+
+
+def wide_color_spec():
+    """The colour grid of phase 5d's wide path: the flagship's, at 40 levels
+    of 2^22 rows."""
+    from nicer_slam_tpu_torch.config import parse_file
+    from nicer_slam_tpu_torch.models import fields
+    conf = parse_file(PATHS["flagship"]["conf"]).get_config("model")
+    rend = fields.rendering_config_from_conf(conf.get_config("rendering_network"),
+                                             conf.get_int("feature_vector_size"))
+    return rend._replace(color_num_levels=40, color_logmap=22).hash_spec()
 
 
 def check_hash_fixed_state(dev, chk: Checks):
-    """What a backward that converts the touched rows alone could get
-    wrong, at the tracking shape (1024 x 98 ray-ordered points) on the
-    three shipped grids (the colour grid marks its touched rows; the SDF
-    grids sweep every row): two launches in a row on the same kept state
-    with other points (the second one's table gradient its own: the rows
-    that only the first touched read 0), and a launch with a NaN cotangent
-    at one level (every row of that level NaN, the other levels as the
-    plain version); each bit for bit with hash_table_grad_fixed_plain and
-    within GRAD_REL_L2 of autograd of the plain encode, the accumulator and
-    bitmap zero after every launch. Each case's launch is timed."""
+    """What a backward that converts the touched rows alone, or that takes
+    a level's exponent from its segments, could get wrong, on
+    FIXED_STATE_GRIDS: two launches in a row on the same kept state with
+    other points (the second one's table gradient its own: the rows that
+    only the first touched read 0), and a launch with a NaN cotangent in
+    the last channel of one level (every row and column of that level NaN,
+    the other levels as the plain version); each bit for bit with
+    hash_table_grad_fixed_plain and within GRAD_REL_L2 of autograd of the
+    plain encode, the accumulator, maxima and bitmap zero after every
+    launch, the rows marked where the grid says. Each case's launch is
+    timed."""
     import torch
     from nicer_slam_tpu_torch.ops import hash_encoder as he
 
     specs = hash_specs()
+    specs["L16 C16"] = wide_spec(16, 16)
+    specs["wide color"] = wide_color_spec()
+    specs["L11 C12"], specs["L8 C3"] = marking_spec(11, 12), marking_spec(8, 3)
     g = torch.Generator(device=dev)
     g.manual_seed(14)
     src = "nicer_slam_tpu_torch/csrc/hash_encoder.cu"
-    for grid, jac in TRACK_GRIDS:
+    for grid, jac, pts, marks in FIXED_STATE_GRIDS:
         spec = specs[grid]
         L, C, T = spec.num_levels, spec.level_dim, spec.total_entries
         table = torch.rand((T, C), generator=g, device=dev) * 2 - 1
@@ -876,7 +916,8 @@ def check_hash_fixed_state(dev, chk: Checks):
         g_table = torch.empty_like(table)
 
         def operands():
-            x = ray_points(g, dev, TRACK_RAYS, 98)
+            x = (ray_points(g, dev, TRACK_RAYS, 98) if pts == "track"
+                 else hash_points(g, dev, pts, "ray"))
             gf = torch.randn((x.shape[0], L * C), generator=g, device=dev)
             gd = (torch.randn((x.shape[0], L * C, 3), generator=g, device=dev) if jac
                   else None)
@@ -893,7 +934,7 @@ def check_hash_fixed_state(dev, chk: Checks):
         zero_after = []
         for x, gf, gd in ((x1, gf1, gd1), (x2, gf2, gd2)):
             he.hash_encode_bwd_launch(spec, table, x, 1.0, jac, gf, gd, g_table, None)
-            zero_after.append(he.fixed_point_state_is_zero(spec, scratch))
+            zero_after.append(he.fixed_point_state_is_zero(scratch))
         exact = bool(torch.equal(g_table, he.hash_table_grad_fixed_plain(spec, x2, gf2, gd2)))
         pgt, pms = timed_once(lambda: autograd_table(x2, gf2, gd2))
         et = rel_l2(g_table, pgt)
@@ -904,24 +945,28 @@ def check_hash_fixed_state(dev, chk: Checks):
             he.hash_encode_bwd_launch(spec, table, x2, 1.0, jac, gf2, gd2, g_table, None)
 
         ms = cuda_time(bwd)
-        zero_after.append(he.fixed_point_state_is_zero(spec, scratch))
+        zero_after.append(he.fixed_point_state_is_zero(scratch))
         N, rows = x2.shape[0], touched_rows(spec, x2)
-        chk.record(f"{kname}.bwd[{grid}/track/two launches]", src, replaces,
+        marked = 8 * N * L < T
+        chk.record(f"{kname}.bwd[{grid}/{pts}/two launches]", src, replaces,
                    max_abs(g_table, pgt),
-                   exact and et <= GRAD_REL_L2 and first_zero and all(zero_after), ms, pms,
+                   exact and et <= GRAD_REL_L2 and first_zero and all(zero_after)
+                   and marked == marks, ms, pms,
                    *hash_cost(spec, N, rows, jac, True),
-                   f"(second launch: bit for bit with its plain version {exact}, rel L2 "
-                   f"{et:.2e}; the {int(only_first.sum())} rows only the first launch "
-                   f"touched read 0: {first_zero}; state zero after each: {zero_after})")
-        # a NaN cotangent at one level
+                   f"({L} x {C}, {T} rows, marked {marked}; second launch: bit for bit with "
+                   f"its plain version {exact}, rel L2 {et:.2e}; the "
+                   f"{int(only_first.sum())} rows only the first launch touched read 0: "
+                   f"{first_zero}; state zero after each: {zero_after})")
+        # a NaN cotangent in one channel of one level (its last segment's,
+        # where a level has more than one)
         gfn = gf1.clone()
-        gfn[7, NAN_LEVEL * C] = float("nan")
+        gfn[7, NAN_LEVEL * C + C - 1] = float("nan")
 
         def bwd_nan():
             he.hash_encode_bwd_launch(spec, table, x1, 1.0, jac, gfn, gd1, g_table, None)
 
         bwd_nan()
-        zero = he.fixed_point_state_is_zero(spec, scratch)
+        zero = he.fixed_point_state_is_zero(scratch)
         r0, r1 = spec.offsets[NAN_LEVEL], spec.offsets[NAN_LEVEL + 1]
         other = torch.ones(T, dtype=torch.bool, device=dev)
         other[r0:r1] = False
@@ -931,12 +976,13 @@ def check_hash_fixed_state(dev, chk: Checks):
         pgt, pms = timed_once(lambda: autograd_table(x1, gfn, gd1))
         et = rel_l2(g_table[other], pgt[other])
         ms = cuda_time(bwd_nan)
-        zero &= he.fixed_point_state_is_zero(spec, scratch)
-        chk.record(f"{kname}.bwd[{grid}/track/NaN at level {NAN_LEVEL}]", src, replaces,
+        zero &= he.fixed_point_state_is_zero(scratch)
+        chk.record(f"{kname}.bwd[{grid}/{pts}/NaN at level {NAN_LEVEL}]", src, replaces,
                    max_abs(g_table[other], pgt[other]),
                    level_nan and exact and et <= GRAD_REL_L2 and zero, ms, pms,
                    *hash_cost(spec, x1.shape[0], touched_rows(spec, x1), jac, True),
-                   f"(level {NAN_LEVEL}: NaN in all {r1 - r0} rows {level_nan}; the other "
+                   f"(level {NAN_LEVEL}: NaN in all {r1 - r0} rows and {C} columns "
+                   f"{level_nan}; the other "
                    f"levels bit for bit with the plain version {exact}, rel L2 {et:.2e} "
                    f"to autograd; state zero after the launch and the timed ones: {zero})")
         del table, g_table, scratch, x1, x2, gf1, gf2, gd1, gd2, gfn, pgt, plain, other
@@ -952,16 +998,19 @@ HASH_CHANNEL_CASES = ((16, 1, True), (8, 3, True), (6, 5, False), (8, 6, True),
                       (4, 7, True))
 
 
+def channel_spec(L: int, C: int):
+    from nicer_slam_tpu_torch.ops import hash_encoder as he
+    return he.make_spec(input_dim=3, num_levels=L, level_dim=C, per_level_scale=2.0,
+                        base_resolution=16, log2_hashmap_size=17, desired_resolution=256)
+
+
 def check_hash_channels(dev, chk: Checks):
     import torch
-    from nicer_slam_tpu_torch.ops import hash_encoder as he
 
     g = torch.Generator(device=dev)
     g.manual_seed(9)
     for L, C, jac in HASH_CHANNEL_CASES:
-        spec = he.make_spec(input_dim=3, num_levels=L, level_dim=C, per_level_scale=2.0,
-                            base_resolution=16, log2_hashmap_size=17,
-                            desired_resolution=256)
+        spec = channel_spec(L, C)
         table = torch.rand((spec.total_entries, C), generator=g, device=dev) * 2 - 1
         check_hash_case(dev, chk, g, spec, table, jac, uniform_points(g, dev, 1024 * 98),
                         f"[L{L} C{C}/uniform]")
@@ -970,10 +1019,11 @@ def check_hash_channels(dev, chk: Checks):
 
 
 # K1/K2 (and K3) beyond 32 levels or 8 channels, as the JAX package takes
-# them: (levels, channels) of a 40-level grid (two launches of 20), a
-# 16 x 16 grid (a level in two segments of 8) and an 8 x 12 one (segments
-# of 6), on a tracking iteration's count of ray-ordered points; K1 and K2
-# at each, and K3 from the same table rounded to bf16
+# them: (levels, channels) of a 40-level grid (two forward launches of
+# 20, the backward's three of at most 16), a 16 x 16 grid (a level in two
+# segments of 8) and an 8 x 12 one (segments of 6 forward, of 4
+# backward), on a tracking iteration's count of ray-ordered points; K1 and
+# K2 at each, and K3 from the same table rounded to bf16
 HASH_WIDE_CASES = ((40, 2), (16, 16), (8, 12))
 
 
@@ -1943,77 +1993,88 @@ def check_bf16_kernels(dev, chk: Checks):
 
 # K2's backward on bf16 rows (the sharded colour encode's backward): the
 # flagship's colour grid at the top-16 points of a flagship mapping
-# iteration (8192 x 16) and at the demo's 4096 x 98, ray-ordered
+# iteration (8192 x 16) and at the demo's 4096 x 98, ray-ordered; then the
+# grids of BF16_BWD_WIDE (bf16 rows in segments of 8 channels) at a
+# tracking iteration's 1024 x 98 ray-ordered points
 BF16_BWD_CASES = ("top16", "demo")
+BF16_BWD_WIDE = ((16, 16),)
 
 
 def check_hash_bf16_bwd(dev, chk: Checks):
     """The sharded colour encode's backward kernel against its plain
     version (hash_encode_bf16_bwd_plain: autograd of the plain encode on
     the widened bf16 table): grad_x within K2's backward bound, the table
-    gradient within it and the same bit for bit over 3 launches and equal
-    to K2's (it does not depend on the table), the kept accumulator zero
-    after each; the bound reads the touched rows in bf16."""
+    gradient within it, bit for bit with hash_table_grad_fixed_plain, the
+    same bit for bit over 3 launches and equal to K2's (it depends on
+    neither the table nor the segment width), the kept accumulator,
+    maxima and bitmap zero after each; the bound reads the touched rows in
+    bf16."""
     import torch
     from nicer_slam_tpu_torch.ops import hash_encoder as he
 
-    spec = hash_specs()["color"]
-    L, C = spec.num_levels, spec.level_dim
     g = torch.Generator(device=dev)
     g.manual_seed(6)
-    packed = he.pack_table_bf16(torch.rand((spec.total_entries, C), generator=g,
-                                           device=dev) * 2 - 1)
-    scratch = he.fixed_point_scratch(spec, dev)
-    for kind in BF16_BWD_CASES:
-        x = hash_points(g, dev, kind, "ray")
-        N = x.shape[0]
-        rows = touched_rows(spec, x)
-        gf = torch.randn((N, L * C), generator=g, device=dev)
-        g_table = torch.empty((spec.total_entries, C), device=dev)
-        g_x = torch.empty((N, 3), device=dev)
+    grids = [("color", hash_specs()["color"], BF16_BWD_CASES)]
+    grids += [(f"L{L} C{C}", wide_spec(L, C), ("track",)) for L, C in BF16_BWD_WIDE]
+    for grid, spec, kinds in grids:
+        L, C = spec.num_levels, spec.level_dim
+        packed = he.pack_table_bf16(torch.rand((spec.total_entries, C), generator=g,
+                                               device=dev) * 2 - 1)
+        scratch = he.fixed_point_scratch(spec, dev)
+        for kind in kinds:
+            x = (ray_points(g, dev, TRACK_RAYS, 98) if kind == "track"
+                 else hash_points(g, dev, kind, "ray"))
+            N = x.shape[0]
+            rows = touched_rows(spec, x)
+            gf = torch.randn((N, L * C), generator=g, device=dev)
+            g_table = torch.empty((spec.total_entries, C), device=dev)
+            g_x = torch.empty((N, 3), device=dev)
 
-        def bwd():
-            he.hash_encode_bf16_bwd_launch(spec, packed, x, 1.0, gf, g_table, g_x)
+            def bwd():
+                he.hash_encode_bf16_bwd_launch(spec, packed, x, 1.0, gf, g_table, g_x)
 
-        zero_after = []
-        bwd()
-        zero_after.append(he.fixed_point_state_is_zero(spec, scratch))
-        (pgt, pgx), pms = timed_once(lambda: he.hash_encode_bf16_bwd_plain(spec, packed, x,
-                                                                            gf))
-        ex, et = rel_l2(g_x, pgx), rel_l2(g_table, pgt)
-        err = max(max_abs(g_x, pgx), max_abs(g_table, pgt))
-        del pgt, pgx
-        first = g_table.clone()
-        same = True
-        for _ in range(2):
+            zero_after = []
             bwd()
-            zero_after.append(he.fixed_point_state_is_zero(spec, scratch))
-            same &= torch.equal(first, g_table)
-        # K2's backward on the float32 table: the same table gradient
-        he.hash_encode_bwd_launch(spec, packed.to(torch.float32), x, 1.0, False, gf, None,
-                                  g_table, None)
-        as_k2 = torch.equal(first, g_table)
-        del first
-        ms = cuda_time(bwd)
-        zero_after.append(he.fixed_point_state_is_zero(spec, scratch))
-        nb, ops = hash_cost(spec, N, rows, False, True)
-        # the touched rows read in bf16 (2 bytes a channel), not float32
-        nb -= rows * C * 2
-        floor_ms = hash_floor_ms(spec, N, rows, False) - rows * C * 2 / HBM_BYTES_PER_S * 1e3
-        chk.record(f"hash_encode_bf16.bwd[color/{kind}/ray]",
-                   "nicer_slam_tpu_torch/csrc/hash_encoder.cu",
-                   "nicer_slam_tpu/ops/hash_encoder.py:759", err,
-                   ex <= GRAD_REL_L2 and et <= GRAD_REL_L2 and same and as_k2
-                   and all(zero_after), ms, pms, nb, ops,
-                   f"(rel L2: grad_x {ex:.2e}, grad_table {et:.2e}; {N} points, {rows} rows; "
-                   f"the same over 3 launches: {same}; K2's table gradient: {as_k2}; "
-                   f"accumulator and bitmap zero after each of 3 launches and after the timed "
-                   f"ones: {zero_after}; floor with the maxima pass and the dense g_table "
-                   f"{floor_ms:.4f} ms)")
-        del x, gf, g_table, g_x
+            zero_after.append(he.fixed_point_state_is_zero(scratch))
+            exact = bool(torch.equal(g_table, he.hash_table_grad_fixed_plain(spec, x, gf)))
+            (pgt, pgx), pms = timed_once(lambda: he.hash_encode_bf16_bwd_plain(spec, packed, x,
+                                                                                gf))
+            ex, et = rel_l2(g_x, pgx), rel_l2(g_table, pgt)
+            err = max(max_abs(g_x, pgx), max_abs(g_table, pgt))
+            del pgt, pgx
+            first = g_table.clone()
+            same = True
+            for _ in range(2):
+                bwd()
+                zero_after.append(he.fixed_point_state_is_zero(scratch))
+                same &= torch.equal(first, g_table)
+            # K2's backward on the float32 table: the same table gradient
+            he.hash_encode_bwd_launch(spec, packed.to(torch.float32), x, 1.0, False, gf, None,
+                                      g_table, None)
+            as_k2 = torch.equal(first, g_table)
+            del first
+            ms = cuda_time(bwd)
+            zero_after.append(he.fixed_point_state_is_zero(scratch))
+            nb, ops = hash_cost(spec, N, rows, False, True)
+            # the touched rows read in bf16 (2 bytes a channel), not float32
+            nb -= rows * C * 2
+            floor_ms = (hash_floor_ms(spec, N, rows, False)
+                        - rows * C * 2 / HBM_BYTES_PER_S * 1e3)
+            chk.record(f"hash_encode_bf16.bwd[{grid}/{kind}/ray]",
+                       "nicer_slam_tpu_torch/csrc/hash_encoder.cu",
+                       "nicer_slam_tpu/ops/hash_encoder.py:759", err,
+                       ex <= GRAD_REL_L2 and et <= GRAD_REL_L2 and exact and same and as_k2
+                       and all(zero_after), ms, pms, nb, ops,
+                       f"(rel L2: grad_x {ex:.2e}, grad_table {et:.2e}; {N} points, {rows} "
+                       f"rows; bit for bit with hash_table_grad_fixed_plain: {exact}; the same "
+                       f"over 3 launches: {same}; K2's table gradient: {as_k2}; accumulator, "
+                       f"maxima and bitmap zero after each of 3 launches and after the timed "
+                       f"ones: {zero_after}; floor with the maxima pass and the dense g_table "
+                       f"{floor_ms:.4f} ms)")
+            del x, gf, g_table, g_x
+            torch.cuda.empty_cache()
+        del packed, scratch
         torch.cuda.empty_cache()
-    del packed, scratch
-    torch.cuda.empty_cache()
 
 
 # rays that leave the cube behind their camera (the long run's held-out
@@ -3677,6 +3738,17 @@ def report_eval(e: dict, failures) -> None:
         failures.append(f"eval: LPIPS on the card {lp} differs from the CPU by {d_lp:.3e}")
 
 
+# phase 3's checks in order, each (function, its arguments after dev and
+# chk); tools/torch_smoke_phase3_time.py times them one at a time
+PHASE3 = ((check_hash_kernels, ()), (check_hash_channels, ()), (check_hash_wide, ()),
+          *((check_demo_kernels, (R, S, tag))
+            for (R, S), tag in zip(COMPOSITE_SHAPES, COMPOSITE_TAGS)),
+          (check_hash_tracking, ()), (check_hash_fixed_state, ()), (check_voxel_kernels, ()),
+          (check_topk_kernels, ()), (check_bf16_kernels, ()), (check_hash_bf16_bwd, ()),
+          (check_sampler_kernels, ()), (check_behind_cube, ()), (check_sdf_density, ()),
+          (check_sdf_general, ()), (check_tsdf_kernel, ()), (check_limits, ()))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3706,26 +3778,13 @@ def main() -> int:
             f"{HBM_BYTES_PER_S / 1e12:g} TB/s and {FP32_OPS_PER_S / 1e12:g} "
             f"TFLOP/s float32; card {card}")
         chk = Checks()
-        check_hash_kernels(dev, chk)
-        check_hash_channels(dev, chk)
-        check_hash_wide(dev, chk)
-        for (R, S), tag in zip(COMPOSITE_SHAPES, COMPOSITE_TAGS):
-            check_demo_kernels(dev, chk, R, S, tag)
-        check_hash_tracking(dev, chk)
-        check_hash_fixed_state(dev, chk)
-        check_voxel_kernels(dev, chk)
-        check_topk_kernels(dev, chk)
-        check_bf16_kernels(dev, chk)
-        check_hash_bf16_bwd(dev, chk)
-        check_sampler_kernels(dev, chk)
-        check_behind_cube(dev, chk)
-        check_sdf_density(dev, chk)
-        check_sdf_general(dev, chk)
-        check_tsdf_kernel(dev, chk)
-        torch.cuda.empty_cache()
-        log("  past the old limits (the JAX package has none):")
-        check_limits(dev, chk)
-        torch.cuda.empty_cache()
+        for fn, args in PHASE3:
+            if fn is check_limits:
+                log("  past the old limits (the JAX package has none):")
+            t = time.perf_counter()
+            fn(dev, chk, *args)
+            torch.cuda.empty_cache()
+            log(f"  ({fn.__name__}: {time.perf_counter() - t:.1f} s)")
 
         # phase 9's dry runs need no scan: they run while the scans are
         # written

@@ -10,7 +10,8 @@
 // (below) is the same forward kernel reading a bf16 table. Any L and C:
 // every other C walks a level's channels in segments of CS, the largest
 // divisor of C up to 8 (hash_encoder_segments*.cu; one segment of C
-// channels for C < 8), and a launch covers at
+// channels for C < 8; the backwards of an even C take 8, 4 or 2), and a
+// launch covers at
 // most 32 (level, segment) pairs, one warp each, the host launching the
 // slices of a wider grid in turn (hash_kernels.cuh).
 //
@@ -69,32 +70,38 @@
 // cotangents are not finite gets a NaN gradient in every row (the JAX
 // package's scatter gives NaN at the rows it touches alone).
 //
-// The backward with a table gradient at C = 2, 4, 8 (hash_bwd_merge_kernel;
-// the other channel counts, and every launch without a table gradient,
-// keep the lane-merge kernel hash_bwd_kernel). An ablation of the
-// lane-merge design (tools/hash_bwd_ablate.py, PERF.md §6) showed three
-// costs: the colour grid's sweep over every row (1.43 of 2.06 ms at its
-// top-16 points: 3.19 GB for a few million touched rows); the 64-bit
+// The backward with a table gradient, one design at every C
+// (hash_bwd_merge_kernel; a launch without a table gradient, tracking's,
+// runs hash_bwd_kernel, which computes grad_x alone). An ablation of the
+// earlier lane-merge design (tools/hash_bwd_ablate.py, PERF.md §6) showed
+// three costs: the colour grid's sweep over every row (1.43 of 2.06 ms at
+// its top-16 points: 3.19 GB for a few million touched rows); the 64-bit
 // atomics (0.78 of 1.92 ms on the fine grid's ray-ordered points, 2.5 of
 // 3.6 on uniform ones); and the lane merge's chain of a __match_any_sync,
 // an __any_sync, a shared-memory round trip and a serial sum at each of
 // the 8 corners: without the merge the ray-ordered cases ran 1.1-2.3x
 // slower, yet the merge itself held the coarse grid's scatter at ~1.05 ms
-// with its atomics at 0.04. So a warp (32 points of one level) writes its
-// 8 x C contributions to shared memory and sums the lanes that share a
-// cell into the first of them (the run's head), every lane on its own
-// (corner, channel) column; then the warp's lanes take (head, corner,
-// channel) triples, so a row's channels are adjacent lanes and its
-// atomics one request (2-4x fewer requests than a lane's own row of C
-// atomics). Every sum is in a fixed order and each product and sum is
-// rounded as written, so ops/hash_encoder.py's hash_table_grad_fixed_plain
-// reproduces the table gradient bit for bit. A merge of the vertices that
+// with its atomics at 0.04. So a warp (32 points of one level, or of one
+// segment of a level's channels) writes its 8 x CS contributions to shared
+// memory and sums the lanes that share a cell into the first of them (the
+// run's head), every lane on its own (corner, channel) column; then the
+// warp's lanes take (head, corner, channel) triples, so a segment's
+// channels of a row are adjacent lanes and its atomics one request (2-4x
+// fewer requests than a lane's own row of atomics). Every sum is in a
+// fixed order and each product and sum is rounded as written, so
+// ops/hash_encoder.py's hash_table_grad_fixed_plain reproduces the table
+// gradient bit for bit at every C; the runs depend on the points and the
+// level alone, so the segment width does not change a bit. The maxima
+// pass runs once a grid, before the first slice, over every column of
+// the cotangents, so each level has one exponent over all its segments,
+// whichever slices they fall in, and the last pass runs once a grid,
+// after the last slice. A merge of the vertices that
 // consecutive cells share (faces, edges, corners along a ray) was built
 // and measured: with atomics this cheap it cost more than it saved (PERF.md
 // §6). Where a launch's 8 N L corners are fewer than the table's rows (the
-// colour grid), the first atomic to each row (it finds the row 0) also
-// sets the row's bit in a bitmap kept beside the accumulator, and the last
-// pass
+// colour grid), the first atomic to each row (it finds the row 0) in a
+// level's first segment also sets the row's bit in a bitmap kept beside
+// the accumulator, and the last pass
 // (touched_sweep_kernel) reads the accumulator at those rows alone and
 // writes every other row 0: g_table stays dense, for the optimizer, but
 // the 2.1 GB read goes. The SDF grids keep the sweep over every row (0.05
@@ -180,10 +187,10 @@ int nsl_hash_encode_fwd(const void* x, const void* table, const void* meta,
 
 // g_dfeat == NULL selects K2. g_table [T, C] (written) and g_x ([N, 3],
 // written) may each be NULL (not needed); with g_table, scratch is
-// [T C + 32 + ceil(T / 64)] int64 whose first T C words (the accumulator)
-// and last ceil(T / 64) (the touched-row bitmap) are zero on entry, and
-// are zero again on a successful return (the caller keeps it for the next
-// call).
+// [T C + max(L, 32) + ceil(T / 64)] int64 (the accumulator, the level
+// maxima, the touched-row bitmap), zero on entry and zero again on a
+// successful return (the caller keeps it for the next call), and L at
+// most 6144 (kMaxGradLevels).
 int nsl_hash_encode_bwd(const void* x, const void* table, const void* meta,
                         const void* scl, const void* g_feat,
                         const void* g_dfeat, void* g_table, void* g_x, void* scratch,
@@ -207,8 +214,8 @@ int nsl_hash_encode_bwd(const void* x, const void* table, const void* meta,
       return nsl_hash_bwd_segments((const float*)x, (const float*)table, (const int*)meta,
                                    (const float*)scl, (const float*)g_feat,
                                    (const float*)g_dfeat, (float*)g_table, (float*)g_x,
-                                   (long long*)scratch, N, L, C, segment_width(C), size, T,
-                                   s);
+                                   (long long*)scratch, N, L, C, bwd_segment_width(C), size,
+                                   T, s);
   }
 }
 
@@ -233,17 +240,19 @@ int nsl_hash_encode_bf16_fwd(const void* x, const void* table,
     default:
       return nsl_hash_bf16_segments((const float*)x, (const uint16_t*)table,
                                     (const int*)meta, (const float*)scl, (float*)feats, N, L,
-                                    C, C % 8 == 0 ? 8 : C % 4 == 0 ? 4 : 2, size, s);
+                                    C, bwd_segment_width(C), size, s);
   }
 }
 
 // K2's backward on a [T, C] bfloat16 table (the sharded colour encode:
 // its forward is K3 on the rows the ranks all-gathered in bf16, and this
-// backward reads the same rows for grad_x), any even C as K3, any L >= 1.
+// backward reads the same rows for grad_x), any even C as K3, any L >= 1
+// (at most 6144 with g_table).
 // g_table [T, C] fp32 and g_x [N, 3] as nsl_hash_encode_bwd, either may be
-// NULL; with g_table, scratch is the same [T C + 32 + ceil(T / 64)] int64
-// accumulator and bitmap, zero on entry and on a successful return. The table gradient does not
-// depend on the table, so it is K2's bit for bit.
+// NULL; with g_table, scratch is the same [T C + max(L, 32) + ceil(T / 64)]
+// int64 accumulator, maxima and bitmap, zero on entry and on a successful
+// return. The table gradient does not depend on the table or on the
+// segment width, so it is K2's bit for bit.
 int nsl_hash_encode_bf16_bwd(const void* x, const void* table, const void* meta,
                              const void* scl, const void* g_feat, void* g_table, void* g_x,
                              void* scratch, int64_t N, int L, int C, float size, int64_t T,
@@ -267,8 +276,8 @@ int nsl_hash_encode_bf16_bwd(const void* x, const void* table, const void* meta,
       return nsl_hash_bf16_bwd_segments((const float*)x, (const uint16_t*)table,
                                         (const int*)meta, (const float*)scl,
                                         (const float*)g_feat, (float*)g_table, (float*)g_x,
-                                        (long long*)scratch, N, L, C,
-                                        C % 8 == 0 ? 8 : C % 4 == 0 ? 4 : 2, size, T, s);
+                                        (long long*)scratch, N, L, C, bwd_segment_width(C),
+                                        size, T, s);
   }
 }
 

@@ -1,10 +1,13 @@
 // K1/K2 backwards at every channel count other than 2, 4, 8 (the
-// forwards and the design are in hash_encoder_segments.cu): the backward
-// kernel of hash_kernels.cuh with SEG set, in a source of its own so that the build
-// compiles it beside the others; and the backward on bf16 rows (the
-// sharded colour encode) at every even C other than those, in segments of
-// 8, 4 or 2 channels as K3. Called by hash_encoder.cu's entry points,
-// which check L and C and pick CS.
+// forwards are in hash_encoder_segments.cu): the backward kernels of
+// hash_kernels.cuh with SEG set (hash_bwd_merge_kernel with a table
+// gradient, the design of the shipped grids, a warp per (level, segment);
+// hash_bwd_kernel for grad_x alone), in segments of 8, 4 or 2 channels
+// for an even C and of its largest divisor up to 7 for an odd one
+// (bwd_segment_width); and the backward on bf16 rows (the sharded colour
+// encode) at every even C other than those. A source of its own, so that
+// the build compiles it beside the others. Called by hash_encoder.cu's
+// entry points, which check L and C and pick CS.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -27,7 +30,6 @@ int nsl_hash_bwd_segments(const float* x, const float* table, const int* meta,
     case 3: return args(launch_bwd<3, true>);
     case 4: return args(launch_bwd<4, true>);
     case 5: return args(launch_bwd<5, true>);
-    case 6: return args(launch_bwd<6, true>);
     case 7: return args(launch_bwd<7, true>);
     case 8: return args(launch_bwd<8, true>);
     default: return (int)cudaErrorInvalidValue;

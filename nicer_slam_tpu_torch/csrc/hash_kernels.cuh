@@ -7,19 +7,23 @@
 //
 // Any level count L and channel count C. A level's C channels are walked
 // in nseg = C / CS segments of CS channels, CS the largest divisor of C up
-// to 8 (K3: of 8, 4 and 2, C even); a (level, segment) pair is a virtual
+// to 8 in the forwards (K3 and the backwards: 8, 4 or 2 for an even C,
+// bwd_segment_width); a (level, segment) pair is a virtual
 // level v = l nseg + s, one warp of a block, whose output columns
 // v CS .. v CS + CS - 1 are the level's columns l C + s CS .. as the
 // [N, L C] layout has them. A launch covers at most 32 virtual levels (a
 // Slice); the host launches the slices of a grid one after another, the
 // first writing grad_x and each later one adding its levels' sum to it,
 // so grad_x is summed in a fixed order. Each slice's table gradient lands
-// in its own rows and columns of the fixed-point accumulator. The kernels
-// are templated on SEG: without it (C = 2, 4, 8) a row is CS = C channels
-// wide and a warp's level is v0 + its index, with no division by the
-// runtime row width; with it, the row is C wide and a level nseg >= 1
-// segments (C 1, 3, 5, 6, 7 take one segment of C channels). A slice holds as many warps as the
-// kernel's registers allow in one block (at most 32).
+// in its own rows and columns of the fixed-point accumulator; the maxima
+// pass before the first slice and the sweep after the last run once a
+// grid, so every segment of a level takes the level's one exponent. The
+// kernels are templated on SEG: without it (C = 2, 4, 8) a row is CS = C
+// channels wide and a warp's level is v0 + its index, with no division by
+// the runtime row width; with it, the row is C wide and a level nseg >= 1
+// segments (C 1, 3, 5, 6, 7 take one segment of C channels). A slice holds
+// as many warps as the kernel's registers and shared memory allow in one
+// block (at most 32).
 
 #pragma once
 
@@ -37,8 +41,6 @@ using nsl::LevelGeom;
 
 // points per K1/K2 block: one per lane of each level's warp
 constexpr int kPts = 32;
-// the corner row of a lane that has no point in range (never a table row)
-constexpr uint32_t kNoRow = 0xffffffffu;
 
 __device__ __forceinline__ void corner_hessian(const LevelGeom& g, int k,
                                                float h[3][3]) {
@@ -139,15 +141,20 @@ __device__ __forceinline__ void store_vec(float* p, const float v[C]) {
 // the exponent of a level whose cotangents are not finite
 constexpr int kNotFinite = -1000000;
 
-// k_l from the level's maxima (float bits: maxes[l] = max|g_feat|,
-// maxes[L + l] = max sum_d |g_dfeat[., d]|) and count_bits = ceil(log2 8N);
-// each step rounded as written (no contraction), as the plain version
-// (ops/hash_encoder.py, hash_table_grad_fixed_plain) computes it
-__device__ __forceinline__ int fixed_exp(const unsigned* __restrict__ maxes, int l, int L,
+// int64 words between the accumulator and the touched-row bitmap in the
+// scratch: the 2 L level maxima (uint32 each), at least 32 words
+__host__ __device__ constexpr int64_t maxima_words(int L) { return L > 32 ? L : 32; }
+
+// k_l from level l's maxima (float bits: maxes[2 l] = max|g_feat|,
+// maxes[2 l + 1] = max sum_d |g_dfeat[., d]|, over every channel of the
+// level) and count_bits = ceil(log2 8N); each step rounded as written (no
+// contraction), as the plain version (ops/hash_encoder.py,
+// hash_table_grad_fixed_plain) computes it
+__device__ __forceinline__ int fixed_exp(const unsigned* __restrict__ maxes, int l,
                                          float dscale, int count_bits) {
-  const float bound = __fadd_rn(__uint_as_float(maxes[l]),
+  const float bound = __fadd_rn(__uint_as_float(maxes[2 * l]),
                                 __fmul_rn(__fmul_rn(1.5f, fabsf(dscale)),
-                                          __uint_as_float(maxes[L + l])));
+                                          __uint_as_float(maxes[2 * l + 1])));
   if (!isfinite(bound)) return kNotFinite;
   if (bound == 0.0f) return 0;
   int e;
@@ -155,72 +162,57 @@ __device__ __forceinline__ int fixed_exp(const unsigned* __restrict__ maxes, int
   return 61 - count_bits - e;
 }
 
-// the CS channels of a segment at acc + at
-template <int CS>
-__device__ __forceinline__ void add_row_fixed(long long* acc, size_t at, const float v[CS],
-                                              int k) {
-  unsigned long long* p = reinterpret_cast<unsigned long long*>(acc) + at;
-#pragma unroll
-  for (int c = 0; c < CS; ++c)
-    atomicAdd(p + c, (unsigned long long)__float2ll_rn(ldexpf(v[c], k)));
-}
-
-// per-virtual-level maxima of |g_feat| and of sum_d |g_dfeat[., d]| over
-// the slice's L = sl.nv virtual levels into maxes[2L] (zeroed), as the bits
-// of non-negative floats, which order as the floats do (a NaN's above
-// inf). A block is rows x LC threads (LC = L CS, the slice's columns
-// from v0 CS), thread (r, col) on column col of points r, r + rows, ...
+// Per-level maxima of |g_feat| and of sum_d |g_dfeat[., d]| over all L C
+// columns of a grid (every segment of a level) into maxes[2 L] (zero on
+// entry), as the bits of non-negative floats, which order as the floats do
+// (a NaN's above inf). A block covers W = min(L C, blockDim.x) columns on
+// blockDim.x / W point rows at once: thread (r, col) takes columns col,
+// col + W, ... of points r, r + rows, ...; the block's maxima meet in
+// shared memory (2 L words), then one atomicMax each.
 __global__ void level_max_kernel(const float* __restrict__ g_feat,
-                                 const float* __restrict__ g_dfeat, int64_t N, Slice sl,
-                                 int CS, unsigned* __restrict__ maxes) {
-  __shared__ unsigned s_max[64];
-  for (int i = threadIdx.x; i < 64; i += blockDim.x) s_max[i] = 0u;
+                                 const float* __restrict__ g_dfeat, int64_t N, int L, int C,
+                                 unsigned* __restrict__ maxes) {
+  extern __shared__ unsigned s_max[];
+  for (int i = threadIdx.x; i < 2 * L; i += blockDim.x) s_max[i] = 0u;
   __syncthreads();
-  const int L = sl.nv, LC = L * CS, rows = blockDim.x / LC;
-  const int col = threadIdx.x % LC, r = threadIdx.x / LC;
-  const int64_t col0 = (int64_t)sl.v0 * CS + col;
-  unsigned a = 0u, b = 0u;
-  for (int64_t n = (int64_t)blockIdx.x * rows + r; n < N; n += (int64_t)gridDim.x * rows) {
-    a = max(a, __float_as_uint(fabsf(g_feat[n * sl.ldo + col0])));
-    if (g_dfeat != nullptr) {
-      const float* d = g_dfeat + (n * sl.ldo + col0) * 3;
-      b = max(b, __float_as_uint(fabsf(d[0]) + fabsf(d[1]) + fabsf(d[2])));
+  const int LC = L * C, W = LC < (int)blockDim.x ? LC : (int)blockDim.x;
+  const int rows = blockDim.x / W, col = threadIdx.x % W, r = threadIdx.x / W;
+  if (r < rows) {
+    for (int c = col; c < LC; c += W) {
+      unsigned a = 0u, b = 0u;
+      for (int64_t n = (int64_t)blockIdx.x * rows + r; n < N; n += (int64_t)gridDim.x * rows) {
+        a = max(a, __float_as_uint(fabsf(g_feat[n * LC + c])));
+        if (g_dfeat != nullptr) {
+          const float* d = g_dfeat + (n * LC + c) * 3;
+          b = max(b, __float_as_uint(fabsf(d[0]) + fabsf(d[1]) + fabsf(d[2])));
+        }
+      }
+      const int l = c / C;
+      atomicMax(&s_max[2 * l], a);
+      atomicMax(&s_max[2 * l + 1], b);
     }
   }
-  const int l = col / CS;
-  atomicMax(&s_max[l], a);
-  atomicMax(&s_max[32 + l], b);
   __syncthreads();
-  if (threadIdx.x < L) {
-    atomicMax(&maxes[threadIdx.x], s_max[threadIdx.x]);
-    atomicMax(&maxes[L + threadIdx.x], s_max[32 + threadIdx.x]);
-  }
+  for (int i = threadIdx.x; i < 2 * L; i += blockDim.x) atomicMax(&maxes[i], s_max[i]);
 }
 
 // The last pass of a backward with a table gradient over every row: g_table
-// = acc 2^-k_v for every row of the level of virtual level v = v0 +
-// blockIdx.y, in its segment's CS columns (NaN for a non-finite virtual
-// level), and acc set back to 0 where it was not, so the accumulator is
-// zero for the next call. The SDF grids' tables are small (0.05 ms for the
-// fine grid's 2.3 M rows); the colour grid's 133 M rows take
-// touched_sweep_kernel instead.
+// = acc 2^-k_l in every row and column of level l = blockIdx.y (NaN for a
+// non-finite level), and acc set back to 0 where it was not, so the
+// accumulator is zero for the next call. The SDF grids' tables are small
+// (0.05 ms for the fine grid's 2.3 M rows); the colour grid's 133 M rows
+// take touched_sweep_kernel instead.
 __global__ void fixed_sweep_kernel(long long* __restrict__ acc, float* __restrict__ g_table,
                                    const int* __restrict__ meta,
                                    const float* __restrict__ scl,
-                                   const unsigned* __restrict__ maxes, Slice sl, int CS,
-                                   int count_bits) {
-  const int w = blockIdx.y, v = sl.v0 + w, l = v / sl.nseg, C = sl.C;
-  const int c0 = (v - l * sl.nseg) * CS;
-  const int k = fixed_exp(maxes, w, sl.nv, scl[2 * l + 1], count_bits);
-  const int64_t row0 = meta[4 * l], n = (int64_t)meta[4 * l + 1] * CS;
+                                   const unsigned* __restrict__ maxes, int C, int count_bits) {
+  const int l = blockIdx.y;
+  const int k = fixed_exp(maxes, l, scl[2 * l + 1], count_bits);
+  // the level's rows are one run of words
+  const int64_t at0 = (int64_t)meta[4 * l] * C, n = (int64_t)meta[4 * l + 1] * C;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (int64_t)gridDim.x * blockDim.x) {
-    // one segment per level: the level's rows are one run of words
-    int64_t at = row0 * C + i;
-    if (sl.nseg > 1) {
-      const int64_t r = i / CS;
-      at = (row0 + r) * C + c0 + (i - r * CS);
-    }
+    const int64_t at = at0 + i;
     const long long a = acc[at];
     g_table[at] = k == kNotFinite ? __int_as_float(0x7fc00000)
                                   : ldexpf(__ll2float_rn(a), -k);
@@ -229,24 +221,26 @@ __global__ void fixed_sweep_kernel(long long* __restrict__ acc, float* __restric
 }
 
 // The last pass where the scatter marked the rows it touched (bit r of
-// the bitmap `touched`: hash_bwd_merge_kernel, C = 2, 4, 8, one segment a
-// level), over the level of virtual level v0 + blockIdx.y: a warp loads
-// 32 words of the bitmap at once, a lane each, then walks their 32 rows
-// in turn, lane i on row 32 w + i. A touched row gets acc
-// 2^-k_l and its acc words set back to 0; every other row of the level is
-// written 0 (NaN in every row of a non-finite level), so g_table is whole
-// for the optimizer; then the word's bits of this level are cleared (a
-// word at a level's edge is shared with the next level: atomicAnd). The
-// colour grid's 1.06 GB of g_table is written once and its 2.1 GB
-// accumulator is read only where touched.
-template <int C>
+// the bitmap `touched`, set by hash_bwd_merge_kernel's first segment of a
+// level), over level l = blockIdx.y: a warp loads 32 words of the bitmap
+// at once, a lane each, then walks their 32 rows in turn, lane i on row
+// 32 w + i. A touched row gets acc 2^-k_l in all its C columns (its nseg
+// segments of CS) and its acc words set back to 0; every other row of the
+// level is written 0 (NaN in every row of a non-finite level), so g_table
+// is whole for the optimizer; then the word's bits of this level are
+// cleared (a word at a level's edge is shared with the next level:
+// atomicAnd). The colour grid's 1.06 GB of g_table is written once and its
+// 2.1 GB accumulator is read only where touched.
+template <int CS, bool SEG>
 __global__ void touched_sweep_kernel(long long* __restrict__ acc, float* __restrict__ g_table,
                                      unsigned* __restrict__ touched,
                                      const int* __restrict__ meta, const float* __restrict__ scl,
-                                     const unsigned* __restrict__ maxes, Slice sl,
+                                     const unsigned* __restrict__ maxes, int C,
                                      int count_bits) {
-  const int w = blockIdx.y, l = sl.v0 + w;
-  const int k = fixed_exp(maxes, w, sl.nv, scl[2 * l + 1], count_bits);
+  const int l = blockIdx.y;
+  const int k = fixed_exp(maxes, l, scl[2 * l + 1], count_bits);
+  // the row's width and its segments (one of CS = C channels without SEG)
+  const int W = SEG ? C : CS, nseg = SEG ? C / CS : 1;
   const int64_t row0 = meta[4 * l], row1 = row0 + meta[4 * l + 1];
   const int64_t wd1 = (row1 + 31) >> 5;
   const int lane = threadIdx.x & 31;
@@ -272,24 +266,36 @@ __global__ void touched_sweep_kernel(long long* __restrict__ acc, float* __restr
       const unsigned b = __shfl_sync(0xffffffffu, bits, t);
       const int64_t r = (base + t) * 32 + lane;
       if (r < row0 || r >= row1) continue;
-      float v[C];
-      if (k == kNotFinite) {
+      for (int sg = 0; sg < nseg; ++sg) {
+        const int64_t at = r * W + sg * CS;
+        float v[CS];
+        if (k == kNotFinite) {
 #pragma unroll
-        for (int c = 0; c < C; ++c) v[c] = __int_as_float(0x7fc00000);
-      } else if ((b >> lane) & 1u) {
-        longlong2* a = reinterpret_cast<longlong2*>(acc + r * C);
+          for (int c = 0; c < CS; ++c) v[c] = __int_as_float(0x7fc00000);
+        } else if ((b >> lane) & 1u) {
+          if constexpr (CS % 2 == 0) {
+            // CS even: C even too, so the segment starts on a 16-byte word
+            longlong2* a = reinterpret_cast<longlong2*>(acc + at);
 #pragma unroll
-        for (int q = 0; q < C / 2; ++q) {
-          const longlong2 s = a[q];
-          v[2 * q] = ldexpf(__ll2float_rn(s.x), -k);
-          v[2 * q + 1] = ldexpf(__ll2float_rn(s.y), -k);
-          a[q] = make_longlong2(0, 0);
+            for (int q = 0; q < CS / 2; ++q) {
+              const longlong2 s = a[q];
+              v[2 * q] = ldexpf(__ll2float_rn(s.x), -k);
+              v[2 * q + 1] = ldexpf(__ll2float_rn(s.y), -k);
+              a[q] = make_longlong2(0, 0);
+            }
+          } else {
+#pragma unroll
+            for (int c = 0; c < CS; ++c) {
+              v[c] = ldexpf(__ll2float_rn(acc[at + c]), -k);
+              acc[at + c] = 0;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < CS; ++c) v[c] = 0.0f;
         }
-      } else {
-#pragma unroll
-        for (int c = 0; c < C; ++c) v[c] = 0.0f;
+        store_vec<CS>(g_table + at, v);
       }
-      store_vec<C>(g_table + r * C, v);
     }
   }
 }
@@ -439,13 +445,13 @@ __global__ void hash_fwd_kernel(const float* __restrict__ x,
   if (JAC) tile_out(dfeat + col0 * 3, s_d, np, 3 * LC, 3 * sl.ldo);
 }
 
-// acc[row(k), c] += (g_feat[c] w_k + sum_d g_dfeat[c, d] dw_k,d) 2^k_v   (atomic)
 // g_x[n, e] = sum_l sum_k sum_c v_k[c] (g_feat[c] dw_k,e + sum_d g_dfeat[c, d] h_k[d][e])
 // over the slice's L = sl.nv virtual levels (C below is the segment width
-// CS), added to g_x's earlier slices when v0 > 0. The corner rows v_k
-// come from a fp32 table (K1/K2) or a bf16 one widened (Bf16Rows: the
-// backward of the sharded colour encode, whose forward is K3 on the
-// gathered bf16 rows); the table gradient is the same either way.
+// CS), added to g_x's earlier slices when v0 > 0: the backward without a
+// table gradient (tracking; the table gradient is hash_bwd_merge_kernel's).
+// The corner rows v_k come from a fp32 table (K1/K2) or a bf16 one widened
+// (Bf16Rows: the backward of the sharded colour encode, whose forward is K3
+// on the gathered bf16 rows).
 template <int C, bool JAC, typename Rows, bool SEG>
 __global__ void hash_bwd_kernel(const float* __restrict__ x,
                                 const typename Rows::Elem* __restrict__ table,
@@ -453,18 +459,13 @@ __global__ void hash_bwd_kernel(const float* __restrict__ x,
                                 const float* __restrict__ scl,
                                 const float* __restrict__ g_feat,
                                 const float* __restrict__ g_dfeat,
-                                long long* __restrict__ acc,
-                                const unsigned* __restrict__ maxes,
-                                float* __restrict__ g_x, int64_t N, Slice sl,
-                                float size, int count_bits) {
+                                float* __restrict__ g_x, int64_t N, Slice sl, float size) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int L = sl.nv, LC = L * C;
-  // s_x [32, 3] | merge scratch [L][32, C] | s_gx [L][32, 3] |
-  // s_f [32, LC + 1] | s_d [32, 3 LC + 1]
+  // s_x [32, 3] | s_gx [L][32, 3] | s_f [32, LC + 1] | s_d [32, 3 LC + 1]
   float* s_x = smem;
-  float* s_m = s_x + smem_x();
-  float* s_gx = s_m + L * kPts * C;
+  float* s_gx = s_x + smem_x();
   float* s_f = s_gx + L * kPts * 3;
   float* s_d = s_f + smem_feat(LC);
   const int lane = threadIdx.x & 31, vw = threadIdx.x >> 5;
@@ -492,51 +493,18 @@ __global__ void hash_bwd_kernel(const float* __restrict__ x,
   uint32_t offset = (uint32_t)meta[4 * l], lsize = (uint32_t)meta[4 * l + 1];
   uint32_t res = (uint32_t)meta[4 * l + 2];
   bool dense = meta[4 * l + 3] != 0;
-  float* s_mw = s_m + vw * kPts * C;   // this warp's merge scratch
-  const int k_fix = acc != nullptr ? fixed_exp(maxes, vw, L, scl[2 * l + 1], count_bits) : 0;
-  // a level with non-finite cotangents adds nothing (its rows become NaN)
-  long long* acc_l = k_fix == kNotFinite ? nullptr : acc;
   uint32_t rows[8];
   corner_rows(g, res, lsize, offset, dense, rows);
   float gx[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    uint32_t row = active ? rows[k] : kNoRow;
     float w, dw[3];
     corner_weights(g, k, w, dw);
-    if (acc_l != nullptr) {
-      float gt[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        gt[c] = gf[c] * w;
-        if (JAC) gt[c] += gd[c][0] * dw[0] + gd[c][1] * dw[1] + gd[c][2] * dw[2];
-      }
-      // lanes of this warp (32 points of one level) on the same row
-      unsigned peers = __match_any_sync(0xffffffffu, row);
-      if (__any_sync(0xffffffffu, row != kNoRow && __popc(peers) > 1)) {
-        store_vec<C>(s_mw + lane * C, gt);
-        __syncwarp();
-        if (lane == __ffs(peers) - 1 && row != kNoRow) {
-          float sum[C];
-#pragma unroll
-          for (int c = 0; c < C; ++c) sum[c] = 0.0f;
-          for (unsigned m = peers; m != 0; m &= m - 1) {
-            const float* src = s_mw + (__ffs(m) - 1) * C;
-#pragma unroll
-            for (int c = 0; c < C; ++c) sum[c] += src[c];
-          }
-          add_row_fixed<C>(acc_l, row_word<C, SEG>(sl, row, c0), sum, k_fix);
-        }
-        __syncwarp();
-      } else if (row != kNoRow) {
-        add_row_fixed<C>(acc_l, row_word<C, SEG>(sl, row, c0), gt, k_fix);
-      }
-    }
-    if (g_x != nullptr && active) {
+    if (active) {
       // with a = v . g_feat and b_d = v . g_dfeat[:, d], this corner adds
       // a dw_e + sum_d b_d h[d][e] to grad_x[e]
       float v[C];
-      Rows::template load<C>(table + row_word<C, SEG>(sl, row, c0), v);
+      Rows::template load<C>(table + row_word<C, SEG>(sl, rows[k], c0), v);
       float a = 0.0f, b[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
       for (int c = 0; c < C; ++c) {
@@ -556,30 +524,27 @@ __global__ void hash_bwd_kernel(const float* __restrict__ x,
       }
     }
   }
-  if (g_x != nullptr) {
-    // per level into shared memory, then the sum over levels per point
+  // per level into shared memory, then the sum over levels per point
 #pragma unroll
-    for (int e = 0; e < 3; ++e) s_gx[vw * kPts * 3 + lane * 3 + e] = gx[e];
-    __syncthreads();
-    for (int i = threadIdx.x; i < np * 3; i += blockDim.x) {
-      float s = 0.0f;
-      for (int q = 0; q < L; ++q) s += s_gx[q * kPts * 3 + i];
-      g_x[n0 * 3 + i] = sl.v0 > 0 ? g_x[n0 * 3 + i] + s : s;
-    }
+  for (int e = 0; e < 3; ++e) s_gx[vw * kPts * 3 + lane * 3 + e] = gx[e];
+  __syncthreads();
+  for (int i = threadIdx.x; i < np * 3; i += blockDim.x) {
+    float s = 0.0f;
+    for (int q = 0; q < L; ++q) s += s_gx[q * kPts * 3 + i];
+    g_x[n0 * 3 + i] = sl.v0 > 0 ? g_x[n0 * 3 + i] + s : s;
   }
 }
 
-// ---- the backward with a table gradient at C = 2, 4, 8 (the shipped grids) ----
+// ---- the backward with a table gradient, at every C ----
 
-// a merge warp's row of contributions, 8 corners x C floats, padded so
-// that the 32 lanes' vector stores of one corner fall in distinct banks
+// a merge warp's row of contributions, 8 corners x C floats (C the segment
+// width), padded to an odd count of the vector words that store_vec<C>
+// writes, so that the 32 lanes' stores of one corner fall in distinct
+// banks
 template <int C>
-__host__ __device__ constexpr int merge_row() { return 8 * C + (C == 2 ? 2 : 4); }
-
-// warps a block of the merge kernel may hold: its shared memory is about
-// 32 merge_row<C>() floats a warp
-template <int C>
-__host__ __device__ constexpr int merge_warps() { return C == 8 ? 16 : 32; }
+__host__ __device__ constexpr int merge_row() {
+  return 8 * C + (C % 4 == 0 ? 4 : C % 2 == 0 ? 2 : 1);
+}
 
 // Shared memory of a merge block, in floats: s_x | s_gx [L][32, 3] |
 // heads [L][32] | the heads' corner rows [L][32, 8] | the cotangent
@@ -592,16 +557,23 @@ __host__ __device__ constexpr int merge_smem(int L) {
               : L * kPts * merge_row<C>());
 }
 
+// warps a block of the merge kernel holds at most: 16 (164 KB of shared
+// memory at 8-channel segments); a 40 x 2 grid ran 15-26 % faster in
+// blocks of 14 warps than of 20, which the kernel's 56 registers allow
+// one of an SM (PERF.md §6)
+constexpr int kMergeWarps = 16;
+
 // v 2^k to the nearest 64-bit integer: a product by 2^k where that is a
 // normal float (exact, as ldexpf is), else ldexpf
 __device__ __forceinline__ long long to_fixed(float v, int k, float pow2k) {
   return __float2ll_rn(pow2k != 0.0f ? __fmul_rn(v, pow2k) : ldexpf(v, k));
 }
 
-// The backward with a table gradient (C = 2, 4, 8, one segment a level):
-// grad_x as hash_bwd_kernel, and each warp's contributions merged by cell
-// before the 64-bit atomics. A block is 32 points x the slice's L levels,
-// a warp a level (lane = point), as the forward.
+// The backward with a table gradient (every C): grad_x as hash_bwd_kernel,
+// and each warp's contributions merged by cell before the 64-bit atomics.
+// A block is 32 points x the slice's L virtual levels, a warp a (level,
+// segment) pair (lane = point), as the forward; C below is the segment
+// width CS, a row C channels wide without SEG and sl.C with it.
 //   1. Each lane writes its point's 8 corners x C contributions (g_feat w +
 //      sum_d g_dfeat_d dw_d, each product and sum rounded as written) to
 //      the warp's rows in shared memory, which reuse the cotangent tiles'
@@ -610,16 +582,18 @@ __device__ __forceinline__ long long to_fixed(float v, int k, float pow2k) {
 //      coarse level) are summed in lane order into the run's first lane,
 //      the head, each lane of the warp on its own (corner, channel) column.
 //   3. Lane t of the warp takes (head, corner, channel) t of a pass, so a
-//      row's C channels are adjacent lanes, one sector's atomics in one
-//      request; each sum becomes one fixed-point atomic.
-// With `touched`, a row's channel-0 lane whose atomic finds the row 0 (the
-// first add to it does) also sets the row's bit for touched_sweep_kernel;
-// an atomicOr from every row instead ran 5-30 % slower on the colour grid
-// (PERF.md §6). Every sum is in a fixed order and each rounds
-// once, so the table gradient repeats bit for bit;
-// hash_table_grad_fixed_plain in ops/hash_encoder.py is the same
-// arithmetic in torch. A non-finite level adds nothing.
-template <int C, bool JAC, typename Rows>
+//      segment's C channels of a row are adjacent lanes, one sector's
+//      atomics in one request; each sum becomes one fixed-point atomic at
+//      the level's exponent (one a level, over all its segments).
+// With `touched`, a row's channel-0 lane of the level's first segment whose
+// atomic finds the row 0 (the first add to it does) also sets the row's
+// bit for touched_sweep_kernel (every segment of a level touches the same
+// rows); an atomicOr from every row instead ran 5-30 % slower on the
+// colour grid (PERF.md §6). Every sum is in a fixed order and each rounds
+// once, so the table gradient repeats bit for bit, and does not depend on
+// the segment width; hash_table_grad_fixed_plain in ops/hash_encoder.py is
+// the same arithmetic in torch. A non-finite level adds nothing.
+template <int C, bool JAC, typename Rows, bool SEG>
 __global__ void hash_bwd_merge_kernel(const float* __restrict__ x,
                                       const typename Rows::Elem* __restrict__ table,
                                       const int* __restrict__ meta,
@@ -641,7 +615,9 @@ __global__ void hash_bwd_merge_kernel(const float* __restrict__ x,
   uint32_t* s_row = reinterpret_cast<uint32_t*>(s_head + L * kPts);
   float* s_f = reinterpret_cast<float*>(s_row + L * kPts * 8);
   float* s_d = s_f + smem_feat(LC);
-  const int lane = threadIdx.x & 31, vw = threadIdx.x >> 5, l = sl.v0 + vw;
+  const int lane = threadIdx.x & 31, vw = threadIdx.x >> 5;
+  int l, c0;
+  virtual_level<C, SEG>(sl, vw, l, c0);
   const int64_t n0 = (int64_t)blockIdx.x * kPts;
   const int np = (int)(N - n0 < kPts ? N - n0 : kPts);
   const int64_t col0 = n0 * sl.ldo + (int64_t)sl.v0 * C;
@@ -664,7 +640,7 @@ __global__ void hash_bwd_merge_kernel(const float* __restrict__ x,
   const uint32_t offset = (uint32_t)meta[4 * l], lsize = (uint32_t)meta[4 * l + 1];
   const uint32_t res = (uint32_t)meta[4 * l + 2];
   const bool dense = meta[4 * l + 3] != 0;
-  const int k_fix = fixed_exp(maxes, vw, L, scl[2 * l + 1], count_bits);
+  const int k_fix = fixed_exp(maxes, l, scl[2 * l + 1], count_bits);
   const bool merge = k_fix != kNotFinite;   // else the level adds nothing (its rows become NaN)
   const float pow2k = k_fix >= -126 && k_fix <= 127 ? __int_as_float((k_fix + 127) << 23) : 0.0f;
   __syncthreads();   // every warp holds its cotangents: the tiles' space is free
@@ -691,7 +667,7 @@ __global__ void hash_bwd_merge_kernel(const float* __restrict__ x,
     }
     if (g_x != nullptr && active) {
       float v[C];
-      Rows::template load<C>(table + (size_t)rows[k] * C, v);
+      Rows::template load<C>(table + row_word<C, SEG>(sl, rows[k], c0), v);
       float a = 0.0f, b[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
       for (int c = 0; c < C; ++c) {
@@ -745,16 +721,18 @@ __global__ void hash_bwd_merge_kernel(const float* __restrict__ x,
     }
     __syncwarp();
     // 3. each (head, corner, channel) sum: one fixed-point atomic, a
-    // row's C channels on adjacent lanes
+    // segment's C channels of a row on adjacent lanes
     for (int o = lane; o < nh * S; o += 32) {
       const int i = o / S, slot = o - i * S, k = slot / C, c = slot - k * C;
       const uint32_t row = hrow[i * 8 + k];
       const unsigned long long q =
           (unsigned long long)to_fixed(s_v[heads[i] * SP + slot], k_fix, pow2k);
-      unsigned long long* p = reinterpret_cast<unsigned long long*>(acc) + (size_t)row * C + c;
+      unsigned long long* p =
+          reinterpret_cast<unsigned long long*>(acc) + row_word<C, SEG>(sl, row, c0) + c;
       if (touched != nullptr) {
         // the first add to a row finds it 0 (so may a later one: no harm)
-        if (atomicAdd(p, q) == 0ull && c == 0) atomicOr(touched + (row >> 5), 1u << (row & 31));
+        if (atomicAdd(p, q) == 0ull && c == 0 && c0 == 0)
+          atomicOr(touched + (row >> 5), 1u << (row & 31));
       } else {
         atomicAdd(p, q);
       }
@@ -849,84 +827,73 @@ int launch_bf16_fwd(const float* x, const uint16_t* table, const int* meta,
                                                    L, C, size, s);
 }
 
-// the slice's maxima (zeroed first) for the fixed-point exponents
-inline int launch_level_max(const float* g_feat, const float* g_dfeat, int64_t N,
-                            const Slice& sl, int CS, unsigned* maxes, cudaStream_t s) {
-  cudaError_t e = cudaMemsetAsync(maxes, 0, (size_t)sl.nv * sizeof(long long), s);
-  if (e != cudaSuccess) return (int)e;
-  const int LC = sl.nv * CS, rows = LC >= 256 ? 1 : 256 / LC;
+// the grid's per-level maxima (zero on entry) for the fixed-point
+// exponents: one pass over all L C columns of the cotangents; the block's
+// 2 L words of shared memory hold up to kMaxGradLevels levels
+constexpr int kMaxGradLevels = 6144;
+
+inline int launch_level_max(const float* g_feat, const float* g_dfeat, int64_t N, int L,
+                            int C, unsigned* maxes, cudaStream_t s) {
+  if (L > kMaxGradLevels) return (int)cudaErrorInvalidValue;
+  const int LC = L * C, rows = LC >= 256 ? 1 : 256 / LC;
+  const size_t bytes = 2 * (size_t)L * sizeof(unsigned);
   const int64_t want = (N + rows - 1) / rows;
-  level_max_kernel<<<(unsigned)(want < 1056 ? want : 1056), rows * LC, 0, s>>>(
-      g_feat, g_dfeat, N, sl, CS, maxes);
+  level_max_kernel<<<(unsigned)(want < 1056 ? want : 1056), LC >= 256 ? 256 : rows * LC, bytes,
+                     s>>>(g_feat, g_dfeat, N, L, C, maxes);
   return (int)cudaGetLastError();
 }
 
-// With a table gradient, per slice: zero the maxima, take them, scatter in
-// fixed point, convert and re-zero the slice's rows and columns. acc is
-// [T C + 32 + ceil(T / 64)] int64: the accumulator, the last slice's
-// 2 nv <= 64 maxima, the touched-row bitmap; the first T C words and the
-// bitmap are zero on entry and on exit. C = 2, 4, 8 (not SEG) take the
-// merge kernel, and where a launch's 8 N L corners are fewer than the T
-// rows (the colour grid) it marks the rows it touches and the last pass
-// sweeps those alone; the other channel counts take the lane-merge kernel
-// and the sweep over every row, as do the launches without a table
-// gradient (tracking). Rows: the table's rows, fp32 (K1/K2) or bf16 (the
-// sharded colour encode, without the Jacobian)
+// With a table gradient: take the grid's maxima, scatter in fixed point
+// slice by slice (hash_bwd_merge_kernel), convert and re-zero every row
+// in one last pass, then zero the maxima. acc is [T C + maxima_words(L) +
+// ceil(T / 64)] int64: the accumulator, the 2 L level maxima, the
+// touched-row bitmap, all zero on entry and on exit. Where the 8 N L
+// corners are fewer than the T rows (the colour grid) the scatter marks
+// the rows it touches and the last pass sweeps those alone. Without a
+// table gradient (tracking) only hash_bwd_kernel runs, for grad_x. Rows:
+// the table's rows, fp32 (K1/K2) or bf16 (the sharded colour encode,
+// without the Jacobian)
 template <int CS, bool JAC, typename Rows, bool SEG>
 int launch_bwd_rows(const float* x, const typename Rows::Elem* table, const int* meta,
                     const float* scl, const float* g_feat, const float* g_dfeat,
                     float* g_table, float* g_x, long long* acc, int64_t N, int L, int C,
                     float size, int64_t T, cudaStream_t s) {
-  unsigned* maxes = nullptr;
+  if (g_table == nullptr) {
+    if (g_x == nullptr) return 0;
+    auto kern = hash_bwd_kernel<CS, JAC, Rows, SEG>;
+    static const int maxw = max_warps(kern);
+    return for_slices(L, C, CS, maxw, [&](const Slice& sl) {
+      const int LC = sl.nv * CS;
+      return launch_blocks(kern, N, sl.nv, kPts,
+                           smem_x() + sl.nv * kPts * 3 + smem_feat(LC) +
+                               (JAC ? smem_dfeat(LC) : 0),
+                           s, x, table, meta, scl, g_feat, g_dfeat, g_x, N, sl, size);
+    });
+  }
   int count_bits = 0;
-  if (g_table != nullptr) {
-    maxes = reinterpret_cast<unsigned*>(acc + T * C);
-    while ((int64_t(1) << count_bits) < 8 * N) ++count_bits;
-  } else {
-    acc = nullptr;
-  }
-  if constexpr (!SEG) {
-    if (g_table != nullptr) {
-      unsigned* touched =
-          8 * N * L < T ? reinterpret_cast<unsigned*>(acc + T * C + 32) : nullptr;
-      auto mkern = hash_bwd_merge_kernel<CS, JAC, Rows>;
-      static const int mw = max_warps(mkern) < merge_warps<CS>() ? max_warps(mkern)
-                                                                  : merge_warps<CS>();
-      return for_slices(L, C, CS, mw, [&](const Slice& sl) {
-        int rc = launch_level_max(g_feat, g_dfeat, N, sl, CS, maxes, s);
-        if (rc != 0) return rc;
-        rc = launch_blocks(mkern, N, sl.nv, kPts, merge_smem<CS, JAC>(sl.nv), s, x, table,
-                           meta, scl, g_feat, g_dfeat, acc, touched, (const unsigned*)maxes,
-                           g_x, N, sl, size, count_bits);
-        if (rc != 0) return rc;
-        if (touched != nullptr)
-          touched_sweep_kernel<CS><<<dim3(264, sl.nv), 256, 0, s>>>(
-              acc, g_table, touched, meta, scl, maxes, sl, count_bits);
-        else
-          fixed_sweep_kernel<<<dim3(264, sl.nv), 256, 0, s>>>(acc, g_table, meta, scl, maxes,
-                                                               sl, CS, count_bits);
-        return (int)cudaGetLastError();
-      });
-    }
-  }
-  auto kern = hash_bwd_kernel<CS, JAC, Rows, SEG>;
-  static const int maxw = max_warps(kern);
-  return for_slices(L, C, CS, maxw, [&](const Slice& sl) {
-    const int LC = sl.nv * CS;
-    if (g_table != nullptr) {
-      const int rc = launch_level_max(g_feat, g_dfeat, N, sl, CS, maxes, s);
-      if (rc != 0) return rc;
-    }
-    const int floats = smem_x() + sl.nv * kPts * (CS + 3) + smem_feat(LC) +
-                       (JAC ? smem_dfeat(LC) : 0);
-    const int rc = launch_blocks(kern, N, sl.nv, kPts, floats, s, x, table, meta, scl, g_feat,
-                                 g_dfeat, acc, (const unsigned*)maxes, g_x, N, sl, size,
-                                 count_bits);
-    if (rc != 0 || g_table == nullptr) return rc;
-    fixed_sweep_kernel<<<dim3(264, sl.nv), 256, 0, s>>>(acc, g_table, meta, scl, maxes, sl,
-                                                         CS, count_bits);
-    return (int)cudaGetLastError();
+  while ((int64_t(1) << count_bits) < 8 * N) ++count_bits;
+  unsigned* maxes = reinterpret_cast<unsigned*>(acc + T * C);
+  unsigned* touched =
+      8 * N * L < T ? reinterpret_cast<unsigned*>(acc + T * C + maxima_words(L)) : nullptr;
+  int rc = launch_level_max(g_feat, g_dfeat, N, L, C, maxes, s);
+  if (rc != 0) return rc;
+  auto mkern = hash_bwd_merge_kernel<CS, JAC, Rows, SEG>;
+  static const int mw = max_warps(mkern) < kMergeWarps ? max_warps(mkern) : kMergeWarps;
+  rc = for_slices(L, C, CS, mw, [&](const Slice& sl) {
+    return launch_blocks(mkern, N, sl.nv, kPts, merge_smem<CS, JAC>(sl.nv), s, x, table, meta,
+                         scl, g_feat, g_dfeat, acc, touched, (const unsigned*)maxes, g_x, N, sl,
+                         size, count_bits);
   });
+  if (rc != 0) return rc;
+  if (touched != nullptr)
+    touched_sweep_kernel<CS, SEG><<<dim3(264, L), 256, 0, s>>>(acc, g_table, touched, meta, scl,
+                                                              maxes, C, count_bits);
+  else
+    fixed_sweep_kernel<<<dim3(264, L), 256, 0, s>>>(acc, g_table, meta, scl, maxes, C,
+                                                     count_bits);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  return (int)cudaMemsetAsync(maxes, 0, 2 * (size_t)L * sizeof(unsigned), s);
 }
 
 template <int CS, bool SEG>
@@ -949,11 +916,20 @@ int launch_bf16_bwd(const float* x, const uint16_t* table, const int* meta,
                                                    g_table, g_x, acc, N, L, C, size, T, s);
 }
 
-// CS for K1/K2: the largest divisor of C up to 8
+// CS for the K1/K2 forwards: the largest divisor of C up to 8
 inline int segment_width(int C) {
   int cs = 8;
   while (C % cs != 0) --cs;
   return cs;
+}
+
+// CS for the backwards (and K3): 8, 4 or 2 for an even C, the largest
+// divisor up to 7 for an odd one. A segment of 6 channels took a block's
+// shared memory for one block an SM and ran the 8 x 12 grid's backwards
+// 1.9-2.2x slower than three of 4 (PERF.md §6); the table gradient does
+// not depend on CS.
+inline int bwd_segment_width(int C) {
+  return C % 8 == 0 ? 8 : C % 4 == 0 ? 4 : C % 2 == 0 ? 2 : segment_width(C);
 }
 
 }  // namespace

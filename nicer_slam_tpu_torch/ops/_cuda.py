@@ -55,7 +55,7 @@ _SIGNATURES = {
     # x, table [T, C], lvl_meta, lvl_scale, feats, dfeat, N, L, C, size, stream
     "nsl_hash_encode_fwd": [_P] * 6 + [_I64, _I, _I, _F, _P],
     # x, table, meta, scale, g_feat, g_dfeat, g_table, g_x [N, 3],
-    # scratch [T·C + 32 + ceil(T / 64)] int64, N, L, C, size, T, stream
+    # scratch [T·C + max(L, 32) + ceil(T / 64)] int64, N, L, C, size, T, stream
     "nsl_hash_encode_bwd": [_P] * 9 + [_I64, _I, _I, _F, _I64, _P],
     # z, density, rgb, normals, weights, rgb_out, depth_out, normal_out,
     # R, S, stream

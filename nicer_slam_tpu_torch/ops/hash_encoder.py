@@ -41,10 +41,13 @@ they stream and the random corner rows they gather and scatter. A block
 is 32 consecutive points × L levels, one warp per level (a level of more
 than 8 channels takes a warp per segment of them, and a grid of more than
 32 such warps runs as several launches); its output and
-cotangent tiles pass through shared memory to move as coalesced runs,
-the backward sums the lanes that share a cell before its atomics (a row's
-channels on adjacent lanes, one request), the colour grid's last pass
-converts only the rows its scatter marked in a bitmap, and the table
+cotangent tiles pass through shared memory to move as coalesced runs.
+One backward design serves every channel count: it sums the lanes that
+share a cell before its atomics (a segment's channels of a row on
+adjacent lanes, one request), takes one fixed-point exponent a level from
+one maxima pass over the whole grid, and converts the accumulator in one
+last pass a grid, over only the rows its scatter marked in a bitmap where
+the table is larger than the points reach (the colour grid). The table
 scatter is skipped when the table needs no gradient (tracking). K3 is the
 same forward kernel with a bf16 row loader; the note at the top of
 csrc/hash_encoder.cu has more.
@@ -248,35 +251,41 @@ def hash_encode_fwd_launch(spec: HashGridSpec, table: torch.Tensor, x: torch.Ten
                  N, L, C, float(size))
 
 
-# (device, words) -> the backward's fixed-point accumulator and bitmap,
-# zero between calls
+# (device, words) -> the backward's fixed-point accumulator, level maxima
+# and bitmap, zero between calls
 _SCRATCH: Dict[Tuple[str, int], torch.Tensor] = {}
+
+
+def fixed_point_words(spec: HashGridSpec) -> int:
+    """The int64 words of a grid's ``fixed_point_scratch``."""
+    T, C, L = spec.total_entries, spec.level_dim, spec.num_levels
+    return T * C + max(L, 32) + (T + 63) // 64
 
 
 def fixed_point_scratch(spec: HashGridSpec, device) -> torch.Tensor:
     """The K1/K2 backward's fixed-point state for a grid's size: ``[T·C +
-    32 + ceil(T / 64)]`` int64, kept per (device, size) and zeroed once,
-    when it is allocated. The first T·C words are the accumulator and the
-    last ceil(T / 64) a bitmap of the rows a launch touched (the colour
-    grid's scatter marks them, and its last pass converts those rows
-    alone); each backward launch with a table gradient leaves both zero.
-    The 32 words between hold the cotangent maxima of a slice of at most
-    32 (level, segment) pairs and are zeroed at the start of the next. The
+    max(L, 32) + ceil(T / 64)]`` int64, kept per (device, size) and zeroed
+    once, when it is allocated. The first T·C words are the accumulator;
+    the max(L, 32) words after them hold the grid's 2·L level maxima of
+    the cotangents (uint32 each: one pass over the whole grid, so every
+    segment of a level takes the level's one exponent); the last ceil(T /
+    64) are a bitmap of the rows a launch touched (the colour grid's
+    scatter marks them, and its last pass converts those rows alone). Each
+    backward launch with a table gradient leaves all three zero. The
     launches that share it run one after another, on one stream, as the
     paths run."""
-    T, C = spec.total_entries, spec.level_dim
-    key = (str(torch.device(device)), T * C + 32 + (T + 63) // 64)
+    key = (str(torch.device(device)), fixed_point_words(spec))
     buf = _SCRATCH.get(key)
     if buf is None:
         buf = _SCRATCH[key] = torch.zeros(key[1], dtype=torch.int64, device=device)
     return buf
 
 
-def fixed_point_state_is_zero(spec: HashGridSpec, scratch: torch.Tensor) -> bool:
-    """Whether the accumulator and the touched-row bitmap of a
-    ``fixed_point_scratch`` are all zero, as every launch must leave them."""
-    n = spec.total_entries * spec.level_dim
-    return not (bool(scratch[:n].any()) or bool(scratch[n + 32:].any()))
+def fixed_point_state_is_zero(scratch: torch.Tensor) -> bool:
+    """Whether the accumulator, the level maxima and the touched-row bitmap
+    of a ``fixed_point_scratch`` are all zero, as every launch must leave
+    them."""
+    return not bool(scratch.any())
 
 
 def _fixed_exp(gf: torch.Tensor, gd: torch.Tensor | None, dscale: float, count_bits: int):
@@ -302,8 +311,8 @@ def _fixed_exp(gf: torch.Tensor, gd: torch.Tensor | None, dscale: float, count_b
 def hash_table_grad_fixed_plain(spec: HashGridSpec, x: torch.Tensor, g_feat: torch.Tensor,
                                 g_dfeat: torch.Tensor | None = None,
                                 size: float = 1.0) -> torch.Tensor:
-    """Plain version of the table gradient of the K1/K2 backward at C = 2,
-    4, 8 (``hash_bwd_merge_kernel`` in csrc/hash_kernels.cuh), bit for bit:
+    """Plain version of the table gradient of the K1/K2 backward at every
+    C (``hash_bwd_merge_kernel`` in csrc/hash_kernels.cuh), bit for bit:
     g_table [T, C] float32 of the cotangents ``g_feat`` [N, L·C] and
     ``g_dfeat`` [N, L·C, 3] (K1) or None (K2) at points ``x`` [N, 3].
 
@@ -314,8 +323,10 @@ def hash_table_grad_fixed_plain(spec: HashGridSpec, x: torch.Tensor, g_feat: tor
     order into its head; each head's corner sums rounded once to the
     level's fixed point (2^-k, k from the cotangents' bound) and added as
     int64 (``index_add_``: integer sums in any order); then acc 2^-k as
-    float32, NaN in every row of a level whose cotangents are not finite.
-    Any C (only 2, 4, 8 take that kernel); within float32 rounding of
+    float32, NaN in every row and column of a level whose cotangents are
+    not finite. The kernel walks a level of more than 8 channels in
+    segments, each a warp; the runs and the level's exponent are the same
+    in every segment, so the sums are these. Within float32 rounding of
     autograd of ``hash_encode_plain``."""
     N, L, C, T = x.shape[0], spec.num_levels, spec.level_dim, spec.total_entries
     dev, f32 = x.device, torch.float32

@@ -1,6 +1,7 @@
 """The K1/K2 table gradient in 64-bit fixed point, as the card computes it
-at C = 2, 4, 8 (csrc/hash_kernels.cuh hash_bwd_merge_kernel), against the
-JAX package's table gradient on the CPU.
+at every C (csrc/hash_kernels.cuh hash_bwd_merge_kernel; a level of more
+than 8 channels in segments, one exponent a level), against the JAX
+package's table gradient on the CPU.
 
 ``hash_table_grad_fixed_plain`` is the kernel's arithmetic in torch: blocks
 of 32 points, each corner's contribution rounded as the kernel rounds it,
@@ -42,6 +43,22 @@ SPECS = {
     # the colour grid's: hashed levels whose corner products wrap uint32
     "hashed_c2": dict(num_levels=3, level_dim=2, base_resolution=16,
                       log2_hashmap_size=10, desired_resolution=64),
+    # the channel counts of the segmented backward: one segment of C
+    # channels (C 1, 3), three of 2 (C 6), three of 4 (C 12) and two of 8
+    # (C 16); a dense level, then a hashed one
+    "c1": dict(num_levels=2, level_dim=1, base_resolution=8,
+               log2_hashmap_size=10, desired_resolution=16),
+    "c3": dict(num_levels=2, level_dim=3, base_resolution=8,
+               log2_hashmap_size=10, desired_resolution=16),
+    "c6": dict(num_levels=2, level_dim=6, base_resolution=8,
+               log2_hashmap_size=10, desired_resolution=16),
+    "c12": dict(num_levels=2, level_dim=12, base_resolution=8,
+                log2_hashmap_size=10, desired_resolution=16),
+    "c16": dict(num_levels=3, level_dim=16, base_resolution=8,
+                log2_hashmap_size=10, desired_resolution=16),
+    # 40 levels (two launches of 20 on the card), small hashed tables
+    "l40_c2": dict(num_levels=40, level_dim=2, base_resolution=4,
+                   log2_hashmap_size=8, desired_resolution=64),
 }
 SIZE = 1.3
 
@@ -87,9 +104,13 @@ def _jax_table_grad(spec_j, table, x, g_feat, g_dfeat, jac):
     return np.asarray(gt)
 
 
+# the shipped grids' shapes, then the segmented channel counts and a grid
+# of more than 32 levels, K1 and K2 at each
 @pytest.mark.parametrize("kind", ["ray", "uniform"])
 @pytest.mark.parametrize("name,jac", [("dense_c8", True), ("mixed_c4", True),
-                                      ("hashed_c2", False), ("mixed_c4", False)])
+                                      ("hashed_c2", False), ("mixed_c4", False)]
+                         + [(name, jac) for name in ("c1", "c3", "c6", "c12", "c16", "l40_c2")
+                            for jac in (True, False)])
 def test_fixed_point_table_grad_matches_jax(name, jac, kind):
     spec_j, spec_t, table, x, g_feat, g_dfeat = _inputs(name, kind)
     got = the.hash_table_grad_fixed_plain(
@@ -150,16 +171,47 @@ def test_fixed_point_nan_level_is_nan_in_every_row():
     _close(jl[:, r1:], want[:, r1:])
 
 
+def test_fixed_point_nan_in_one_segment_is_nan_in_every_column():
+    """At C = 16 (two segments of 8 channels on the card) a NaN cotangent in
+    one channel of the second segment makes every row and all 16 columns of
+    its level NaN, since the level has one exponent; the other levels match
+    the JAX package."""
+    spec_j, spec, table, x, g_feat, g_dfeat = _inputs("c16", "ray", seed=3)
+    C = spec.level_dim
+    bad = g_feat.copy()
+    bad[9, 1 * C + 12] = np.nan
+    got = the.hash_table_grad_fixed_plain(spec, torch.from_numpy(x), torch.from_numpy(bad),
+                                          torch.from_numpy(g_dfeat), SIZE)
+    r0, r1 = spec.offsets[1], spec.offsets[2]
+    assert got.shape[1] == 16 and bool(got[r0:r1].isnan().all())
+    assert not bool(got[:r0].isnan().any()) and not bool(got[r1:].isnan().any())
+    want = _jax_table_grad(spec_j, table, x, bad, g_dfeat, True)
+    jl = jax_layout("encoding", got)
+    _close(jl[:, :r0], want[:, :r0])
+    _close(jl[:, r1:], want[:, r1:])
+
+
 def test_fixed_point_scratch_holds_the_bitmap():
-    """The kept state is the accumulator, 32 words of maxima and a bitmap
-    of one bit a row; zero when allocated."""
+    """The kept state is the accumulator, the level maxima (32 words up to
+    32 levels) and a bitmap of one bit a row; zero when allocated, and a
+    word of any of the three counts."""
     spec = the.make_spec(input_dim=3, **SPECS["hashed_c2"])
     T, C = spec.total_entries, spec.level_dim
     s = the.fixed_point_scratch(spec, "cpu")
     assert s.dtype == torch.int64 and s.numel() == T * C + 32 + (T + 63) // 64
-    assert the.fixed_point_state_is_zero(spec, s)
-    s[T * C + 3] = 7                      # the maxima words are not state
-    assert the.fixed_point_state_is_zero(spec, s)
-    s[-1] = 1
-    assert not the.fixed_point_state_is_zero(spec, s)
-    s.zero_()
+    assert the.fixed_point_state_is_zero(s)
+    for at in (5, T * C + 3, s.numel() - 1):     # accumulator, maxima, bitmap
+        s[at] = 7
+        assert not the.fixed_point_state_is_zero(s)
+        s[at] = 0
+    assert the.fixed_point_state_is_zero(s)
+
+
+def test_fixed_point_scratch_holds_every_levels_maxima():
+    """Past 32 levels the maxima take L words (2 L uint32), so the grid's
+    one maxima pass has a slot for every level."""
+    spec = the.make_spec(input_dim=3, **SPECS["l40_c2"])
+    T, C, L = spec.total_entries, spec.level_dim, spec.num_levels
+    s = the.fixed_point_scratch(spec, "cpu")
+    assert s.numel() == T * C + L + (T + 63) // 64 == the.fixed_point_words(spec)
+    assert the.fixed_point_state_is_zero(s)

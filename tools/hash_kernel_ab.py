@@ -18,9 +18,14 @@ libraries run on the same operands, at chip_smoke.py's shapes:
     the grad_x-only backward; K2's backward on bf16 rows at
     chip_smoke.BF16_BWD_CASES;
   * K1/K2 forward and backward: chip_smoke.HASH_CASES, ray-ordered and
-    uniform points. This checkout's backward gets the accumulator and
-    bitmap that its wrapper keeps (zero on entry, and checked zero after
-    every launch), the earlier one a scratch of its own;
+    uniform points. This checkout's backward gets the accumulator, maxima
+    and bitmap that its wrapper keeps (zero on entry, and checked zero
+    after every launch), the earlier one a scratch of its own;
+  * K1/K2 forward and backward at the channel counts no shipped grid has
+    (chip_smoke.HASH_CHANNEL_CASES) and on grids beyond 32 levels or 8
+    channels (chip_smoke.HASH_WIDE_CASES, K1 and K2), each at a tracking
+    iteration's 1024 x 98 ray-ordered points and as many uniform ones;
+    K2's backward on bf16 rows at L16 C16 and L8 C12 (ray-ordered);
   * K3 on both SDF grids: chip_smoke.BF16_ORDERS (a density-cache build
     chunk, a render chunk's ray-ordered prepass, uniform points);
   * K5 at chip_smoke.SAMPLER_RAYS rays and K5 given densities at
@@ -139,8 +144,8 @@ def hash_cases(dev, calls, rows_out):
         # scratch zero on entry and leaves it zero; an earlier one zeroes
         # it itself)
         scratch = {"this": he.fixed_point_scratch(spec, dev),
-                   "earlier": torch.zeros(T * C + max(L, 32), dtype=torch.int64,
-                                           device=dev)}
+                   "earlier": torch.zeros(he.fixed_point_words(spec), dtype=torch.int64,
+                                          device=dev)}
         for order in ("ray", "uniform"):
             x = chip_smoke.hash_points(g, dev, kind, order)
             N = x.shape[0]
@@ -169,7 +174,7 @@ def hash_cases(dev, calls, rows_out):
             for side in calls:
                 fwd(side)(), bwd(side)()
             torch.cuda.synchronize()
-            zero_after = [he.fixed_point_state_is_zero(spec, scratch["this"])]
+            zero_after = [he.fixed_point_state_is_zero(scratch["this"])]
             a, b = out["this"], out["earlier"]
             errs = [chip_smoke.max_abs(a["feats"], b["feats"]) / float(b["feats"].abs().max())]
             if jac:
@@ -182,7 +187,7 @@ def hash_cases(dev, calls, rows_out):
             same = bool(torch.equal(a["g_table"], b["g_table"]))
             tf = turns({s: fwd(s) for s in calls})
             tb = turns({s: bwd(s) for s in calls})
-            zero_after.append(he.fixed_point_state_is_zero(spec, scratch["this"]))
+            zero_after.append(he.fixed_point_state_is_zero(scratch["this"]))
             same &= bool(torch.equal(a["g_table"], b["g_table"]))
             ok = (max(errs) <= chip_smoke.VAL_RTOL and max(rel) <= chip_smoke.GRAD_REL_L2
                   and exact and all(zero_after))
@@ -275,7 +280,8 @@ def bf16_bwd_cases(dev, calls, rows_out):
     packed = he.pack_table_bf16(torch.rand((T, C), generator=g, device=dev) * 2 - 1)
     meta, scl = he._level_tables(spec, 1.0, str(dev))
     scratch = {"this": he.fixed_point_scratch(spec, dev),
-               "earlier": torch.zeros(T * C + 32, dtype=torch.int64, device=dev)}
+               "earlier": torch.zeros(he.fixed_point_words(spec), dtype=torch.int64,
+                                      device=dev)}
     for kind in chip_smoke.BF16_BWD_CASES:
         x = chip_smoke.hash_points(g, dev, kind, "ray")
         N, rows = x.shape[0], chip_smoke.touched_rows(spec, x)
@@ -295,7 +301,7 @@ def bf16_bwd_cases(dev, calls, rows_out):
         (ta, xa), (tb, xb) = out["this"], out["earlier"]
         rel = [chip_smoke.rel_l2(ta, tb), chip_smoke.rel_l2(xa, xb)]
         exact = bool(torch.equal(ta, he.hash_table_grad_fixed_plain(spec, x, gf)))
-        zero = he.fixed_point_state_is_zero(spec, scratch["this"])
+        zero = he.fixed_point_state_is_zero(scratch["this"])
         nb, ops = chip_smoke.hash_cost(spec, N, rows, False, True)
         rows_out.append(dict(
             case=f"K2 bf16 bwd color/{kind}/ray", points=N,
@@ -310,6 +316,116 @@ def bf16_bwd_cases(dev, calls, rows_out):
         torch.cuda.empty_cache()
     del packed, scratch
     torch.cuda.empty_cache()
+
+
+def segmented_cases(dev, calls, rows_out):
+    """K1/K2 at chip_smoke.HASH_CHANNEL_CASES and HASH_WIDE_CASES (K1 and
+    K2), ray-ordered and uniform, forward and backward with the table
+    gradient and grad_x; then K2's backward on bf16 rows at L16 C16 and L8
+    C12, ray-ordered. This checkout's table gradient bit for bit with
+    hash_table_grad_fixed_plain and its state zero after every launch; the
+    earlier one's within GRAD_REL_L2 (an exponent per segment and another
+    merge order round elsewhere)."""
+    import torch
+    from nicer_slam_tpu_torch.ops import _cuda
+    from nicer_slam_tpu_torch.ops import hash_encoder as he
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    grids = [(chip_smoke.channel_spec(L, C), (jac,), f"L{L} C{C}", False)
+             for L, C, jac in chip_smoke.HASH_CHANNEL_CASES]
+    grids += [(chip_smoke.wide_spec(L, C), (True, False), f"L{L} C{C}", False)
+              for L, C in chip_smoke.HASH_WIDE_CASES]
+    grids += [(chip_smoke.wide_spec(L, C), (False,), f"L{L} C{C}", True)
+              for L, C in ((16, 16), (8, 12))]
+    for spec, jacs, tag, bf16 in grids:
+        L, C, T = spec.num_levels, spec.level_dim, spec.total_entries
+        table = torch.rand((T, C), generator=g, device=dev) * 2 - 1
+        rows_t = he.pack_table_bf16(table) if bf16 else table
+        meta, scl = he._level_tables(spec, 1.0, str(dev))
+        scratch = {"this": he.fixed_point_scratch(spec, dev),
+                   "earlier": torch.zeros(he.fixed_point_words(spec), dtype=torch.int64,
+                                          device=dev)}
+        for order in (("ray",) if bf16 else ("ray", "uniform")):
+            x = (chip_smoke.ray_points(g, dev, chip_smoke.TRACK_RAYS, 98) if order == "ray"
+                 else chip_smoke.uniform_points(g, dev, chip_smoke.TRACK_RAYS * 98))
+            N, rows = x.shape[0], chip_smoke.touched_rows(spec, x)
+            for jac in jacs:
+                gf = torch.randn((N, L * C), generator=g, device=dev)
+                gd = torch.randn((N, L * C, 3), generator=g, device=dev) if jac else None
+                out = {s_: dict(feats=torch.empty((N, L * C), device=dev),
+                                dfeat=torch.empty((N, L * C, 3), device=dev) if jac else None,
+                                g_table=torch.empty_like(table),
+                                g_x=torch.empty((N, 3), device=dev)) for s_ in calls}
+
+                def fwd(side, jac=jac):
+                    o = out[side]
+                    return lambda: calls[side](
+                        "nsl_hash_encode_fwd", x.data_ptr(), table.data_ptr(), meta.data_ptr(),
+                        scl.data_ptr(), o["feats"].data_ptr(), _cuda.ptr(o["dfeat"]),
+                        N, L, C, 1.0)
+
+                def bwd(side, gf=gf, gd=gd):
+                    o = out[side]
+                    if bf16:
+                        return lambda: calls[side](
+                            "nsl_hash_encode_bf16_bwd", x.data_ptr(), rows_t.data_ptr(),
+                            meta.data_ptr(), scl.data_ptr(), gf.data_ptr(),
+                            o["g_table"].data_ptr(), o["g_x"].data_ptr(),
+                            scratch[side].data_ptr(), N, L, C, 1.0, T)
+                    return lambda: calls[side](
+                        "nsl_hash_encode_bwd", x.data_ptr(), table.data_ptr(), meta.data_ptr(),
+                        scl.data_ptr(), gf.data_ptr(), _cuda.ptr(gd), o["g_table"].data_ptr(),
+                        o["g_x"].data_ptr(), scratch[side].data_ptr(), N, L, C, 1.0, T)
+
+                for side in calls:
+                    if not bf16:
+                        fwd(side)()
+                    bwd(side)()
+                torch.cuda.synchronize()
+                zero_after = [he.fixed_point_state_is_zero(scratch["this"])]
+                a, b = out["this"], out["earlier"]
+                errs = []
+                if not bf16:
+                    errs.append(chip_smoke.max_abs(a["feats"], b["feats"])
+                                / float(b["feats"].abs().max()))
+                    if jac:
+                        errs.append(chip_smoke.max_abs(a["dfeat"], b["dfeat"])
+                                    / float(b["dfeat"].abs().max()))
+                rel = [chip_smoke.rel_l2(a["g_table"], b["g_table"]),
+                       chip_smoke.rel_l2(a["g_x"], b["g_x"])]
+                exact = bool(torch.equal(a["g_table"],
+                                         he.hash_table_grad_fixed_plain(spec, x, gf, gd)))
+                same = bool(torch.equal(a["g_table"], b["g_table"]))
+                tf = None if bf16 else turns({s_: fwd(s_) for s_ in calls})
+                tb = turns({s_: bwd(s_) for s_ in calls})
+                zero_after.append(he.fixed_point_state_is_zero(scratch["this"]))
+                ok = (max(errs, default=0.0) <= chip_smoke.VAL_RTOL
+                      and max(rel) <= chip_smoke.GRAD_REL_L2 and exact and all(zero_after))
+                kname = "K2 bf16" if bf16 else "K1" if jac else "K2"
+                nb, ops = chip_smoke.hash_cost(spec, N, rows, jac, True)
+                floor = chip_smoke.hash_floor_ms(spec, N, rows, jac)
+                if bf16:
+                    nb -= rows * C * 2
+                    floor -= rows * C * 2 / chip_smoke.HBM_BYTES_PER_S * 1e3
+                agree = dict(value_err=max(errs, default=0.0), grad_rel_l2=max(rel),
+                             table_grad_bit_equal_plain=exact,
+                             table_grad_bit_equal_earlier=same,
+                             accumulator_zero_after=zero_after)
+                if tf is not None:
+                    rows_out.append(dict(
+                        case=f"{kname} fwd {tag}/{order}", points=N, ok=ok, agreement=agree,
+                        times_ms=tf,
+                        bound_ms=chip_smoke.bound(
+                            *chip_smoke.hash_cost(spec, N, rows, jac, False))[0]))
+                rows_out.append(dict(
+                    case=f"{kname} bwd {tag}/{order}", points=N, ok=ok, agreement=agree,
+                    times_ms=tb, bound_ms=chip_smoke.bound(nb, ops)[0], floor_ms=floor))
+                del gf, gd, out
+            del x
+            torch.cuda.empty_cache()
+        del table, rows_t, scratch
+        torch.cuda.empty_cache()
 
 
 def bf16_cases(dev, calls, rows_out):
@@ -652,7 +768,7 @@ def main(argv=None) -> int:
     calls = {"earlier": caller(build_other(args.other)), "this": caller(_cuda.library())}
     rows_out = []
     for cases in (composite_cases, bf16_cases, sampler_cases, voxel_cases, tracking_cases,
-                  bf16_bwd_cases, hash_cases):
+                  bf16_bwd_cases, hash_cases, segmented_cases):
         done = len(rows_out)
         cases(dev, calls, rows_out)
         for row in rows_out[done:]:

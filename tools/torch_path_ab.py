@@ -3,12 +3,15 @@
 card.
 
   git archive <commit> | tar -x -C build/other
-  python3 tools/torch_path_ab.py --other build/other [--out build/path_ab.json]
+  python3 tools/torch_path_ab.py --other build/other [--kinds demo,flagship]
+      [--frames 11] [--out build/path_ab.json]
 
-Runs chip_smoke.py's demo and flagship configurations (the same synthetic
-scans, confs and cuts, without the checkpoint writes) from the other
-checkout and from this one, each run in a process of its own, in turns:
-other, this, this, other. Both read the scans this checkout generates.
+Runs chip_smoke.py's configurations named by --kinds (chip_smoke.PATHS:
+by default the demo and the flagship; ``wide`` is phase 5d's, on the
+flagship scan; the same synthetic scans, confs and cuts, --frames frames,
+without the checkpoint writes) from the other checkout and from this one,
+each run in a process of its own, in turns: other, this, this, other.
+Both read the scans this checkout generates.
 Reports per run the runner's phase times: ms per mapping and per tracking
 iteration, ms per density-cache build, s/frame (the loop over the 11
 frames, card synchronised at both ends), the peak device memory of the
@@ -44,10 +47,10 @@ import chip_smoke
 from nicer_slam_tpu_torch.slam import runner as runner_mod
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-kind, data_dir, tag = sys.argv[1:4]
+kind, data_dir, tag, frames = sys.argv[1:5]
 os.makedirs(chip_smoke.SMOKE_DIR, exist_ok=True)
 torch.cuda.reset_peak_memory_stats()
-r = runner_mod.SLAMRunner(conf=chip_smoke.write_conf(kind, data_dir),
+r = runner_mod.SLAMRunner(conf=chip_smoke.write_conf(kind, data_dir, int(frames)),
                           root_dir=chip_smoke.SMOKE_DIR, exps_folder_name="exps_ab_" + tag,
                           quiet=True, device="cuda")
 r.timer = runner_mod.PhaseTimer(r.device)
@@ -114,17 +117,17 @@ print("RESULT " + json.dumps(dict(
     phases_s={k: v["total_s"] for k, v in s.items()})))
 """
 
-# the two SLAM main paths (chip_smoke.PATHS holds the other runs too)
-KINDS = ("demo", "flagship")
+# the scan each path reads (the others read their own)
+SCENES = {"wide": "flagship"}
 METRICS = ("ms_per_map_iter", "ms_per_track_iter", "ms_per_cache_build", "s_per_frame",
            "render_s", "vis_s", "peak_mem_GiB", "vis_peak_mem_GiB", "kernels_per_track_iter",
            "kernels_per_map_iter", "kernels_per_cache_build", "device_ops_per_track_iter",
            "device_ops_per_map_iter", "device_ops_per_cache_build")
 
 
-def one_run(tree: str, kind: str, data_dir: str, tag: str) -> dict:
+def one_run(tree: str, kind: str, data_dir: str, tag: str, frames: int) -> dict:
     env = dict(os.environ, PYTHONPATH=tree)
-    out = subprocess.run([sys.executable, "-c", _RUN, kind, data_dir, tag], cwd=tree,
+    out = subprocess.run([sys.executable, "-c", _RUN, kind, data_dir, tag, str(frames)], cwd=tree,
                          env=env, capture_output=True, text=True)
     if out.returncode != 0:
         raise RuntimeError(f"{tag} failed ({out.returncode}):\n{out.stderr[-3000:]}")
@@ -135,8 +138,12 @@ def one_run(tree: str, kind: str, data_dir: str, tag: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, help="root of the other checkout")
+    ap.add_argument("--kinds", default="demo,flagship",
+                    help="chip_smoke.PATHS entries, comma-separated")
+    ap.add_argument("--frames", type=int, default=chip_smoke.N_FRAMES)
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "path_ab.json"))
     opt = ap.parse_args()
+    kinds = opt.kinds.split(",")
     import torch
     if not torch.cuda.is_available():
         print("torch_path_ab: no CUDA device", file=sys.stderr)
@@ -146,7 +153,7 @@ def main() -> int:
     trees = {"other": os.path.abspath(opt.other), "this": ROOT}
     procs = chip_smoke.start_scenes()
     try:
-        data = {kind: chip_smoke.wait_scene(procs, kind) for kind in KINDS}
+        data = {kind: chip_smoke.wait_scene(procs, SCENES.get(kind, kind)) for kind in kinds}
     finally:
         for p in procs.values():
             if p.poll() is None:
@@ -154,12 +161,12 @@ def main() -> int:
                 p.wait()
     runs = []
     for i, side in enumerate(("other", "this", "this", "other")):
-        for kind in KINDS:
-            r = one_run(trees[side], kind, data[kind], f"{kind}_{side}_{i}")
+        for kind in kinds:
+            r = one_run(trees[side], kind, data[kind], f"{kind}_{side}_{i}", opt.frames)
             runs.append(dict(side=side, kind=kind, turn=i, **r))
             print(f"turn {i} {side:5s} {kind:8s} " + " ".join(
                 f"{m}={r[m]:.4g}" for m in METRICS), flush=True)
-    for kind in KINDS:
+    for kind in kinds:
         for m in METRICS:
             vals = {s: [r[m] for r in runs if r["kind"] == kind and r["side"] == s]
                     for s in trees}
